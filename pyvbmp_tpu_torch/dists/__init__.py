@@ -1,0 +1,18 @@
+"""Conjugate exponential-family nodes and message types."""
+from .delta import Delta
+from .diagonal_wishart import DiagonalWishart
+from .dirichlet import Dirichlet
+from .gamma import Gamma
+from .mvn_vector_format import MultivariateNormal_vector_format
+from .niw import NormalInverseWishart
+from .wishart import Wishart
+
+__all__ = [
+    "Delta",
+    "DiagonalWishart",
+    "Dirichlet",
+    "Gamma",
+    "MultivariateNormal_vector_format",
+    "NormalInverseWishart",
+    "Wishart",
+]

@@ -1,0 +1,399 @@
+"""Dynamic Markov Blanket Discovery (counterpart of pyvbmp_tpu/models/dmbd.py).
+
+An LDS whose observation model is an ARHMM over "roles"; the latent x is
+partitioned into (environment s, boundary b, internal z) blocks per object,
+enforced by structural masks on the dynamics (A_mask), the emission (B_mask)
+and the role transitions (role_mask).  Coordinate ascent interleaves the role
+smoother (a log-semiring scan pair) and the Kalman smoother (a Gaussian
+potential scan pair): four scans per sweep.
+
+Not ported yet: ``unique_obs=True``, ``time_mesh``, ``batch_shape``,
+``latent_iters``, the sequential smoothers (``parallel_scan=False``),
+``Elog_like``, ``KLqprior``/``ELBO`` and the assignment and plotting methods.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..dists import NormalInverseWishart
+from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
+from ..ops.parallel_hmm import forward_backward_parallel
+from ..transforms import MatrixNormalGamma
+from ..utils.linalg import mT, psd_inv_and_logdet
+from ..utils.torchutils import brole_avg, replace, sum_leading
+from .arhmm import ARHMM_prXRY
+from .lds import LinearDynamicalSystems
+
+
+def _block(A, B, C, D):
+    return np.block([[A, B], [C, D]])
+
+
+def one_object_mask(hidden_dims, role_dims, control_dim, obs_dim, regression_dim):
+    """Standard masks for a single object."""
+    hd, rd = hidden_dims, role_dims
+    As = np.concatenate(
+        [np.ones((hd[0], hd[0] + hd[1])), np.zeros((hd[0], hd[2]))], -1
+    )
+    Ab = np.ones((hd[1], hd[0] + hd[1] + hd[2]))
+    Az = np.concatenate(
+        [np.zeros((hd[2], hd[0])), np.ones((hd[2], hd[1] + hd[2]))], -1
+    )
+    if len(hd) == 4:
+        As = np.concatenate([As, np.zeros((hd[0], hd[3]))], -1)
+        Ab = np.concatenate([Ab, np.zeros((hd[1], hd[3]))], -1)
+        Az = np.concatenate([Az, np.zeros((hd[2], hd[3]))], -1)
+        Ag = np.concatenate(
+            [np.zeros((hd[3], sum(hd[:-1]))), np.ones((hd[3], hd[3]))], -1
+        )
+        A_mask = np.concatenate([As, Ab, Az, Ag], -2)
+    else:
+        A_mask = np.concatenate([As, Ab, Az], -2)
+    A_mask = np.concatenate(
+        [A_mask, np.ones(A_mask.shape[:-1] + (control_dim,))], -1
+    ) > 0
+
+    def emission_rows(role_n, active):
+        out = []
+        for j, h in enumerate(hd[:3]):
+            out.append(
+                np.ones((role_n, obs_dim, h))
+                if j in active
+                else np.zeros((role_n, obs_dim, h))
+            )
+        return np.concatenate(out, -1)
+
+    Bs = emission_rows(rd[0], {0})
+    Bb = emission_rows(rd[1], {1})
+    Bz = emission_rows(rd[2], {2})
+    if len(hd) == 4:
+        Bs = np.concatenate([Bs, np.ones((rd[0], obs_dim, hd[3]))], -1)
+        Bb = np.concatenate([Bb, np.ones((rd[1], obs_dim, hd[3]))], -1)
+        Bz = np.concatenate([Bz, np.ones((rd[2], obs_dim, hd[3]))], -1)
+    B_mask = np.concatenate([Bs, Bb, Bz], -3)
+    B_mask = np.concatenate(
+        [B_mask, np.ones(B_mask.shape[:-1] + (regression_dim,))], -1
+    ) > 0
+
+    role_dim = sum(rd[:3])
+    rs = np.concatenate(
+        [np.ones((rd[0], rd[0] + rd[1])), np.zeros((rd[0], rd[2]))], -1
+    )
+    rb = np.ones((rd[1], role_dim))
+    rz = np.concatenate(
+        [np.zeros((rd[2], rd[0])), np.ones((rd[2], rd[1] + rd[2]))], -1
+    )
+    role_mask = np.concatenate([rs, rb, rz], -2)
+    return A_mask, B_mask, role_mask
+
+
+def n_object_mask(n, hidden_dims, role_dims, control_dim, obs_dim, regression_dim):
+    """Masks for n objects sharing one environment."""
+    hd, rd = hidden_dims, role_dims
+    bz = np.ones((hd[1] + hd[2], hd[1] + hd[2]))
+    notbz = np.zeros_like(bz)
+    bz_mask = _block(bz, notbz, notbz, bz)
+    sb = np.ones((hd[0], hd[1]))
+    sz = np.zeros((hd[0], hd[2]))
+    sbz_mask = np.concatenate([sb, sz], -1)
+    for _ in range(n - 2):
+        bz_mask = _block(
+            bz_mask,
+            np.zeros((bz_mask.shape[0], bz.shape[0])),
+            np.zeros((bz.shape[0], bz_mask.shape[0])),
+            bz,
+        )
+    for _ in range(n - 1):
+        sbz_mask = np.concatenate([sbz_mask, sb, sz], -1)
+    A_mask = _block(np.ones((hd[0], hd[0])), sbz_mask, sbz_mask.T, bz_mask)
+    A_mask = np.concatenate([A_mask, np.ones(A_mask.shape[:-1] + (control_dim,))], -1)
+
+    Bb = np.concatenate([np.ones((rd[1], hd[1])), np.zeros((rd[1], hd[2]))], -1)
+    Bz = np.concatenate([np.zeros((rd[2], hd[1])), np.ones((rd[2], hd[2]))], -1)
+    Bbz = np.concatenate([Bb, Bz], -2)
+    B_mask = np.ones((rd[0], hd[0]))
+    for _ in range(n):
+        B_mask = _block(
+            B_mask,
+            np.zeros((B_mask.shape[0], Bbz.shape[1])),
+            np.zeros((Bbz.shape[0], B_mask.shape[1])),
+            Bbz,
+        )
+    B_mask = np.broadcast_to(
+        B_mask[:, None, :], (B_mask.shape[0], obs_dim, B_mask.shape[1])
+    )
+    B_mask = np.concatenate(
+        [B_mask, np.ones(B_mask.shape[:-1] + (regression_dim,))], -1
+    )
+
+    bz = np.ones((rd[1] + rd[2], rd[1] + rd[2]))
+    notbz = np.zeros_like(bz)
+    bz_mask = _block(bz, notbz, notbz, bz)
+    sb = np.ones((rd[0], rd[1]))
+    sz = np.zeros((rd[0], rd[2]))
+    sbz_mask = np.concatenate([sb, sz], -1)
+    for _ in range(n - 2):
+        bz_mask = _block(
+            bz_mask,
+            np.zeros((bz_mask.shape[0], bz.shape[0])),
+            np.zeros((bz.shape[0], bz_mask.shape[0])),
+            bz,
+        )
+    for _ in range(n - 1):
+        sbz_mask = np.concatenate([sbz_mask, sb, sz], -1)
+    role_mask = _block(np.ones((rd[0], rd[0])), sbz_mask, sbz_mask.T, bz_mask)
+    return A_mask > 0, B_mask > 0, role_mask > 0
+
+
+class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
+    def __init__(
+        self,
+        obs_shape,
+        role_dims,
+        hidden_dims,
+        control_dim=0,
+        regression_dim=0,
+        number_of_objects=1,
+        unique_obs=False,
+        parallel_scan=True,
+        generator=None,
+        dtype=None,
+        device=None,
+    ):
+        if unique_obs:
+            raise NotImplementedError("unique_obs=True is not ported yet")
+        if not parallel_scan:
+            raise NotImplementedError(
+                "the sequential smoothers (parallel_scan=False) are not ported yet"
+            )
+        dtype = dtype or torch.get_default_dtype()
+        control_dim = control_dim + 1
+        regression_dim = regression_dim + 1
+        obs_dim = obs_shape[-1]
+
+        if number_of_objects > 1:
+            hidden_dim = hidden_dims[0] + number_of_objects * (
+                hidden_dims[1] + hidden_dims[2]
+            )
+            role_dim = role_dims[0] + number_of_objects * (role_dims[1] + role_dims[2])
+            A_mask, B_mask, role_mask = n_object_mask(
+                number_of_objects, hidden_dims, role_dims, control_dim, obs_dim,
+                regression_dim,
+            )
+        else:
+            hidden_dim = sum(hidden_dims)
+            role_dim = sum(role_dims)
+            A_mask, B_mask, role_mask = one_object_mask(
+                hidden_dims, role_dims, control_dim, obs_dim, regression_dim
+            )
+
+        self.number_of_objects = number_of_objects
+        self.obs_shape = tuple(obs_shape)
+        self.obs_dim = obs_dim
+        self.event_dim = len(obs_shape)
+        self.n_obs = obs_shape[0]
+        self.role_dims = tuple(role_dims)
+        self.role_dim = role_dim
+        self.hidden_dims = tuple(hidden_dims)
+        self.hidden_dim = hidden_dim
+        self.control_dim = control_dim
+        self.regression_dim = regression_dim
+        self.batch_shape = ()
+        self.batch_dim = 0
+        self.offset = (1,) * (len(obs_shape) - 1)
+        self.ELBO_save = []
+        self.ELBO_last = -float("inf")
+        self.iters = 0
+        self.px = None
+        self.logZ = None
+
+        self.x0 = NormalInverseWishart.create(
+            self.offset + (hidden_dim,), self.batch_shape, generator=generator,
+            dtype=dtype, device=device,
+        )
+        self.x0 = replace(self.x0, mu=torch.zeros_like(self.x0.mu))
+
+        self.A = MatrixNormalGamma.create(
+            self.offset + (hidden_dim, hidden_dim + control_dim),
+            self.batch_shape,
+            mask=A_mask,
+            uniform_precision=False,
+            generator=generator,
+            dtype=dtype,
+            device=device,
+        )
+
+        self.obs_model = ARHMM_prXRY(
+            role_dim,
+            obs_dim,
+            hidden_dim,
+            regression_dim,
+            batch_shape=self.batch_shape,
+            X_mask=B_mask.sum(-2, keepdims=True) > 0,
+            transition_mask=torch.as_tensor(role_mask > 0, device=device),
+            generator=generator,
+            dtype=dtype,
+            device=device,
+        )
+
+        # B-prior tweak: scale invU_0 down by role_dim^2 (reference DMBD:81-84)
+        B = self.obs_model.obs_dist
+        invU_0 = B.invU.invU_0 / float(role_dim**2)
+        U, logdet = psd_inv_and_logdet(invU_0)
+        self.obs_model.obs_dist = replace(
+            B,
+            invU=replace(
+                B.invU,
+                invU_0=invU_0,
+                invU=invU_0,
+                U=U,
+                logdet_invU_0=logdet,
+                logdet_invU=logdet,
+            ),
+        )
+        # NOTE: the reference also sets ``B.ptemp = 20.0`` (DMBD:85), but the
+        # HMM smoother reads the temperature from the obs_model (=1.0), so the
+        # attribute is dead, as in the JAX package.
+
+    def to(self, device=None, dtype=None):
+        """Move the model's nodes and state in place; returns self."""
+        self.x0 = self.x0.to(device, dtype)
+        self.A = self.A.to(device, dtype)
+        self.obs_model.to(device, dtype)
+        if self.px is not None:
+            self.px = self.px.to(device, dtype)
+        return self
+
+    # -------------------------------------------------------- role E/M pieces
+    def _px4r(self, px, r):
+        target_shape = tuple(r.shape[:-2])
+        h = self.hidden_dim
+        return MVN_vf(
+            mu=px.mu.expand(target_shape + (h, 1)),
+            Sigma=px.Sigma.expand(target_shape + (h, h)),
+            invSigmamu=px.invSigmamu.expand(target_shape + (h, 1)),
+            invSigma=px.invSigma.expand(target_shape + (h, h)),
+        ).unsqueeze(-self.obs_model.event_dim - 2)
+
+    def _init_px(self, r):
+        h = self.hidden_dim
+        lead = tuple(r.shape[:-3]) + (1,)
+        eye = torch.eye(h, dtype=r.dtype, device=r.device).expand(lead + (h, h))
+        zer = r.new_zeros(lead + (h, 1))
+        return MVN_vf(mu=zer, Sigma=eye, invSigmamu=zer, invSigma=eye)
+
+    def _role_estep(self, transition, initial, B, px, y, r):
+        """obs_model.update_states on (px4r, r, y)."""
+        om = self.obs_model
+        unsdim = om.event_dim + 2
+        px4r = self._px4r(px, r)
+        XRY = (px4r, r.unsqueeze(-unsdim), y.unsqueeze(-unsdim))
+        logits = om._obs_logits(B, XRY)
+        p, SEzz, SEz0, _ = forward_backward_parallel(
+            transition.loggeomean(), initial.loggeomean(), logits, om.ptemp
+        )
+        keep = om.batch_dim + om.event_dim
+        return p, sum_leading(SEzz, keep + 1), sum_leading(SEz0, keep)
+
+    def log_likelihood_function_role(self, B, p, Y, R):
+        """Role-averaged observation messages for the Kalman E-step."""
+        om = self.obs_model
+        unsdim = om.event_dim + 2
+        invSigma, invSigmamu, Residual = _arhmm_elog_like_X(
+            om, B, (Y.unsqueeze(-unsdim), R.unsqueeze(-unsdim)), p
+        )
+        return (
+            invSigma.sum(-unsdim, keepdim=True),
+            invSigmamu.sum(-unsdim, keepdim=True),
+            Residual.sum(-unsdim + 2, keepdim=True),
+        )
+
+    # ------------------------------------------------------------- full sweep
+    def _dmbd_step(self, x0, A, transition, initial, B, px, y, u, r, lr):
+        om = self.obs_model
+        # role E-step
+        p, SEzz, SEz0 = self._role_estep(transition, initial, B, px, y, r)
+        # role M-step
+        transition = transition.ss_update(SEzz, lr=lr)
+        initial = initial.ss_update(SEz0, lr=lr)
+        unsdim = om.event_dim + 2
+        px4r = self._px4r(px, r)
+        XRY = (px4r, r.unsqueeze(-unsdim), y.unsqueeze(-unsdim))
+        B = om._obs_update(B, XRY, p, lr, None)
+        # latent E-step with updated roles
+        like = self.log_likelihood_function_role(B, p, y, r)
+        px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, logZ = (
+            self._smoother(self._latent_parms(A), x0, like, u)
+        )
+        ss = self._latent_suffstats(
+            px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, y, u, r, logZ
+        )
+        logZ = ss["logZ"]
+        # ELBO
+        KL = x0.KLqprior() + A.KLqprior()
+        for _ in range(len(self.offset)):
+            if KL.ndim > 0:
+                KL = KL[..., 0] if KL.shape[-1] == 1 else KL
+        KL = KL + (
+            B.KLqprior().sum(-1)
+            + transition.KLqprior().sum(-1)
+            + initial.KLqprior()
+        )
+        lgm = transition.loggeomean()
+        contrib = torch.where(
+            torch.isfinite(lgm), lgm * SEzz, torch.zeros_like(lgm)
+        ).sum()
+        contrib = contrib + (initial.loggeomean() * SEz0).sum()
+        safe_p = torch.where(p > 1e-8, p, torch.ones_like(p))
+        contrib = contrib - torch.where(
+            p > 1e-8, p * torch.log(safe_p), torch.zeros_like(p)
+        ).sum()
+        ELBO = sum_leading(logZ, self.batch_dim).sum() - KL.sum() + contrib
+        # latent M-step
+        x0, A, _ = self._ss_update(x0, A, ss, lr=lr)
+        return x0, A, transition, initial, B, px, p, logZ, ELBO
+
+    def update(self, y, u=None, r=None, iters=1, lr=1.0, verbose=False):
+        """``iters`` VB-EM sweeps on data y: (T,) + sample + obs_shape."""
+        y, u, r = self.reshape_inputs(y, u, r)
+        om = self.obs_model
+        px = self._init_px(r) if self.px is None else self.px
+        x0, A = self.x0, self.A
+        transition, initial, B = om.transition, om.initial, om.obs_dist
+        ELBOs = []
+        for _ in range(iters):
+            x0, A, transition, initial, B, px, p, logZ, ELBO = self._dmbd_step(
+                x0, A, transition, initial, B, px, y, u, r, lr
+            )
+            ELBOs.append(ELBO)
+        self.x0, self.A = x0, A
+        om.transition, om.initial, om.obs_dist = transition, initial, B
+        om.p, self.px, self.logZ = p, px, logZ
+        self.iters += iters
+        # one host fetch for the whole trajectory
+        for e in torch.stack(ELBOs).cpu().tolist():
+            if verbose:
+                print(
+                    "Percent Change in ELBO = ",
+                    (e - self.ELBO_last) / abs(self.ELBO_last) * 100,
+                )
+            self.ELBO_last = float(e)
+            self.ELBO_save.append(float(e))
+
+
+def _arhmm_elog_like_X(om, B, YR, p):
+    """ARHMM_prXRY.Elog_like_X with explicit obs_dist B and assignments p."""
+    Y, R = YR
+    invSigma_xr_xr, invSigmamu_xr, Residual = B.Elog_like_X(Y)
+    p1 = om.p1
+    invSigma_x_x = invSigma_xr_xr[..., :p1, :p1]
+    invSigmamu_x = invSigmamu_xr[..., :p1, :] - invSigma_xr_xr[..., :p1, p1:] @ R
+    Residual = Residual - 0.5 * (
+        invSigma_xr_xr[..., p1:, p1:] * (R * mT(R))
+    ).sum((-1, -2))
+    Residual = Residual + (invSigmamu_xr[..., p1:, :] * R).sum((-1, -2))
+    invSigma_x_x = brole_avg(invSigma_x_x, p)
+    invSigmamu_x = brole_avg(invSigmamu_x, p)
+    Residual = (Residual * p).sum(-1)
+    return invSigma_x_x, invSigmamu_x, Residual

@@ -1,0 +1,219 @@
+"""The smoothers' prefix and suffix scans: two CUDA kernels and their plain
+PyTorch versions (counterpart of pyvbmp_tpu/ops/chunked_scan.py:auto_scan and
+the Pallas kernel pyvbmp_tpu/ops/pallas_scan.py:_build_call).
+
+Both scans are inclusive scans over axis 0 of an associative combine with no
+identity element, in chain order:
+
+    forward: out[t] = e[0] o e[1] o ... o e[t]
+    reverse: out[t] = e[t] o e[t+1] o ... o e[T-1]
+
+- ``logsemiring_scan(M)``: M is (T, K, K, N), the combine is
+  ``parallel_hmm._logmatmul_plane`` (the role chain);
+- ``kalman_plane_scan((Jaa, Jab, Jbb, ha, hb, logw))``: Gaussian pair
+  potentials in plane layout, the combine is
+  ``parallel_kalman._combine_plane`` (the latent chain).
+
+Dispatch is by the device of the input: a CPU tensor goes through the plain
+version (a sequential left fold of the combine), a CUDA tensor launches the
+kernel and raises on anything the kernel does not take.  There is no
+fallback from one to the other.
+
+The kernels are built from ``pyvbmp_tpu_torch/csrc/*.cu`` with ``nvcc`` at
+their first launch in a process, into ``pyvbmp_tpu_torch/_build/`` (keyed by
+a hash of the sources and flags), and bound with ``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_library = None
+
+
+def _find_nvcc():
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the scan kernels cannot be built")
+    return nvcc
+
+
+def load_library():
+    """Build (once per source hash) and load the kernels' shared library.
+
+    Returns the ``ctypes.CDLL``.  The compiler's report (registers, spills)
+    is kept beside the library as ``<name>.log``."""
+    global _library
+    if _library is not None:
+        return _library
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libpyvbmp_scans_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building the scan kernels failed ({proc.returncode}):\n"
+                + proc.stderr[-4000:]
+            )
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.logsemiring_scan_f32.argtypes = [vp, vp, ci, ci, ci, ci, vp]
+    lib.logsemiring_scan_f32.restype = ci
+    lib.kalman_plane_scan_f32.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+    lib.kalman_plane_scan_f32.restype = ci
+    _library = lib
+    return lib
+
+
+def _logmatmul_plane(a, b):
+    from .parallel_hmm import _logmatmul_plane as combine
+
+    return combine(a, b)
+
+
+def _combine_plane(e1, e2):
+    from .parallel_kalman import _combine_plane as combine
+
+    return combine(e1, e2)
+
+
+class Scan:
+    """One scan: its kernel, its plain version and their counts.
+
+    ``launches`` counts kernel launches and nothing else; ``plain_calls``
+    counts runs of the plain version."""
+
+    def __init__(self, name, symbol, source, replaces, sizes, combine,
+                 leaf_shapes):
+        self.name = name
+        self.symbol = symbol
+        self.source = source
+        self.replaces = replaces
+        self.sizes = tuple(sizes)  # instantiated K or H
+        self.combine = combine
+        self.leaf_shapes = leaf_shapes  # (T, size, N) -> shape of each leaf
+        self.launches = 0
+        self.plain_calls = 0
+
+    def __call__(self, leaves, reverse=False):
+        device = leaves[0].device
+        if device.type == "cpu":
+            return self.plain(leaves, reverse)
+        if device.type == "cuda":
+            return self.kernel(leaves, reverse)
+        raise ValueError(f"{self.name}: no version for device {device}")
+
+    def plain(self, leaves, reverse=False):
+        """Sequential left fold in the kernel's association order."""
+        self.plain_calls += 1
+        T = leaves[0].shape[0]
+        out = [torch.empty_like(x) for x in leaves]
+        carry = None
+        for t in (range(T - 1, -1, -1) if reverse else range(T)):
+            e = tuple(x[t] for x in leaves)
+            if carry is None:
+                carry = e
+            elif reverse:
+                carry = self.combine(e, carry)
+            else:
+                carry = self.combine(carry, e)
+            for o, c in zip(out, carry):
+                o[t] = c
+        return out
+
+    def kernel(self, leaves, reverse=False):
+        T, size, N = leaves[0].shape[0], leaves[0].shape[1], leaves[0].shape[-1]
+        if size not in self.sizes:
+            raise ValueError(
+                f"{self.name}: size {size} is not instantiated (have {self.sizes})"
+            )
+        want = self.leaf_shapes(T, size, N)
+        if len(leaves) != len(want):
+            raise ValueError(f"{self.name}: want {len(want)} leaves, got {len(leaves)}")
+        device = leaves[0].device
+        for x, shape in zip(leaves, want):
+            if x.device != device or x.dtype != torch.float32:
+                raise TypeError(f"{self.name}: leaves must be float32 on {device}")
+            if tuple(x.shape) != shape or not x.is_contiguous():
+                raise ValueError(
+                    f"{self.name}: want contiguous {shape}, got {tuple(x.shape)}"
+                )
+        if T < 1 or N < 1:
+            raise ValueError(f"{self.name}: empty scan (T={T}, N={N})")
+        lib = load_library()
+        out = [torch.empty_like(x) for x in leaves]
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, self.symbol)(
+                *(x.data_ptr() for x in leaves), *(o.data_ptr() for o in out),
+                T, size, N, int(bool(reverse)), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"{self.name}: launch failed, cudaError {rc}")
+        self.launches += 1
+        return out
+
+
+LOGSEMIRING = Scan(
+    "logsemiring_scan",
+    "logsemiring_scan_f32",
+    "pyvbmp_tpu_torch/csrc/logsemiring_scan.cu",
+    "pyvbmp_tpu/ops/pallas_scan.py:219",
+    sizes=(4, 7),
+    combine=lambda a, b: (_logmatmul_plane(a[0], b[0]),),
+    leaf_shapes=lambda T, K, N: [(T, K, K, N)],
+)
+KALMAN_PLANE = Scan(
+    "kalman_plane_scan",
+    "kalman_plane_scan_f32",
+    "pyvbmp_tpu_torch/csrc/kalman_plane_scan.cu",
+    "pyvbmp_tpu/ops/pallas_scan.py:219",
+    sizes=(6, 10),
+    combine=_combine_plane,
+    leaf_shapes=lambda T, H, N: [(T, H, H, N)] * 3 + [(T, H, N)] * 2 + [(T, N)],
+)
+SCANS = (LOGSEMIRING, KALMAN_PLANE)
+
+
+def logsemiring_scan(M, reverse=False):
+    """Inclusive (log,+) matrix scan of M (T, K, K, N) in chain order."""
+    return LOGSEMIRING((M,), reverse)[0]
+
+
+def kalman_plane_scan(elems, reverse=False):
+    """Inclusive scan of Gaussian pair potentials (Jaa, Jab, Jbb, ha, hb,
+    logw) in plane layout, chain order."""
+    return tuple(KALMAN_PLANE(tuple(elems), reverse))
+
+
+def plain_logsemiring_scan(M, reverse=False):
+    return LOGSEMIRING.plain((M,), reverse)[0]
+
+
+def plain_kalman_plane_scan(elems, reverse=False):
+    return tuple(KALMAN_PLANE.plain(tuple(elems), reverse))

@@ -1,0 +1,141 @@
+"""Carry a DMBD's state across packages and devices as a nested dict of
+numpy arrays.
+
+- ``dmbd_state(model)`` reads the state by attribute access alone, so it takes
+  a DMBD of this package or of the JAX package ``pyvbmp_tpu`` (whose arrays
+  it converts with ``np.asarray``; jax itself is never imported here);
+- ``dmbd_from_state(state, device, dtype)`` builds this package's DMBD from
+  such a dict.
+
+Random initialisation cannot be shared between the packages (``jax.random``
+and ``torch.Generator`` draw different numbers), so parity runs go JAX model
+-> state -> port.  The dict holds:
+
+    config                  constructor arguments
+    x0                      NormalInverseWishart (with its Wishart invU)
+    A                       MatrixNormalGamma (with mask and its Gamma rows)
+    obs_model.transition    Dirichlet (masked entries have alpha_0 == 0)
+    obs_model.initial       Dirichlet
+    obs_model.transition_mask
+    obs_model.obs_dist      MatrixNormalWishart (with X_mask)
+    px, p                   the last posteriors, when the model has run
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+_PX_FIELDS = ("mu", "Sigma", "invSigmamu", "invSigma")
+
+
+def _array(x):
+    if hasattr(x, "detach"):  # a torch tensor, possibly on the card
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def node_state(n):
+    """Every array field of a node (recursing into sub-nodes); shape and
+    flag fields are rebuilt from the config instead."""
+    out = {}
+    for f in dataclasses.fields(n):
+        v = getattr(n, f.name)
+        if v is None:
+            out[f.name] = None
+        elif dataclasses.is_dataclass(v):
+            out[f.name] = node_state(v)
+        elif not isinstance(v, (bool, int, float, str, tuple)):
+            out[f.name] = _array(v)
+    return out
+
+
+def dmbd_state(model):
+    """Nested dict of numpy arrays holding a DMBD's configuration and state."""
+    if getattr(model.obs_model.obs_dist, "pad_X", False):
+        raise ValueError("DMBD emission with pad_X=True is not supported")
+    if getattr(model, "unique_obs", False):
+        raise ValueError("unique_obs=True is not ported")
+    if tuple(model.batch_shape):
+        raise ValueError("a DMBD batch_shape is not ported")
+    om = model.obs_model
+    state = {
+        "config": dict(
+            obs_shape=tuple(model.obs_shape),
+            role_dims=tuple(model.role_dims),
+            hidden_dims=tuple(model.hidden_dims),
+            control_dim=model.control_dim - 1,
+            regression_dim=model.regression_dim - 1,
+            number_of_objects=model.number_of_objects,
+        ),
+        "x0": node_state(model.x0),
+        "A": node_state(model.A),
+        "obs_model": {
+            "transition": node_state(om.transition),
+            "initial": node_state(om.initial),
+            "transition_mask": _array(om.transition_mask),
+            "obs_dist": node_state(om.obs_dist),
+        },
+    }
+    if model.px is not None:
+        state["px"] = {k: _array(getattr(model.px, k)) for k in _PX_FIELDS}
+    if om.p is not None:
+        state["p"] = _array(om.p)
+    return state
+
+
+def load_state(n, d):
+    """``n`` with every field found in ``d`` replaced (float64 tensors on the
+    CPU; masks keep their bool type)."""
+    changes = {}
+    for f in dataclasses.fields(n):
+        if f.name not in d:
+            continue
+        cur, v = getattr(n, f.name), d[f.name]
+        if dataclasses.is_dataclass(cur):
+            changes[f.name] = load_state(cur, v)
+        elif v is None:
+            changes[f.name] = None
+        elif f.name == "mask":
+            changes[f.name] = np.array(v, bool)
+        else:
+            v = np.asarray(v)
+            t = torch.tensor(v if v.dtype == bool else v.astype(np.float64))
+            if cur is not None and tuple(t.shape) != tuple(cur.shape):
+                raise ValueError(
+                    f"{type(n).__name__}.{f.name}: state has shape {tuple(t.shape)}, "
+                    f"model has {tuple(cur.shape)}"
+                )
+            changes[f.name] = t
+    return dataclasses.replace(n, **changes)
+
+
+def dmbd_from_state(state, device=None, dtype=None):
+    """This package's DMBD holding ``state``, on ``device`` in ``dtype``."""
+    from ..models import DynamicMarkovBlanketDiscovery
+
+    model = DynamicMarkovBlanketDiscovery(
+        **state["config"],
+        generator=torch.Generator().manual_seed(0),
+        dtype=torch.float64,
+    )
+    om = model.obs_model
+    model.x0 = load_state(model.x0, state["x0"])
+    model.A = load_state(model.A, state["A"])
+    om.transition = load_state(om.transition, state["obs_model"]["transition"])
+    om.initial = load_state(om.initial, state["obs_model"]["initial"])
+    om.transition_mask = torch.tensor(
+        np.asarray(state["obs_model"]["transition_mask"], bool)
+    )
+    om.obs_dist = load_state(om.obs_dist, state["obs_model"]["obs_dist"])
+    if "px" in state:
+        from ..dists.mvn_vector_format import MultivariateNormal_vector_format
+
+        model.px = MultivariateNormal_vector_format(
+            **{k: torch.tensor(np.asarray(state["px"][k], np.float64))
+               for k in _PX_FIELDS}
+        )
+    if "p" in state:
+        om.p = torch.tensor(np.asarray(state["p"], np.float64))
+    return model.to(device, dtype)
