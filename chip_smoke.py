@@ -7,17 +7,26 @@ Phases, each reported on a line of its own; any failure exits non-zero and
 prints no result:
 
 1. guard: a CUDA card is present; its name and power limit; TF32 off; the
-   scan kernels build from pyvbmp_tpu_torch/csrc with nvcc;
-2. each kernel against its plain PyTorch version at the shapes of the
-   DMBD-Lorenz main path, forward and reverse (max relative error <= 1e-4,
-   logw relative to its scale), with both times;
+   scan kernels build from pyvbmp_tpu_torch/csrc with nvcc (one process per
+   source, all at once);
+2. each kernel against its plain PyTorch version at the shapes of the two
+   main paths, forward and reverse (max relative error <= 1e-4, logw
+   relative to its scale), with both times;
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
-   ELBO is finite and rises at every sweep, each kernel ran 2 x sweeps times
-   and no plain scan ran;
+   ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
+   kernels ran 2 x sweeps times, the lane Kalman kernel 0 times, and no
+   plain scan ran;
 4. the same initial state (carried as a numpy state dict) and data for 3
    sweeps on the card (float32) and on the CPU (float64, plain scans): the
-   ELBO trajectories agree within relative 1e-4.
+   ELBO trajectories agree within relative 1e-4;
+5. MixtureofLinearDynamicalSystems(4, (3,), 2, 0, 0, parallel_scan=True) on
+   the batched-MixLDS data (T=100, batch=1000: 4000 Kalman lanes at h=2)
+   for 10 sweeps on the card: the ELBO is finite, rises over the first 5
+   sweeps and ends above where it started, the lane Kalman kernel ran
+   2 x sweeps times, the other two 0 times, and no plain scan ran;
+6. phase 4 for MixLDS: one numpy state, 3 sweeps on the card (float32) and
+   on the CPU (float64), ELBO trajectories within relative 1e-4.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -34,6 +43,9 @@ import torch
 
 CFG = dict(T=399, batch=100, obs_shape=(3, 2), role_dims=(1, 2, 1),
            hidden_dims=(2, 2, 2), sweeps=10, compare_sweeps=3, seed=0)
+# benchmarks/mixlds_bench.py at reference_times.json:mixlds_T100_b1000_K4
+MIX = dict(T=100, batch=1000, obs_dim=3, hidden=2, num_systems=4, sweeps=10,
+           compare_sweeps=3, data_seed=3, seed=0)
 REL_TOL = 1e-4
 
 
@@ -115,21 +127,36 @@ def kalman_elems(rs, T, H, N):
     )
 
 
+def lane_elems(rs, T, H, N):
+    """kalman_elems packed by components (pyvbmp_tpu_torch/ops/smallmat.py)."""
+    from pyvbmp_tpu_torch.ops import smallmat as sm
+
+    Jaa, Jab, Jbb, ha, hb, w = (torch.from_numpy(x) for x in kalman_elems(rs, T, H, N))
+    dense = lambda x: x.permute(0, 3, 1, 2)  # (T, H, H, N) -> (T, N, H, H)
+    return (sm.sym_pack(dense(Jaa)), sm.gen_pack(dense(Jab)), sm.sym_pack(dense(Jbb)),
+            ha, hb, w)
+
+
 def phase_kernels(card):
     from pyvbmp_tpu_torch.ops import scan
 
     rs = np.random.RandomState(CFG["seed"])
     T = CFG["T"]
     N_roles = CFG["batch"] * CFG["obs_shape"][0]
+    N_mix = MIX["batch"] * MIX["num_systems"]
     cases = [
         (scan.LOGSEMIRING, "K=4 N=300 (bench)", (semiring_elems(rs, T, 4, N_roles),)),
         (scan.LOGSEMIRING, "K=7 N=300", (semiring_elems(rs, T, 7, N_roles),)),
         (scan.KALMAN_PLANE, "H=6 N=100 (bench)", kalman_elems(rs, T, 6, CFG["batch"])),
         (scan.KALMAN_PLANE, "H=10 N=100", kalman_elems(rs, T, 10, CFG["batch"])),
+        (scan.KALMAN_LANE, "H=2 T=100 N=4000 (bench)", lane_elems(rs, MIX["T"], 2, N_mix)),
+        (scan.KALMAN_LANE, "H=3 T=100 N=4000", lane_elems(rs, MIX["T"], 3, N_mix)),
+        (scan.KALMAN_LANE, "H=1 T=100 N=4000", lane_elems(rs, MIX["T"], 1, N_mix)),
     ]
     record = {s.name: dict(abs=0.0, ms=None, plain_ms=None) for s in scan.SCANS}
     for s, label, arrays in cases:
-        leaves = tuple(torch.tensor(a, dtype=torch.float32, device="cuda") for a in arrays)
+        leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
+                       for a in arrays)
         for reverse in (False, True):
             out = s.kernel(leaves, reverse)
             ref = s.plain(leaves, reverse)
@@ -171,8 +198,34 @@ def build_model(generator):
     )
 
 
-def phase_dmbd(card):
+def drive(model, sweeps, *data):
+    """One ``update`` of ``sweeps`` sweeps with every scan count set to 0
+    just before it; returns (seconds, launches, plain calls) read just
+    after."""
     from pyvbmp_tpu_torch.ops import scan
+
+    torch.cuda.synchronize()
+    for s in scan.SCANS:
+        s.launches = 0
+        s.plain_calls = 0
+    t0 = time.perf_counter()
+    model.update(*data, iters=sweeps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (dt, {s.name: s.launches for s in scan.SCANS},
+            {s.name: s.plain_calls for s in scan.SCANS})
+
+
+def check_launches(path, launches, plain, want):
+    print(f"  kernel launches {launches} (want {want}); plain scans {plain}")
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{path}: {name} launched {launches[name]} times, want {n}")
+        if plain[name] != 0:
+            fail(f"{path}: plain {name} ran {plain[name]} times on the card's path")
+
+
+def phase_dmbd(card):
     from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
 
     y = lorenz_data(torch.float32, "cuda")
@@ -181,30 +234,18 @@ def phase_dmbd(card):
     warm.update(y, iters=1)
     model = dmbd_from_state(state, device="cuda", dtype=torch.float32)
     sweeps = CFG["sweeps"]
-    torch.cuda.synchronize()
-    for s in scan.SCANS:
-        s.launches = 0
-        s.plain_calls = 0
-    t0 = time.perf_counter()
-    model.update(y, iters=sweeps)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {s.name: s.launches for s in scan.SCANS}
-    plain = {s.name: s.plain_calls for s in scan.SCANS}
+    dt, launches, plain = drive(model, sweeps, y)
     elbo = np.asarray(model.ELBO_save, np.float64)
     print(f"phase 3 DMBD-Lorenz T={CFG['T']} batch={CFG['batch']} {sweeps} sweeps: "
           f"{sweeps / dt:.3f} sweeps/s ({dt:.3f} s); card {card}")
     print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
-    print(f"  kernel launches {launches}; plain scans {plain}")
     if not np.isfinite(elbo).all():
         fail("ELBO not finite")
     if not (np.diff(elbo) > 0).all():
         fail("ELBO did not rise at every sweep")
-    for s in scan.SCANS:
-        if launches[s.name] != 2 * sweeps:
-            fail(f"{s.name} launched {launches[s.name]} times, want {2 * sweeps}")
-        if plain[s.name] != 0:
-            fail(f"plain {s.name} ran {plain[s.name]} times on the card's path")
+    check_launches("DMBD", launches, plain, {
+        "logsemiring_scan": 2 * sweeps, "kalman_plane_scan": 2 * sweeps,
+        "kalman_lane_scan": 0})
     p = model.obs_model.p
     mu = model.px.mu
     if p.shape != (CFG["T"], CFG["batch"], CFG["obs_shape"][0], 4):
@@ -214,30 +255,115 @@ def phase_dmbd(card):
     return launches
 
 
-def phase_compare(card):
-    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
-
-    state = dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"] + 1)))
-    n = CFG["compare_sweeps"]
-    y64 = lorenz_data(torch.float64, "cpu")
-    gpu = dmbd_from_state(state, device="cuda", dtype=torch.float32)
-    cpu = dmbd_from_state(state, device="cpu", dtype=torch.float64)
+def compare_card_cpu(label, from_state, state, y64, n, card):
+    """``n`` sweeps from one numpy state on the card (float32) and on the
+    CPU (float64): the ELBO trajectories agree within REL_TOL."""
+    gpu = from_state(state, device="cuda", dtype=torch.float32)
+    cpu = from_state(state, device="cpu", dtype=torch.float64)
     gpu.update(y64.to(device="cuda", dtype=torch.float32), iters=n)
     cpu.update(y64, iters=n)
     e_gpu = np.asarray(gpu.ELBO_save, np.float64)
     e_cpu = np.asarray(cpu.ELBO_save, np.float64)
     dev = np.abs(e_gpu - e_cpu) / np.abs(e_cpu)
-    print(f"phase 4 card f32 vs CPU f64, {n} sweeps: ELBO card {e_gpu.tolist()} "
+    print(f"{label} card f32 vs CPU f64, {n} sweeps: ELBO card {e_gpu.tolist()} "
           f"cpu {e_cpu.tolist()}; max rel dev {dev.max():.3e}; card {card}")
     if not dev.max() <= REL_TOL:
-        fail(f"card and CPU ELBO trajectories differ by {dev.max():.3e}")
+        fail(f"{label}: card and CPU ELBO trajectories differ by {dev.max():.3e}")
+
+
+def phase_compare(card):
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    state = dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"] + 1)))
+    compare_card_cpu("phase 4", dmbd_from_state, state,
+                     lorenz_data(torch.float64, "cpu"), CFG["compare_sweeps"], card)
+
+
+def mixlds_data():
+    """The batched-MixLDS data of benchmarks/mixlds_bench.py:make_data: K
+    rotating 2-d latent systems seen through random 3-d projections,
+    (T, batch, 3) float32."""
+    rs = np.random.RandomState(MIX["data_seed"])
+    T, o, h = MIX["T"], MIX["obs_dim"], MIX["hidden"]
+
+    def rollout(theta, n):
+        A = np.asarray(
+            [[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]]
+        ) * 0.98
+        C = rs.randn(o, h)
+        x = rs.randn(n, h)
+        ys = []
+        for t in range(T):
+            x = x @ A.T + 0.05 * rs.randn(n, h)
+            ys.append(x @ C.T + 0.1 * rs.randn(n, o))
+        return np.stack(ys)
+
+    per = MIX["batch"] // MIX["num_systems"]
+    y = np.concatenate(
+        [rollout(0.1 + 0.15 * k, per) for k in range(MIX["num_systems"])], 1
+    )
+    return y.astype(np.float32)
+
+
+def mixlds_state0(seed):
+    from pyvbmp_tpu_torch.models import MixtureofLinearDynamicalSystems
+    from pyvbmp_tpu_torch.utils.convert import mixlds_state
+
+    return mixlds_state(MixtureofLinearDynamicalSystems(
+        MIX["num_systems"], (MIX["obs_dim"],), MIX["hidden"], 0, 0,
+        parallel_scan=True, generator=torch.Generator().manual_seed(seed),
+        dtype=torch.float64,
+    ))
+
+
+def phase_mixlds(card):
+    from pyvbmp_tpu_torch.utils.convert import mixlds_from_state
+
+    y = torch.from_numpy(mixlds_data()).cuda()
+    state = mixlds_state0(MIX["seed"])
+    warm = mixlds_from_state(state, device="cuda", dtype=torch.float32)
+    warm.update(y, iters=1)
+    model = mixlds_from_state(state, device="cuda", dtype=torch.float32)
+    sweeps = MIX["sweeps"]
+    dt, launches, plain = drive(model, sweeps, y)
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase 5 MixLDS T={MIX['T']} batch={MIX['batch']} K={MIX['num_systems']} "
+          f"h={MIX['hidden']} {sweeps} sweeps: {sweeps / dt:.3f} sweeps/s "
+          f"({dt:.3f} s); card {card}")
+    print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
+    if not np.isfinite(elbo).all():
+        fail("MixLDS ELBO not finite")
+    if not (np.diff(elbo)[:5] > 0).all():
+        fail("MixLDS ELBO did not rise over the first 5 sweeps")
+    if not elbo[-1] > elbo[0]:
+        fail("MixLDS ELBO ended below where it started")
+    check_launches("MixLDS", launches, plain, {
+        "logsemiring_scan": 0, "kalman_plane_scan": 0,
+        "kalman_lane_scan": 2 * sweeps})
+    p, logZ = model.p, model.logZ
+    if p.shape != (MIX["batch"], MIX["num_systems"]):
+        fail(f"p has shape {tuple(p.shape)}")
+    if not (torch.isfinite(p).all() and torch.isfinite(logZ).all()):
+        fail("MixLDS posteriors not finite")
+    if not torch.allclose(p.sum(-1), torch.ones_like(p[:, 0]), atol=1e-5):
+        fail("MixLDS responsibilities do not sum to 1")
+    return launches
+
+
+def phase_mixlds_compare(card):
+    from pyvbmp_tpu_torch.utils.convert import mixlds_from_state
+
+    compare_card_cpu("phase 6 MixLDS", mixlds_from_state, mixlds_state0(MIX["seed"] + 1),
+                     torch.from_numpy(mixlds_data()).double(), MIX["compare_sweeps"], card)
 
 
 def main():
     card = phase_guard()
     record = phase_kernels(card)
-    launches = phase_dmbd(card)
+    launches_dmbd = phase_dmbd(card)
     phase_compare(card)
+    launches_mix = phase_mixlds(card)
+    phase_mixlds_compare(card)
     from pyvbmp_tpu_torch.ops import scan
 
     kernels = []
@@ -245,8 +371,8 @@ def main():
         r = record[s.name]
         kernels.append(dict(
             name=s.name, route="cuda", source=s.source, replaces=s.replaces,
-            launches=launches[s.name], max_abs_err=r["abs"], ms=r["ms"],
-            plain_ms=r["plain_ms"],
+            launches=launches_dmbd[s.name] + launches_mix[s.name],
+            max_abs_err=r["abs"], ms=r["ms"], plain_ms=r["plain_ms"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

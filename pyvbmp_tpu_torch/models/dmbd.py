@@ -202,6 +202,11 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         self.batch_shape = ()
         self.batch_dim = 0
         self.offset = (1,) * (len(obs_shape) - 1)
+        # the LDS smoother flags: the scan-based smoother, whose
+        # cross-covariances are the corrected ones
+        self.parallel_scan = True
+        self.cross_cov_compat = False
+        self.expand_to_batch = False
         self.ELBO_save = []
         self.ELBO_last = -float("inf")
         self.iters = 0

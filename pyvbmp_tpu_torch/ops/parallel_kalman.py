@@ -1,5 +1,5 @@
-"""Scan-based Kalman filter + RTS smoother in plane layout (counterpart of
-pyvbmp_tpu/ops/parallel_kalman.py, plane form).
+"""Scan-based Kalman filter + RTS smoother (counterpart of
+pyvbmp_tpu/ops/parallel_kalman.py, lane and plane forms).
 
 Elements are unnormalized Gaussian pairwise potentials over (x_left, x_right):
 
@@ -7,11 +7,22 @@ Elements are unnormalized Gaussian pairwise potentials over (x_left, x_right):
 
 The combine integrates out the shared middle variable, so prefix products
 give filtered potentials, suffix products give backward messages, and
-marginals, cross-covariances and logZ come out in closed form.  The two
-scans go through ``ops.scan.kalman_plane_scan``: the CUDA kernel for tensors
-on the card, the plain fold of ``_combine_plane`` on the CPU.  The
+marginals, cross-covariances and logZ come out in closed form.  The
 cross-covariances are the corrected ones (the JAX package's
 ``cross_cov_compat=False``).
+
+Two layouts, chosen by the hidden dim h as in the JAX package:
+
+- **lane form** (h <= LANE_KALMAN_MAX_H = 3): every matrix is packed by
+  components (``ops/smallmat.py``), the combine ``_combine_lane`` is
+  straight-line code with closed-form adjugate inverses, and the scans go
+  through ``ops.scan.kalman_lane_scan``;
+- **plane form** (larger h): ``(T, h, w, N)`` planes (``ops/planemat.py``),
+  the combine ``_combine_plane``, scans through ``ops.scan.kalman_plane_scan``.
+
+Each scan is the CUDA kernel for tensors on the card and the plain fold of
+the combine on the CPU.  The JAX package's dense form (h > 32) is not
+ported: the plane form serves every h > 3.
 """
 from __future__ import annotations
 
@@ -21,6 +32,10 @@ from ..utils import math as um
 from ..utils.linalg import mT
 from . import planemat as pm
 from . import scan
+from . import smallmat as sm
+
+# h <= LANE_KALMAN_MAX_H takes the lane form (the JAX package's default gate)
+LANE_KALMAN_MAX_H = 3
 
 
 def element_batch_shape(parms, like):
@@ -127,12 +142,127 @@ def _marginalize_right_plane(e):
 
 
 def _shift(a, up):
-    """Shift the time axis: up=True gives a_t <- a_{t+1} with a zero tail,
-    up=False gives a_t <- a_{t-1} with a zero head."""
+    """Shift the time axis: up=True gives a_t <- a_{t+1} with a zero tail
+    (the JAX package's ``_shift_up``), up=False gives a_t <- a_{t-1} with a
+    zero head."""
     z = torch.zeros_like(a[:1])
     return torch.cat([a[1:], z], 0) if up else torch.cat([z, a[:-1]], 0)
 
 
+# ============================================================ lane layout path
+def _combine_lane(h, e1, e2):
+    """_combine_plane in component form (ops/smallmat.py packing):
+    straight-line elementwise ops, adjugate inverse of M."""
+    J1aa, J1ab, J1bb, h1a, h1b, w1 = e1
+    J2aa, J2ab, J2bb, h2a, h2b, w2 = e2
+    M = sm.sym_add(J1bb, J2aa)
+    hmid = h1b + h2a
+    Minv, logdetM = sm.sym_inv_and_logdet(h, M)
+    Minv_J1abT = sm.mm(h, Minv, J1ab, sym_a=True, t_b=True)
+    Minv_J2ab = sm.mm(h, Minv, J2ab, sym_a=True)
+    Minv_h = sm.mv(h, Minv, hmid, sym_a=True)
+    Jaa = sm.sym_sub(J1aa, sm.mm(h, J1ab, Minv_J1abT, sym_out=True))
+    Jbb = sm.sym_sub(J2bb, sm.mm(h, J2ab, Minv_J2ab, t_a=True, sym_out=True))
+    Jab = -sm.mm(h, J1ab, Minv_J2ab)
+    ha = h1a - sm.mv(h, J1ab, Minv_h)
+    hb = h2b - sm.mv(h, J2ab, Minv_h, t_a=True)
+    w = (
+        w1
+        + w2
+        + 0.5 * sm.vdot(hmid, Minv_h)
+        - 0.5 * logdetM
+        + 0.5 * h * um.LOG2PI
+    )
+    return (Jaa, Jab, Jbb, ha, hb, w)
+
+
+def _marginalize_left_lane(h, e):
+    Jaa, Jab, Jbb, ha, hb, w = e
+    Ainv, logdetA = sm.sym_inv_and_logdet(h, Jaa)
+    Ainv_Jab = sm.mm(h, Ainv, Jab, sym_a=True)
+    Ainv_ha = sm.mv(h, Ainv, ha, sym_a=True)
+    J = sm.sym_sub(Jbb, sm.mm(h, Jab, Ainv_Jab, t_a=True, sym_out=True))
+    hv = hb - sm.mv(h, Jab, Ainv_ha, t_a=True)
+    logc = w + 0.5 * sm.vdot(ha, Ainv_ha) - 0.5 * logdetA + 0.5 * h * um.LOG2PI
+    return J, hv, logc
+
+
+def _marginalize_right_lane(h, e):
+    Jaa, Jab, Jbb, ha, hb, w = e
+    Dinv, logdetD = sm.sym_inv_and_logdet(h, Jbb)
+    Dinv_JabT = sm.mm(h, Dinv, Jab, sym_a=True, t_b=True)
+    Dinv_hb = sm.mv(h, Dinv, hb, sym_a=True)
+    J = sm.sym_sub(Jaa, sm.mm(h, Jab, Dinv_JabT, sym_out=True))
+    hv = ha - sm.mv(h, Jab, Dinv_hb)
+    logc = w + 0.5 * sm.vdot(hb, Dinv_hb) - 0.5 * logdetD + 0.5 * h * um.LOG2PI
+    return J, hv, logc
+
+
+def _lane_smoother(elems, bshape, T, h):
+    (Jaa_d, Jab_d, Jbb_d, ha_d, hb_d, logw_d) = elems
+    Jaa = sm.sym_pack(Jaa_d)
+    Jab = sm.gen_pack(Jab_d)
+    Jbb = sm.sym_pack(Jbb_d)
+    ha = sm.vec_pack(ha_d)
+    hb = sm.vec_pack(hb_d)
+    logw = logw_d.reshape(T, -1).contiguous()
+    elems_l = (Jaa, Jab, Jbb, ha, hb, logw)
+
+    prefix = scan.kalman_lane_scan(elems_l)
+    suffix = scan.kalman_lane_scan(elems_l, reverse=True)
+
+    Ja, hva, logca = _marginalize_left_lane(h, prefix)
+    Jb_all, hvb_all, _ = _marginalize_right_lane(h, suffix)
+    Jbeta = _shift(Jb_all, up=True)
+    hbeta = _shift(hvb_all, up=True)
+
+    # smoothed marginals
+    Js = sm.sym_add(Ja, Jbeta)
+    hs = hva + hbeta
+    Sigma, _ = sm.sym_inv_and_logdet(h, Js)
+    mu = sm.mv(h, Sigma, hs, sym_a=True)
+
+    # prior-side marginal q(x_{-1})
+    Sigma_x0_x0, _ = sm.sym_inv_and_logdet(h, Jb_all[0])
+    mu_x0 = sm.mv(h, Sigma_x0_x0, hvb_all[0], sym_a=True)
+
+    # pairwise cross-covariances Sigma_{t-1,t}
+    A = sm.sym_add(_shift(Ja, up=False), Jaa)
+    D = sm.sym_add(Jbb, Jbeta)
+    Ainv, _ = sm.sym_inv_and_logdet(h, A)
+    Ainv_B = sm.mm(h, Ainv, Jab, sym_a=True)
+    BT_Ainv_B = sm.mm(h, Jab, Ainv_B, t_a=True, sym_out=True)
+    Sbb, _ = sm.sym_inv_and_logdet(h, sm.sym_sub(D, BT_Ainv_B))
+    Sigma_cross_all = -sm.mm(h, Ainv_B, Sbb, sym_b=True)
+
+    # total logZ from the last filtered potential
+    JaInv, logdetJ = sm.sym_inv_and_logdet(h, Ja[-1])
+    sol = sm.mv(h, JaInv, hva[-1], sym_a=True)
+    logZ_total = (
+        logca[-1]
+        + 0.5 * sm.vdot(hva[-1], sol)
+        - 0.5 * logdetJ
+        + 0.5 * h * um.LOG2PI
+    )
+
+    bout = tuple(bshape[:-2])
+    Sigma_cross_d = sm.gen_unpack(Sigma_cross_all, h, bout)
+    return (
+        (
+            sm.sym_unpack(Sigma, h, bout),
+            sm.vec_unpack(mu, bout),
+            sm.sym_unpack(Js, h, bout),
+            sm.vec_unpack(hs, bout),
+        ),
+        Sigma_cross_d[1:],
+        Sigma_cross_d[0],
+        sm.sym_unpack(Sigma_x0_x0, h, bout),
+        sm.vec_unpack(mu_x0, bout),
+        logZ_total.reshape(bout),
+    )
+
+
+# =========================================================== plane layout path
 def _plane_smoother(elems, bshape, T, h):
     (Jaa_d, Jab_d, Jbb_d, ha_d, hb_d, logw_d) = elems
     Jaa = pm.pack(Jaa_d)
@@ -197,7 +327,7 @@ def _plane_smoother(elems, bshape, T, h):
     )
 
 
-def parallel_kalman_smoother(parms, x0, like, u):
+def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None):
     """Same contract as pyvbmp_tpu.ops.parallel_kalman.parallel_kalman_smoother:
     returns ((Sigma, mu, Js, hs), Sigma_cross, Sigma_x0_cross, Sigma_x0_x0,
     mu_x0, logZ_total).
@@ -205,6 +335,19 @@ def parallel_kalman_smoother(parms, x0, like, u):
     parms: dict from LinearDynamicalSystems._latent_parms
     like:  (invSigma_like, invSigmamu_like, Residual_like), each (T,)+...
     u:     (T,)+...+(control,1)
+    lane_form: force the component layout on/off (default: h <= 3).
+    plane_form: force the plane layout on/off (default: whenever the lane
+        form is not taken; the dense form is not ported, so turning both
+        off raises).
     """
+    hdim = parms["invQ"].shape[-1]
+    if lane_form is None:
+        lane_form = hdim <= LANE_KALMAN_MAX_H and plane_form is not True
+    if lane_form and hdim > LANE_KALMAN_MAX_H:
+        raise ValueError(f"the lane form serves h <= {LANE_KALMAN_MAX_H}, got h={hdim}")
+    if not lane_form and plane_form is False:
+        raise NotImplementedError("the dense Kalman smoother form is not ported")
     elems, bshape, T, hdim = _build_elements(parms, x0, like, u)
+    if lane_form:
+        return _lane_smoother(elems, bshape, T, hdim)
     return _plane_smoother(elems, bshape, T, hdim)

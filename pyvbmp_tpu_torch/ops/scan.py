@@ -1,8 +1,8 @@
-"""The smoothers' prefix and suffix scans: two CUDA kernels and their plain
+"""The smoothers' prefix and suffix scans: three CUDA kernels and their plain
 PyTorch versions (counterpart of pyvbmp_tpu/ops/chunked_scan.py:auto_scan and
 the Pallas kernel pyvbmp_tpu/ops/pallas_scan.py:_build_call).
 
-Both scans are inclusive scans over axis 0 of an associative combine with no
+All three are inclusive scans over axis 0 of an associative combine with no
 identity element, in chain order:
 
     forward: out[t] = e[0] o e[1] o ... o e[t]
@@ -12,7 +12,10 @@ identity element, in chain order:
   ``parallel_hmm._logmatmul_plane`` (the role chain);
 - ``kalman_plane_scan((Jaa, Jab, Jbb, ha, hb, logw))``: Gaussian pair
   potentials in plane layout, the combine is
-  ``parallel_kalman._combine_plane`` (the latent chain).
+  ``parallel_kalman._combine_plane`` (the latent chain, h > 3);
+- ``kalman_lane_scan((Jaa, Jab, Jbb, ha, hb, logw))``: the same potentials
+  packed by components (``ops/smallmat.py``), the combine is
+  ``parallel_kalman._combine_lane`` (the latent chain, h <= 3).
 
 Dispatch is by the device of the input: a CPU tensor goes through the plain
 version (a sequential left fold of the combine), a CUDA tensor launches the
@@ -21,7 +24,8 @@ fallback from one to the other.
 
 The kernels are built from ``pyvbmp_tpu_torch/csrc/*.cu`` with ``nvcc`` at
 their first launch in a process, into ``pyvbmp_tpu_torch/_build/`` (keyed by
-a hash of the sources and flags), and bound with ``ctypes``.
+a hash of the sources and flags; one nvcc per source, all run at once, then
+one link), and bound with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -37,9 +41,9 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _library = None
@@ -70,14 +74,31 @@ def load_library():
     so = BUILD_DIR / f"libpyvbmp_scans_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _find_nvcc()
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            logs.append(link.stdout + link.stderr)
+        so.with_suffix(".log").write_text("".join(logs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
             raise RuntimeError(
-                f"building the scan kernels failed ({proc.returncode}):\n"
-                + proc.stderr[-4000:]
+                "building the scan kernels failed:\n" + "".join(logs)[-4000:]
             )
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
@@ -86,6 +107,8 @@ def load_library():
     lib.logsemiring_scan_f32.restype = ci
     lib.kalman_plane_scan_f32.argtypes = [vp] * 12 + [ci] * 4 + [vp]
     lib.kalman_plane_scan_f32.restype = ci
+    lib.kalman_lane_scan_f32.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+    lib.kalman_lane_scan_f32.restype = ci
     _library = lib
     return lib
 
@@ -102,6 +125,12 @@ def _combine_plane(e1, e2):
     return combine(e1, e2)
 
 
+def _combine_lane(e1, e2):
+    from .parallel_kalman import _combine_lane as combine
+
+    return combine(e1[3].shape[-2], e1, e2)
+
+
 class Scan:
     """One scan: its kernel, its plain version and their counts.
 
@@ -109,7 +138,7 @@ class Scan:
     counts runs of the plain version."""
 
     def __init__(self, name, symbol, source, replaces, sizes, combine,
-                 leaf_shapes):
+                 leaf_shapes, size_of):
         self.name = name
         self.symbol = symbol
         self.source = source
@@ -117,6 +146,7 @@ class Scan:
         self.sizes = tuple(sizes)  # instantiated K or H
         self.combine = combine
         self.leaf_shapes = leaf_shapes  # (T, size, N) -> shape of each leaf
+        self.size_of = size_of  # leaves -> K or H
         self.launches = 0
         self.plain_calls = 0
 
@@ -147,7 +177,8 @@ class Scan:
         return out
 
     def kernel(self, leaves, reverse=False):
-        T, size, N = leaves[0].shape[0], leaves[0].shape[1], leaves[0].shape[-1]
+        T, N = leaves[0].shape[0], leaves[0].shape[-1]
+        size = self.size_of(leaves)
         if size not in self.sizes:
             raise ValueError(
                 f"{self.name}: size {size} is not instantiated (have {self.sizes})"
@@ -187,6 +218,7 @@ LOGSEMIRING = Scan(
     sizes=(4, 7),
     combine=lambda a, b: (_logmatmul_plane(a[0], b[0]),),
     leaf_shapes=lambda T, K, N: [(T, K, K, N)],
+    size_of=lambda leaves: leaves[0].shape[1],
 )
 KALMAN_PLANE = Scan(
     "kalman_plane_scan",
@@ -196,8 +228,22 @@ KALMAN_PLANE = Scan(
     sizes=(6, 10),
     combine=_combine_plane,
     leaf_shapes=lambda T, H, N: [(T, H, H, N)] * 3 + [(T, H, N)] * 2 + [(T, N)],
+    size_of=lambda leaves: leaves[0].shape[1],
 )
-SCANS = (LOGSEMIRING, KALMAN_PLANE)
+KALMAN_LANE = Scan(
+    "kalman_lane_scan",
+    "kalman_lane_scan_f32",
+    "pyvbmp_tpu_torch/csrc/kalman_lane_scan.cu",
+    "pyvbmp_tpu/ops/pallas_scan.py:219",
+    sizes=(1, 2, 3),
+    combine=_combine_lane,
+    leaf_shapes=lambda T, H, N: (
+        [(T, H * (H + 1) // 2, N), (T, H * H, N), (T, H * (H + 1) // 2, N)]
+        + [(T, H, N)] * 2 + [(T, N)]
+    ),
+    size_of=lambda leaves: leaves[3].shape[1] if len(leaves) > 3 else None,
+)
+SCANS = (LOGSEMIRING, KALMAN_PLANE, KALMAN_LANE)
 
 
 def logsemiring_scan(M, reverse=False):
@@ -209,6 +255,12 @@ def kalman_plane_scan(elems, reverse=False):
     """Inclusive scan of Gaussian pair potentials (Jaa, Jab, Jbb, ha, hb,
     logw) in plane layout, chain order."""
     return tuple(KALMAN_PLANE(tuple(elems), reverse))
+
+
+def kalman_lane_scan(elems, reverse=False):
+    """Inclusive scan of Gaussian pair potentials (Jaa, Jab, Jbb, ha, hb,
+    logw) packed by components (ops/smallmat.py), chain order."""
+    return tuple(KALMAN_LANE(tuple(elems), reverse))
 
 
 def plain_logsemiring_scan(M, reverse=False):

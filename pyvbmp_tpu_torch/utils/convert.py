@@ -1,15 +1,16 @@
-"""Carry a DMBD's state across packages and devices as a nested dict of
+"""Carry a model's state across packages and devices as a nested dict of
 numpy arrays.
 
-- ``dmbd_state(model)`` reads the state by attribute access alone, so it takes
-  a DMBD of this package or of the JAX package ``pyvbmp_tpu`` (whose arrays
-  it converts with ``np.asarray``; jax itself is never imported here);
-- ``dmbd_from_state(state, device, dtype)`` builds this package's DMBD from
-  such a dict.
+- ``dmbd_state(model)``, ``lds_state(model)`` and ``mixlds_state(model)``
+  read the state by attribute access alone, so each takes a model of this
+  package or of the JAX package ``pyvbmp_tpu`` (whose arrays it converts
+  with ``np.asarray``; jax itself is never imported here);
+- ``dmbd_from_state``, ``lds_from_state`` and ``mixlds_from_state`` (state,
+  device, dtype) build this package's model from such a dict.
 
 Random initialisation cannot be shared between the packages (``jax.random``
 and ``torch.Generator`` draw different numbers), so parity runs go JAX model
--> state -> port.  The dict holds:
+-> state -> port.  A DMBD's dict holds:
 
     config                  constructor arguments
     x0                      NormalInverseWishart (with its Wishart invU)
@@ -19,6 +20,12 @@ and ``torch.Generator`` draw different numbers), so parity runs go JAX model
     obs_model.transition_mask
     obs_model.obs_dist      MatrixNormalWishart (with X_mask)
     px, p                   the last posteriors, when the model has run
+
+An LDS's dict holds its config, x0 (NormalInverseWishart), A
+(MatrixNormalGamma, or MatrixNormalWishart for latent_noise="shared"),
+obs_model (MatrixNormalWishart, masks included), expand_to_batch and px when
+the model has run; a MixLDS's holds its config, the LDS nodes, pi
+(Dirichlet) and p when the model has run.
 """
 from __future__ import annotations
 
@@ -138,4 +145,100 @@ def dmbd_from_state(state, device=None, dtype=None):
         )
     if "p" in state:
         om.p = torch.tensor(np.asarray(state["p"], np.float64))
+    return model.to(device, dtype)
+
+
+def _lds_nodes(lds):
+    if getattr(lds, "time_mesh", None) is not None:
+        raise ValueError("time_mesh is not ported")
+    if getattr(lds.obs_model, "pad_X", False):
+        raise ValueError("an LDS obs_model with pad_X=True is not supported")
+    return {
+        "x0": node_state(lds.x0),
+        "A": node_state(lds.A),
+        "obs_model": node_state(lds.obs_model),
+    }
+
+
+def _load_lds_nodes(lds, state):
+    lds.x0 = load_state(lds.x0, state["x0"])
+    lds.A = load_state(lds.A, state["A"])
+    lds.obs_model = load_state(lds.obs_model, state["obs_model"])
+
+
+def lds_state(model):
+    """Nested dict of numpy arrays holding an LDS's configuration and state."""
+    state = {
+        "config": dict(
+            obs_shape=tuple(model.obs_shape),
+            hidden_dim=model.hidden_dim,
+            control_dim=model.control_dim - 1,
+            regression_dim=model.regression_dim - 1,
+            latent_noise=model.latent_noise,
+            batch_shape=tuple(model.batch_shape),
+            cross_cov_compat=bool(model.cross_cov_compat),
+            parallel_scan=bool(model.parallel_scan),
+        ),
+        "expand_to_batch": bool(model.expand_to_batch),
+        **_lds_nodes(model),
+    }
+    if model.px is not None:
+        state["px"] = {k: _array(getattr(model.px, k)) for k in _PX_FIELDS}
+    return state
+
+
+def lds_from_state(state, device=None, dtype=None):
+    """This package's LDS holding ``state``, on ``device`` in ``dtype``."""
+    from ..dists.mvn_vector_format import MultivariateNormal_vector_format
+    from ..models import LinearDynamicalSystems
+
+    model = LinearDynamicalSystems(
+        **state["config"],
+        generator=torch.Generator().manual_seed(0),
+        dtype=torch.float64,
+    )
+    model.expand_to_batch = state["expand_to_batch"]
+    _load_lds_nodes(model, state)
+    if "px" in state:
+        model.px = MultivariateNormal_vector_format(
+            **{k: torch.tensor(np.asarray(state["px"][k], np.float64))
+               for k in _PX_FIELDS}
+        )
+    return model.to(device, dtype)
+
+
+def mixlds_state(model):
+    """Nested dict of numpy arrays holding a MixLDS's configuration and
+    state."""
+    lds = model.lds
+    state = {
+        "config": dict(
+            num_systems=model.num_systems,
+            obs_shape=tuple(lds.obs_shape),
+            hidden_dim=lds.hidden_dim,
+            control_dim=lds.control_dim - 1,
+            regression_dim=lds.regression_dim - 1,
+            parallel_scan=bool(lds.parallel_scan),
+        ),
+        "lds": _lds_nodes(lds),
+        "pi": node_state(model.pi),
+    }
+    if getattr(model, "p", None) is not None:
+        state["p"] = _array(model.p)
+    return state
+
+
+def mixlds_from_state(state, device=None, dtype=None):
+    """This package's MixLDS holding ``state``, on ``device`` in ``dtype``."""
+    from ..models import MixtureofLinearDynamicalSystems
+
+    model = MixtureofLinearDynamicalSystems(
+        **state["config"],
+        generator=torch.Generator().manual_seed(0),
+        dtype=torch.float64,
+    )
+    _load_lds_nodes(model.lds, state["lds"])
+    model.pi = load_state(model.pi, state["pi"])
+    if "p" in state:
+        model.p = torch.tensor(np.asarray(state["p"], np.float64))
     return model.to(device, dtype)

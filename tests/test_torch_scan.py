@@ -115,16 +115,20 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     assert scan.LOGSEMIRING.launches == before[1]
 
 
-@pytest.mark.parametrize("which", ["logsemiring", "kalman"])
+@pytest.mark.parametrize("which", ["logsemiring", "kalman", "lane"])
 def test_kernel_refuses_sizes_it_was_not_built_for(which):
     """An uninstantiated K or H raises before anything is built or run;
     there is no fallback to the plain version."""
     rs = np.random.RandomState(5)
     if which == "logsemiring":
         s, leaves = scan.LOGSEMIRING, (torch.from_numpy(semiring_elems(rs, 4, 5, 3)),)
-    else:
+    elif which == "kalman":
         s, leaves = scan.KALMAN_PLANE, tuple(
             torch.from_numpy(e) for e in kalman_elems(rs, 4, 3, 3)
+        )
+    else:  # lane leaves at H=4: 10 symmetric components, 16 general
+        s, leaves = scan.KALMAN_LANE, tuple(
+            torch.zeros(shape) for shape in scan.KALMAN_LANE.leaf_shapes(4, 4, 3)
         )
     calls = s.plain_calls
     with pytest.raises(ValueError, match="not instantiated"):
