@@ -7,7 +7,7 @@ Phases, each reported on a line of its own; any failure exits non-zero and
 prints no result:
 
 1. guard: a CUDA card is present; its name and power limit; TF32 off; the
-   scan kernels build from pyvbmp_tpu_torch/csrc with nvcc (one process per
+   four kernels build from pyvbmp_tpu_torch/csrc with nvcc (one process per
    source, all at once);
 2. each kernel against its plain PyTorch version at the shapes of the two
    main paths, forward and reverse (max relative error <= 1e-4, logw
@@ -26,7 +26,26 @@ prints no result:
    sweeps and ends above where it started, the lane Kalman kernel ran
    2 x sweeps times, the other two 0 times, and no plain scan ran;
 6. phase 4 for MixLDS: one numpy state, 3 sweeps on the card (float32) and
-   on the CPU (float64), ELBO trajectories within relative 1e-4.
+   on the CPU (float64), ELBO trajectories within relative 1e-4;
+7. the weighted_outer kernel against its plain version (computed in float64
+   on the card) at the digits shape (S=1347, p=65, K=9), the JAX module's
+   measured size (S=400000, p=32, K=16) and an MNIST-16x16 shape (S=60000,
+   p=257, K=9): max |kernel - plain| / max |plain| <= 1e-4, with the
+   kernel's and the float32 plain version's times;
+8. MultiNomialLogisticRegression (Polya-Gamma) on the digits bake-off
+   (benchmarks/classification_bakeoff.py: 1347 train / 450 test, 64 pixels,
+   10 classes) in float32 on the card with TF32 enabled globally: 10 x
+   raw_update(iters=2), then predict.  weighted_outer ran exactly 20 times,
+   its plain version and every scan 0 times; test accuracy >= 0.90; the
+   training ELBO is finite;
+9. the phase-8 fit from the same numpy state in float64 on the CPU: the
+   training ELBOs agree within relative 1e-4 and the test argmax on >= 99%
+   of the 450 samples;
+10. the other three bake-off arms on the card in float32: Bouchard MNLR
+   (10 x raw_update(iters=2)), dMixtureofLinearTransforms (4 experts) and
+   NLRegression_Multinomial (4 components), each raw_update(iters=10):
+   test accuracy >= 0.90, finite ELBO, and neither weighted_outer nor any
+   scan launched.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -46,6 +65,13 @@ CFG = dict(T=399, batch=100, obs_shape=(3, 2), role_dims=(1, 2, 1),
 # benchmarks/mixlds_bench.py at reference_times.json:mixlds_T100_b1000_K4
 MIX = dict(T=100, batch=1000, obs_dim=3, hidden=2, num_systems=4, sweeps=10,
            compare_sweeps=3, data_seed=3, seed=0)
+# benchmarks/classification_bakeoff.py's digits task.  The initial states
+# come from this seed: the mixture arms' accuracy depends on the initial
+# state (0.882-0.951 over seeds 0-7 on the CPU in float32; 0.931 at seed 2).
+DIGITS = dict(classes=10, mnlr_updates=10, mnlr_iters=2, mixture=4, mixture_iters=10,
+              seed=2, min_acc=0.90, min_agree=0.99)
+SCATTER_SHAPES = [("digits", 1347, 65, 9), ("weighted_scatter.py:16", 400000, 32, 16),
+                  ("MNIST-16x16", 60000, 257, 9)]
 REL_TOL = 1e-4
 
 
@@ -90,14 +116,14 @@ def phase_guard():
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from pyvbmp_tpu_torch.ops import scan
+    from pyvbmp_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
-    scan.load_library()
+    _cuda.load_library()
     build_s = time.perf_counter() - t0
     print(f"phase 1 guard: {torch.cuda.get_device_name(0)}; card {card}; "
           f"kernels built and loaded in {build_s:.2f} s")
-    for so_log in sorted(scan.BUILD_DIR.glob("*.log")):
+    for so_log in sorted(_cuda.BUILD_DIR.glob("*.log")):
         for line in so_log.read_text().splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")):
                 print(f"  ptxas: {line.strip()}")
@@ -199,25 +225,19 @@ def build_model(generator):
 
 
 def drive(model, sweeps, *data):
-    """One ``update`` of ``sweeps`` sweeps with every scan count set to 0
+    """One ``update`` of ``sweeps`` sweeps with every kernel count set to 0
     just before it; returns (seconds, launches, plain calls) read just
     after."""
-    from pyvbmp_tpu_torch.ops import scan
-
-    torch.cuda.synchronize()
-    for s in scan.SCANS:
-        s.launches = 0
-        s.plain_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     model.update(*data, iters=sweeps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return (dt, {s.name: s.launches for s in scan.SCANS},
-            {s.name: s.plain_calls for s in scan.SCANS})
+    return (dt, *read_counts())
 
 
 def check_launches(path, launches, plain, want):
-    print(f"  kernel launches {launches} (want {want}); plain scans {plain}")
+    print(f"  kernel launches {launches} (want {want}); plain versions {plain}")
     for name, n in want.items():
         if launches[name] != n:
             fail(f"{path}: {name} launched {launches[name]} times, want {n}")
@@ -245,7 +265,7 @@ def phase_dmbd(card):
         fail("ELBO did not rise at every sweep")
     check_launches("DMBD", launches, plain, {
         "logsemiring_scan": 2 * sweeps, "kalman_plane_scan": 2 * sweeps,
-        "kalman_lane_scan": 0})
+        "kalman_lane_scan": 0, "weighted_outer": 0})
     p = model.obs_model.p
     mu = model.px.mu
     if p.shape != (CFG["T"], CFG["batch"], CFG["obs_shape"][0], 4):
@@ -339,7 +359,7 @@ def phase_mixlds(card):
         fail("MixLDS ELBO ended below where it started")
     check_launches("MixLDS", launches, plain, {
         "logsemiring_scan": 0, "kalman_plane_scan": 0,
-        "kalman_lane_scan": 2 * sweeps})
+        "kalman_lane_scan": 2 * sweeps, "weighted_outer": 0})
     p, logZ = model.p, model.logZ
     if p.shape != (MIX["batch"], MIX["num_systems"]):
         fail(f"p has shape {tuple(p.shape)}")
@@ -357,6 +377,181 @@ def phase_mixlds_compare(card):
                      torch.from_numpy(mixlds_data()).double(), MIX["compare_sweeps"], card)
 
 
+def phase_scatter(card):
+    from pyvbmp_tpu_torch.ops import weighted_scatter as ws
+
+    rs = np.random.RandomState(CFG["seed"])
+    rec = dict(abs=0.0, ms=None, plain_ms=None)
+    for label, S, p, K in SCATTER_SHAPES:
+        X = torch.tensor(rs.randn(S, p), dtype=torch.float32, device="cuda")
+        W = torch.tensor(rs.rand(S, K), dtype=torch.float32, device="cuda")
+        out = ws.WEIGHTED_OUTER.kernel(X, W)
+        ref = ws.weighted_outer_einsum(X.double(), W.double())
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(out.double(), ref)
+        ms = time_ms(lambda: ws.WEIGHTED_OUTER.kernel(X, W), 20)
+        plain_ms = time_ms(lambda: ws.weighted_outer_einsum(X, W), 20)
+        gflop = 2.0 * S * K * p * p / 1e9
+        print(f"phase 7 weighted_outer {label} S={S} p={p} K={K} ({gflop:.3f} GFLOP "
+              f"full): max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms, "
+              f"plain (float32 einsum) {plain_ms:.4f} ms; card {card}")
+        if not err <= REL_TOL:
+            fail(f"weighted_outer {label}: kernel disagrees with plain ({err:.3e})")
+        rec["abs"] = max(rec["abs"], abs_err)
+        if label == "digits":
+            rec["ms"], rec["plain_ms"] = ms, plain_ms
+    return rec
+
+
+def digits():
+    """The bake-off's digits split as float64 CPU tensors: Xtr, Ytr (one-hot),
+    Xte, and the test labels yte (numpy)."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
+    from classification_bakeoff import load_digits_task
+
+    Xtr, ytr, Xte, yte = load_digits_task()
+    Ytr = np.eye(DIGITS["classes"])[ytr]
+    return (*(torch.tensor(a, dtype=torch.float64) for a in (Xtr, Ytr, Xte)), yte)
+
+
+def kernel_counts():
+    from pyvbmp_tpu_torch.ops import scan, weighted_scatter as ws
+
+    return (*scan.SCANS, ws.WEIGHTED_OUTER)
+
+
+def reset_counts():
+    torch.cuda.synchronize()
+    for k in kernel_counts():
+        k.launches = 0
+        k.plain_calls = 0
+
+
+def read_counts():
+    return ({k.name: k.launches for k in kernel_counts()},
+            {k.name: k.plain_calls for k in kernel_counts()})
+
+
+def fit_mnlr(m, X, Y):
+    for _ in range(DIGITS["mnlr_updates"]):
+        m.raw_update(X, Y, iters=DIGITS["mnlr_iters"])
+
+
+def classifier_elbo(m, X, Y):
+    return float(m.Elog_like(X, Y).sum() - m.KLqprior())
+
+
+def phase_mnlr(card, data):
+    from pyvbmp_tpu_torch.transforms import MultiNomialLogisticRegression
+    from pyvbmp_tpu_torch.utils.convert import mnlr_from_state, mnlr_state
+
+    Xtr, Ytr, Xte, yte = data
+    g = torch.Generator().manual_seed(DIGITS["seed"])
+    state = mnlr_state(MultiNomialLogisticRegression(
+        DIGITS["classes"], Xtr.shape[1], generator=g, dtype=torch.float64))
+    X, Y, Xe = (a.to("cuda", torch.float32) for a in (Xtr, Ytr, Xte))
+    mnlr_from_state(state, "cuda", torch.float32).raw_update(X, Y)  # warm-up
+    m = mnlr_from_state(state, "cuda", torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        fit_mnlr(m, X, Y)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+        labels = m.predict(Xe).argmax(-1).cpu().numpy()
+        elbo = classifier_elbo(m, X, Y)
+        tf32_kept = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    acc = float((labels == yte).mean())
+    print(f"phase 8 MNLR (PG) digits, {DIGITS['mnlr_updates']} x raw_update(iters="
+          f"{DIGITS['mnlr_iters']}), float32, TF32 enabled globally: fit {dt:.4f} s; "
+          f"test accuracy {acc:.4f}; ELBO {elbo:.6e}; card {card}")
+    print(f"  launches {launches}; plain calls {plain}; the caller's TF32 setting "
+          f"{'kept' if tf32_kept else 'lost'} after the pinned calls")
+    want = DIGITS["mnlr_updates"] * DIGITS["mnlr_iters"]
+    if launches["weighted_outer"] != want or plain["weighted_outer"] != 0:
+        fail(f"MNLR: weighted_outer launched {launches['weighted_outer']} times "
+             f"(want {want}), plain {plain['weighted_outer']} (want 0)")
+    if any(launches[s] or plain[s] for s in launches if s != "weighted_outer"):
+        fail("MNLR: a scan ran on the classifier's path")
+    if not tf32_kept:
+        fail("the precision pin did not restore the caller's TF32 setting")
+    if not acc >= DIGITS["min_acc"]:
+        fail(f"MNLR digits accuracy {acc:.4f} < {DIGITS['min_acc']}")
+    if not np.isfinite(elbo):
+        fail("MNLR ELBO not finite")
+    return state, elbo, labels, launches
+
+
+def phase_mnlr_compare(card, data, state, elbo_gpu, labels_gpu):
+    from pyvbmp_tpu_torch.utils.convert import mnlr_from_state
+
+    Xtr, Ytr, Xte, _ = data
+    cpu = mnlr_from_state(state, "cpu", torch.float64)
+    fit_mnlr(cpu, Xtr, Ytr)
+    elbo_cpu = classifier_elbo(cpu, Xtr, Ytr)
+    labels_cpu = cpu.predict(Xte).argmax(-1).numpy()
+    dev = abs(elbo_gpu - elbo_cpu) / abs(elbo_cpu)
+    agree = float((labels_cpu == labels_gpu).mean())
+    print(f"phase 9 MNLR (PG) card f32 vs CPU f64 after {DIGITS['mnlr_updates']} updates: "
+          f"ELBO card {elbo_gpu:.9e} cpu {elbo_cpu:.9e}, rel dev {dev:.3e}; test argmax "
+          f"agrees on {agree:.4f} of {len(labels_cpu)}; card {card}")
+    if not dev <= REL_TOL:
+        fail(f"MNLR card and CPU ELBOs differ by {dev:.3e}")
+    if not agree >= DIGITS["min_agree"]:
+        fail(f"MNLR card and CPU labels agree on only {agree:.4f}")
+
+
+def phase_other_arms(card, data):
+    from pyvbmp_tpu_torch import transforms as tr
+
+    Xtr, Ytr, Xte, yte = data
+    X, Y, Xe = (a.to("cuda", torch.float32) for a in (Xtr, Ytr, Xte))
+    K, p, mix = DIGITS["classes"], Xtr.shape[1], DIGITS["mixture"]
+
+    def make(cls, *extra):
+        g = torch.Generator().manual_seed(DIGITS["seed"])
+        return cls(K, p, *extra, generator=g, dtype=torch.float32, device="cuda")
+
+    def bouchard():
+        m = make(tr.MultiNomialLogisticRegression_Bouchard)
+        fit_mnlr(m, X, Y)
+        return m.predict(Xe).argmax(-1), classifier_elbo(m, X, Y)
+
+    def mixture(cls):
+        m = make(cls, mix)
+        m.raw_update(X, Y, iters=DIGITS["mixture_iters"])
+        return m.predict(Xe)[0].mean()[..., 0].argmax(-1), m.ELBO_save[-1]
+
+    arms = [
+        ("MNLR (Bouchard)", bouchard),
+        (f"dMixLT ({mix} experts)", lambda: mixture(tr.dMixtureofLinearTransforms)),
+        (f"NLR-multinomial ({mix} components)",
+         lambda: mixture(tr.NLRegression_Multinomial)),
+    ]
+    for name, fit in arms:
+        reset_counts()
+        t0 = time.perf_counter()
+        labels, elbo = fit()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+        acc = float((labels.cpu().numpy() == yte).mean())
+        print(f"phase 10 {name} digits, float32: fit and predict {dt:.4f} s (first "
+              f"run, no warm-up); test accuracy {acc:.4f}; ELBO {elbo:.6e}; card {card}")
+        if any(launches.values()) or any(plain.values()):
+            fail(f"{name}: a kernel or a plain version ran ({launches}, {plain})")
+        if not acc >= DIGITS["min_acc"]:
+            fail(f"{name} digits accuracy {acc:.4f} < {DIGITS['min_acc']}")
+        if not np.isfinite(elbo):
+            fail(f"{name} ELBO not finite")
+
+
 def main():
     card = phase_guard()
     record = phase_kernels(card)
@@ -364,7 +559,12 @@ def main():
     phase_compare(card)
     launches_mix = phase_mixlds(card)
     phase_mixlds_compare(card)
-    from pyvbmp_tpu_torch.ops import scan
+    scatter = phase_scatter(card)
+    data = digits()
+    state, elbo, labels, launches_mnlr = phase_mnlr(card, data)
+    phase_mnlr_compare(card, data, state, elbo, labels)
+    phase_other_arms(card, data)
+    from pyvbmp_tpu_torch.ops import scan, weighted_scatter as ws
 
     kernels = []
     for s in scan.SCANS:
@@ -374,6 +574,12 @@ def main():
             launches=launches_dmbd[s.name] + launches_mix[s.name],
             max_abs_err=r["abs"], ms=r["ms"], plain_ms=r["plain_ms"],
         ))
+    w = ws.WEIGHTED_OUTER
+    kernels.append(dict(
+        name=w.name, route="cuda", source=w.source, replaces=w.replaces,
+        launches=launches_mnlr[w.name], max_abs_err=scatter["abs"],
+        ms=scatter["ms"], plain_ms=scatter["plain_ms"],
+    ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

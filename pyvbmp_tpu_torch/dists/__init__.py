@@ -3,6 +3,7 @@ from .delta import Delta
 from .diagonal_wishart import DiagonalWishart
 from .dirichlet import Dirichlet
 from .gamma import Gamma
+from .mvn_ard import MVN_ard
 from .mvn_vector_format import MultivariateNormal_vector_format
 from .niw import NormalInverseWishart
 from .wishart import Wishart
@@ -12,6 +13,7 @@ __all__ = [
     "DiagonalWishart",
     "Dirichlet",
     "Gamma",
+    "MVN_ard",
     "MultivariateNormal_vector_format",
     "NormalInverseWishart",
     "Wishart",

@@ -102,6 +102,9 @@ class Wishart(Node):
     def ESigma(self):
         return self.meaninv()
 
+    def invEinvSigma(self):
+        return self.invU / self._nu()
+
     def EinvSigma(self):
         return self.mean()
 

@@ -22,95 +22,13 @@ version (a sequential left fold of the combine), a CUDA tensor launches the
 kernel and raises on anything the kernel does not take.  There is no
 fallback from one to the other.
 
-The kernels are built from ``pyvbmp_tpu_torch/csrc/*.cu`` with ``nvcc`` at
-their first launch in a process, into ``pyvbmp_tpu_torch/_build/`` (keyed by
-a hash of the sources and flags; one nvcc per source, all run at once, then
-one link), and bound with ``ctypes``.
+The kernels are built and loaded by ``ops/_cuda.py``.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + (
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-_library = None
-
-
-def _find_nvcc():
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the scan kernels cannot be built")
-    return nvcc
-
-
-def load_library():
-    """Build (once per source hash) and load the kernels' shared library.
-
-    Returns the ``ctypes.CDLL``.  The compiler's report (registers, spills)
-    is kept beside the library as ``<name>.log``."""
-    global _library
-    if _library is not None:
-        return _library
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    so = BUILD_DIR / f"libpyvbmp_scans_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _find_nvcc()
-        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-        procs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            for src, obj in zip(sources, objs)
-        ]
-        logs = [p.communicate()[0] for p in procs]
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        link = None
-        if all(p.returncode == 0 for p in procs):
-            link = subprocess.run(
-                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
-                capture_output=True, text=True,
-            )
-            logs.append(link.stdout + link.stderr)
-        so.with_suffix(".log").write_text("".join(logs))
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-        if link is None or link.returncode != 0:
-            raise RuntimeError(
-                "building the scan kernels failed:\n" + "".join(logs)[-4000:]
-            )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.logsemiring_scan_f32.argtypes = [vp, vp, ci, ci, ci, ci, vp]
-    lib.logsemiring_scan_f32.restype = ci
-    lib.kalman_plane_scan_f32.argtypes = [vp] * 12 + [ci] * 4 + [vp]
-    lib.kalman_plane_scan_f32.restype = ci
-    lib.kalman_lane_scan_f32.argtypes = [vp] * 12 + [ci] * 4 + [vp]
-    lib.kalman_lane_scan_f32.restype = ci
-    _library = lib
-    return lib
+from ._cuda import load_library
 
 
 def _logmatmul_plane(a, b):

@@ -8,6 +8,13 @@ numpy arrays.
 - ``dmbd_from_state``, ``lds_from_state`` and ``mixlds_from_state`` (state,
   device, dtype) build this package's model from such a dict.
 
+The classifiers have the same pair of functions: ``mvn_ard_state`` (an
+MVN_ard node with its Gamma, and its shapes), ``mnlr_state``,
+``bouchard_state``, ``dmixlt_state`` and ``nlrm_state``, each with its
+``..._from_state``.  Their dicts hold the constructor arguments under
+``config`` and one entry per posterior node (``beta``; ``A`` and ``pi``;
+``A`` and ``Z``).
+
 Random initialisation cannot be shared between the packages (``jax.random``
 and ``torch.Generator`` draw different numbers), so parity runs go JAX model
 -> state -> port.  A DMBD's dict holds:
@@ -241,4 +248,116 @@ def mixlds_from_state(state, device=None, dtype=None):
     model.pi = load_state(model.pi, state["pi"])
     if "p" in state:
         model.p = torch.tensor(np.asarray(state["p"], np.float64))
+    return model.to(device, dtype)
+
+
+# -- classifiers ---------------------------------------------------------------
+def mvn_ard_state(n):
+    """Nested dict of numpy arrays holding an MVN_ard node and its shapes."""
+    return {
+        "config": dict(event_shape=tuple(n.event_shape),
+                       batch_shape=tuple(n.batch_shape)),
+        "node": node_state(n),
+    }
+
+
+def mvn_ard_from_state(state, device=None, dtype=None):
+    """This package's MVN_ard holding ``state``, on ``device`` in ``dtype``."""
+    from ..dists.mvn_ard import MVN_ard
+
+    n = MVN_ard.create(**state["config"], generator=torch.Generator().manual_seed(0),
+                       dtype=torch.float64)
+    return load_state(n, state["node"]).to(device, dtype)
+
+
+def _mnlr_config(model, n):
+    return dict(n=n, p=model.p - int(model.pad_X),
+                batch_shape=tuple(model.batch_shape), pad_X=bool(model.pad_X))
+
+
+def mnlr_state(model):
+    """Nested dict of numpy arrays holding a MultiNomialLogisticRegression."""
+    return {"config": _mnlr_config(model, model.n + 1), "beta": node_state(model.beta)}
+
+
+def bouchard_state(model):
+    """Nested dict of numpy arrays holding a
+    MultiNomialLogisticRegression_Bouchard."""
+    return {"config": _mnlr_config(model, model.n), "beta": node_state(model.beta)}
+
+
+def _classifier_from_state(cls, state, device, dtype):
+    model = cls(**state["config"], generator=torch.Generator().manual_seed(0),
+                dtype=torch.float64)
+    model.beta = load_state(model.beta, state["beta"])
+    return model.to(device, dtype)
+
+
+def mnlr_from_state(state, device=None, dtype=None):
+    """This package's MNLR holding ``state``, on ``device`` in ``dtype``."""
+    from ..transforms import MultiNomialLogisticRegression
+
+    return _classifier_from_state(MultiNomialLogisticRegression, state, device, dtype)
+
+
+def bouchard_from_state(state, device=None, dtype=None):
+    """This package's Bouchard MNLR holding ``state``, on ``device`` in
+    ``dtype``."""
+    from ..transforms import MultiNomialLogisticRegression_Bouchard
+
+    return _classifier_from_state(
+        MultiNomialLogisticRegression_Bouchard, state, device, dtype
+    )
+
+
+def dmixlt_state(model):
+    """Nested dict of numpy arrays holding a dMixtureofLinearTransforms
+    (experts A and gate pi)."""
+    return {
+        # model.p holds the last responsibilities; the input width is A's
+        "config": dict(n=model.n, p=model.A.p - int(model.A.pad_X),
+                       mixture_dim=model.mix_dim,
+                       batch_shape=tuple(model.batch_shape),
+                       pad_X=bool(model.A.pad_X),
+                       fixed_precision=bool(model.A.fixed_precision)),
+        "A": node_state(model.A),
+        "pi": node_state(model.pi.beta),
+    }
+
+
+def dmixlt_from_state(state, device=None, dtype=None):
+    """This package's dMixLT holding ``state``, on ``device`` in ``dtype``."""
+    from ..transforms import dMixtureofLinearTransforms
+
+    model = dMixtureofLinearTransforms(
+        **state["config"], generator=torch.Generator().manual_seed(0),
+        dtype=torch.float64,
+    )
+    model.A = load_state(model.A, state["A"])
+    model.pi.beta = load_state(model.pi.beta, state["pi"])
+    return model.to(device, dtype)
+
+
+def nlrm_state(model):
+    """Nested dict of numpy arrays holding an NLRegression_Multinomial
+    (experts A and gate Z)."""
+    return {
+        "config": dict(n=model.n, p=model.p, mixture_dim=model.mixture_dim,
+                       batch_shape=tuple(model.batch_shape)),
+        "A": node_state(model.A),
+        "Z": node_state(model.Z.beta),
+    }
+
+
+def nlrm_from_state(state, device=None, dtype=None):
+    """This package's NLRegression_Multinomial holding ``state``, on
+    ``device`` in ``dtype``."""
+    from ..transforms import NLRegression_Multinomial
+
+    model = NLRegression_Multinomial(
+        **state["config"], generator=torch.Generator().manual_seed(0),
+        dtype=torch.float64,
+    )
+    model.A = load_state(model.A, state["A"])
+    model.Z.beta = load_state(model.Z.beta, state["Z"])
     return model.to(device, dtype)

@@ -8,7 +8,9 @@ tree to a device and a floating dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 
 import torch
 
@@ -51,6 +53,62 @@ def sum_leading(x, ndim_keep):
     if x.ndim > ndim_keep:
         return x.sum(tuple(range(x.ndim - ndim_keep)))
     return x
+
+
+def tsum(x, dims):
+    """``x.sum(dims)`` where an empty ``dims`` sums over every axis (the
+    reference's torch idiom, e.g. dists/MVN_ard.py:77)."""
+    dims = tuple(dims)
+    if len(dims) == 0:
+        return x.sum()
+    return x.sum(dims)
+
+
+def _tf32_switches():
+    """(API, matmul setting, cuDNN setting) as the caller set them.  PyTorch
+    refuses to read its legacy ``allow_tf32`` switches once the newer
+    ``fp32_precision`` ones were set, so the reader follows the caller."""
+    try:
+        return ("allow_tf32", torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    except RuntimeError:
+        return ("fp32_precision", torch.backends.cuda.matmul.fp32_precision,
+                torch.backends.cudnn.fp32_precision)
+
+
+def _set_tf32_switches(api, matmul, cudnn):
+    setattr(torch.backends.cuda.matmul, api, matmul)
+    setattr(torch.backends.cudnn, api, cudnn)
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Run float32 matmuls and convolutions at full float32 precision (no
+    TF32) inside the block, whatever the caller set; the caller's setting
+    is restored on exit, through the API the caller used."""
+    api, matmul, cudnn = _tf32_switches()
+    off = False if api == "allow_tf32" else "ieee"
+    _set_tf32_switches(api, off, off)
+    try:
+        yield
+    finally:
+        _set_tf32_switches(api, matmul, cudnn)
+
+
+def highest_precision(fn):
+    """Decorate a method to run under ``full_fp32_matmul``.
+
+    The Polya-Gamma fixed point (quadratic forms x'E[bb']x inside tanh) is
+    cancellation-sensitive: at reduced matmul precision it collapses the
+    posterior to chance-level predictions.  TF32 is the H100's reduced
+    precision, so the logistic-regression methods pin it off."""
+
+    @functools.wraps(fn)
+    def wrapped(*a, **k):
+        with full_fp32_matmul():
+            return fn(*a, **k)
+
+    return wrapped
 
 
 def bcontract_pp(X, W):

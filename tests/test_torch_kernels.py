@@ -1,17 +1,19 @@
-"""The port's CUDA scan kernels against their plain PyTorch versions, on the
-card.  A CUDA kernel has no interpret mode, so these tests need a GPU (and
+"""The port's CUDA kernels (the scans and the weighted scatter) against their
+plain PyTorch versions, on the card.  A CUDA kernel has no interpret mode, so these tests need a GPU (and
 nvcc): they are marked ``gpu`` and skip on a machine without one.  Run them
 on the card with ``python -m pytest tests/test_torch_kernels.py``.
 
 float32 on both sides; tolerance max |kernel - plain| / max |plain| <= 1e-4
 per output (the kernel's plane Kalman combine uses Cholesky factors where
 the plain one uses an explicit inverse; the lane combine uses the same
-adjugate as its plain version)."""
+adjugate as its plain version).  The weighted scatter is held to its plain
+version computed in float64 on the card, at the same bound."""
 import numpy as np
 import pytest
 import torch
 
 from pyvbmp_tpu_torch.ops import scan
+from pyvbmp_tpu_torch.ops import weighted_scatter as ws
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -132,3 +134,63 @@ def test_mixlds_sweep_runs_two_lane_kernel_launches(cuda):
     assert [s.plain_calls for s in scan.SCANS] == plain
     assert np.isfinite(m.ELBO_save).all()
     assert m.p.shape == (16, 4) and torch.isfinite(m.p).all()
+
+
+# ---------------------------------------------------------- weighted scatter
+def scatter_inputs(S, p, K, device):
+    rs = np.random.RandomState(S * 7 + p + K)
+    X = torch.tensor(rs.randn(S, p), dtype=torch.float32, device=device)
+    W = torch.tensor(rs.rand(S, K), dtype=torch.float32, device=device)
+    return X, W
+
+
+@pytest.mark.parametrize("p", [1, 65, 257])
+@pytest.mark.parametrize("K", [1, 9, 16])
+@pytest.mark.parametrize("S", [37, 1347])  # neither a multiple of the tile
+def test_weighted_outer_matches_plain(cuda, S, p, K):
+    X, W = scatter_inputs(S, p, K, cuda)
+    launches = ws.WEIGHTED_OUTER.launches
+    out = ws.WEIGHTED_OUTER.kernel(X, W)
+    torch.cuda.synchronize()
+    assert ws.WEIGHTED_OUTER.launches == launches + 1
+    ref = ws.weighted_outer_einsum(X.double(), W.double())
+    err = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+    assert err <= TOL
+    assert torch.equal(out, out.transpose(1, 2))
+
+
+def test_weighted_outer_repeats_bit_for_bit(cuda):
+    X, W = scatter_inputs(60000, 65, 9, cuda)  # split across many blocks
+    first = ws.weighted_outer(X, W)
+    assert all(torch.equal(first, ws.weighted_outer(X, W)) for _ in range(3))
+
+
+def test_weighted_outer_refuses_what_it_does_not_take(cuda):
+    X, W = scatter_inputs(40, 5, 3, cuda)
+    with pytest.raises(TypeError):
+        ws.weighted_outer(X.double(), W.double())
+    with pytest.raises(ValueError):
+        ws.weighted_outer(X.t(), W[:5])
+    with pytest.raises(ValueError):
+        ws.weighted_outer(X, W[:39])
+
+
+def test_mnlr_fit_runs_the_scatter_kernel(cuda):
+    from pyvbmp_tpu_torch.transforms import MultiNomialLogisticRegression
+
+    rs = np.random.RandomState(4)
+    y = rs.randint(0, 4, 500)
+    X = torch.tensor(rs.randn(4, 6)[y] * 2 + rs.randn(500, 6), dtype=torch.float32,
+                     device=cuda)
+    Y = torch.tensor(np.eye(4)[y], dtype=torch.float32, device=cuda)
+    m = MultiNomialLogisticRegression(
+        4, 6, generator=torch.Generator().manual_seed(0), dtype=torch.float32,
+        device=cuda,
+    )
+    launches, plain = ws.WEIGHTED_OUTER.launches, ws.WEIGHTED_OUTER.plain_calls
+    for _ in range(3):
+        m.raw_update(X, Y, iters=2)
+    assert ws.WEIGHTED_OUTER.launches == launches + 6
+    assert ws.WEIGHTED_OUTER.plain_calls == plain
+    acc = (m.predict(X).argmax(-1).cpu().numpy() == y).mean()
+    assert acc > 0.9
