@@ -45,13 +45,39 @@ prints no result:
    (10 x raw_update(iters=2)), dMixtureofLinearTransforms (4 experts) and
    NLRegression_Multinomial (4 components), each raw_update(iters=10):
    test accuracy >= 0.90, finite ELBO, and neither weighted_outer nor any
-   scan launched.
+   scan launched;
+11. the scan kernels at the DMBD-Flocking shapes (logsemiring (150, 14, 14,
+   240), plane Kalman H=14 at T=150, N=20), one pass and time-folded (Cp=8,
+   L=19), forward and reverse, against their plain versions (max relative
+   error <= 1e-4), and the folded lane kernel at the MixLDS shape; kernel,
+   folded-scan (all three phases) and plain times;
+12. DMBD on Flocking (benchmarks/flocking_bench.py:19: T=150, batch=20, 12
+   birds x 4 channels, role_dims (2,2,2), hidden_dims (2,2,2), three
+   objects: K = H = 14) in float32 on the card, update(y, iters=10,
+   latent_iters=1, lr=1.0) after a warm-up sweep, from one numpy state
+   twice: the time fold off, then "auto".  Each run: sweeps/s; the ELBO is
+   finite and rises at every sweep; launches (fold off: 2 per sweep each of
+   the one-pass logsemiring and plane Kalman kernels, 0 folded; fold on: 2
+   per sweep of each folded scan, 0 one-pass; the lane kernels and
+   weighted_outer 0; no plain version); particular_assignment() is (T,
+   batch, 12) with values in 0..3.  The two ELBO trajectories agree within
+   relative 1e-4;
+13. the same state and data for 3 sweeps on the card (float32, fold on) and
+   on the CPU (float64, fold off): ELBO trajectories within relative 1e-4;
+14. MixLDS (phase 5's data and state) for 3 sweeps with the fold off, then
+   forced on ("1", the only switch that folds a lane scan): the one-pass,
+   then the folded lane kernel ran 2 x sweeps times, every other kernel 0
+   times, no plain version; the two ELBO trajectories within relative 1e-4.
+
+Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
+says; phases 11-14 set it themselves.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -70,6 +96,10 @@ MIX = dict(T=100, batch=1000, obs_dim=3, hidden=2, num_systems=4, sweeps=10,
 # state (0.882-0.951 over seeds 0-7 on the CPU in float32; 0.931 at seed 2).
 DIGITS = dict(classes=10, mnlr_updates=10, mnlr_iters=2, mixture=4, mixture_iters=10,
               seed=2, min_acc=0.90, min_agree=0.99)
+# benchmarks/flocking_bench.py:19-20 at reference_times.json:dmbd_flocking_T150_b20_obj3
+FLOCK = dict(T=150, batch=20, n_birds=12, obs_dim=4, role_dims=(2, 2, 2),
+             hidden_dims=(2, 2, 2), number_of_objects=3, sweeps=10, compare_sweeps=3,
+             seed=0)
 SCATTER_SHAPES = [("digits", 1347, 65, 9), ("weighted_scatter.py:16", 400000, 32, 16),
                   ("MNIST-16x16", 60000, 257, 9)]
 REL_TOL = 1e-4
@@ -116,7 +146,9 @@ def phase_guard():
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from pyvbmp_tpu_torch.ops import _cuda
+    from pyvbmp_tpu_torch.ops import _cuda, scan
+
+    scan.TIME_FOLD = "0"
 
     t0 = time.perf_counter()
     _cuda.load_library()
@@ -275,12 +307,26 @@ def phase_dmbd(card):
     return launches
 
 
-def compare_card_cpu(label, from_state, state, y64, n, card):
-    """``n`` sweeps from one numpy state on the card (float32) and on the
-    CPU (float64): the ELBO trajectories agree within REL_TOL."""
+@contextlib.contextmanager
+def time_fold(switch):
+    """The scans' time-fold switch set to ``switch`` for the block."""
+    from pyvbmp_tpu_torch.ops import scan
+
+    old, scan.TIME_FOLD = scan.TIME_FOLD, switch
+    try:
+        yield
+    finally:
+        scan.TIME_FOLD = old
+
+
+def compare_card_cpu(label, from_state, state, y64, n, card, card_fold="0"):
+    """``n`` sweeps from one numpy state on the card (float32, time fold
+    ``card_fold``) and on the CPU (float64, fold off): the ELBO trajectories
+    agree within REL_TOL."""
     gpu = from_state(state, device="cuda", dtype=torch.float32)
     cpu = from_state(state, device="cpu", dtype=torch.float64)
-    gpu.update(y64.to(device="cuda", dtype=torch.float32), iters=n)
+    with time_fold(card_fold):
+        gpu.update(y64.to(device="cuda", dtype=torch.float32), iters=n)
     cpu.update(y64, iters=n)
     e_gpu = np.asarray(gpu.ELBO_save, np.float64)
     e_cpu = np.asarray(cpu.ELBO_save, np.float64)
@@ -419,7 +465,7 @@ def digits():
 def kernel_counts():
     from pyvbmp_tpu_torch.ops import scan, weighted_scatter as ws
 
-    return (*scan.SCANS, ws.WEIGHTED_OUTER)
+    return (*scan.SCANS, *scan.FOLDED_SCANS, ws.WEIGHTED_OUTER)
 
 
 def reset_counts():
@@ -552,6 +598,172 @@ def phase_other_arms(card, data):
             fail(f"{name} ELBO not finite")
 
 
+def phase_fold_kernels(card):
+    """Phase 11: one-pass and folded kernels against their plain versions at
+    the DMBD-Flocking shapes (and the folded lane kernel at the MixLDS
+    shape).  Returns the folded kernels' record and the one-pass kernels'
+    largest absolute error at K = H = 14."""
+    from pyvbmp_tpu_torch.ops import scan
+
+    rs = np.random.RandomState(FLOCK["seed"])
+    T = FLOCK["T"]
+    cases = [
+        (scan.LOGSEMIRING, "K=14 T=150 N=240 (Flocking)",
+         (semiring_elems(rs, T, 14, FLOCK["batch"] * FLOCK["n_birds"]),)),
+        (scan.KALMAN_PLANE, "H=14 T=150 N=20 (Flocking)", kalman_elems(rs, T, 14, FLOCK["batch"])),
+        (scan.KALMAN_LANE, "H=2 T=100 N=4000", lane_elems(rs, MIX["T"], 2, MIX["batch"] * 4)),
+    ]
+    folded = {s.folded.name: dict(abs=0.0, ms=None, plain_ms=None) for s in scan.SCANS}
+    one_pass = {s.name: 0.0 for s in scan.SCANS}
+    for s, label, arrays in cases:
+        leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
+                       for a in arrays)
+        Cp, L = scan.fold_shape(leaves[0].shape[0], leaves[0].shape[-1])
+        routes = ([("folded", s.folded, "folded scan (phase 1 + fused phases 2-3)")]
+                  + ([] if s is scan.KALMAN_LANE else [("one-pass", s, "one-pass kernel")]))
+        for reverse in (False, True):
+            for route, fn, what in routes:
+                out = fn.kernel(leaves, reverse)
+                ref = fn.plain(leaves, reverse)
+                torch.cuda.synchronize()
+                errs = [rel_err(o, r) for o, r in zip(out, ref)]
+                err, abs_err = max(e[0] for e in errs), max(e[1] for e in errs)
+                ms = time_ms(lambda: fn.kernel(leaves, reverse), 10)
+                plain_ms = time_ms(lambda: fn.plain(leaves, reverse), 1)
+                print(f"phase 11 {fn.name} {label} {'reverse' if reverse else 'forward'}"
+                      f"{f' (Cp={Cp}, L={L})' if route == 'folded' else ''}: max rel err "
+                      f"{err:.3e} (abs {abs_err:.3e}); {what} {ms:.4f} ms, plain "
+                      f"{plain_ms:.3f} ms; card {card}")
+                if not err <= REL_TOL:
+                    fail(f"{fn.name} {label}: kernel disagrees with plain ({err:.3e})")
+                if route == "one-pass":
+                    one_pass[s.name] = max(one_pass[s.name], abs_err)
+                    continue
+                rec = folded[fn.name]
+                rec["abs"] = max(rec["abs"], abs_err)
+                if not reverse:
+                    rec["ms"], rec["plain_ms"] = ms, plain_ms
+    return folded, one_pass
+
+
+def flocking_data(dtype, device):
+    from pyvbmp_tpu_torch.simulations import Flocking
+
+    sim = Flocking(n_birds=FLOCK["n_birds"], Tmax=FLOCK["T"], batch_size=FLOCK["batch"])
+    y = sim.simulate(torch.Generator().manual_seed(FLOCK["seed"]))
+    return y.to(device=device, dtype=dtype)
+
+
+def flocking_state(seed):
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.utils.convert import dmbd_state
+
+    return dmbd_state(DynamicMarkovBlanketDiscovery(
+        obs_shape=(FLOCK["n_birds"], FLOCK["obs_dim"]), role_dims=FLOCK["role_dims"],
+        hidden_dims=FLOCK["hidden_dims"], number_of_objects=FLOCK["number_of_objects"],
+        parallel_scan=True, generator=torch.Generator().manual_seed(seed),
+        dtype=torch.float64,
+    ))
+
+
+def phase_flocking(card):
+    """Phase 12: DMBD-Flocking at full width, the fold off and then on, from
+    one state.  Returns each route's launches."""
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state
+
+    y = flocking_data(torch.float32, "cuda")
+    state = flocking_state(FLOCK["seed"])
+    sweeps = FLOCK["sweeps"]
+    fit = dict(iters=sweeps, latent_iters=1, lr=1.0)
+    zero = {"kalman_lane_scan": 0, "kalman_lane_scan_folded": 0, "weighted_outer": 0}
+    want = {
+        "0": {"logsemiring_scan": 2 * sweeps, "kalman_plane_scan": 2 * sweeps,
+              "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0, **zero},
+        "auto": {"logsemiring_scan": 0, "kalman_plane_scan": 0,
+                 "logsemiring_scan_folded": 2 * sweeps,
+                 "kalman_plane_scan_folded": 2 * sweeps, **zero},
+    }
+    elbos, launches_by_route = {}, {}
+    for fold in ("0", "auto"):
+        with time_fold(fold):
+            dmbd_from_state(state, device="cuda", dtype=torch.float32).update(
+                y, iters=1, latent_iters=1, lr=1.0)
+            model = dmbd_from_state(state, device="cuda", dtype=torch.float32)
+            reset_counts()
+            t0 = time.perf_counter()
+            model.update(y, **fit)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches, plain = read_counts()
+        elbo = np.asarray(model.ELBO_save, np.float64)
+        print(f"phase 12 DMBD-Flocking T={FLOCK['T']} batch={FLOCK['batch']} "
+              f"birds={FLOCK['n_birds']} objects={FLOCK['number_of_objects']} (K=H=14), "
+              f"time fold {fold}, {sweeps} sweeps: {sweeps / dt:.3f} sweeps/s "
+              f"({dt:.3f} s); card {card}")
+        print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
+        if fold == "auto":
+            print("  each folded launch runs two CUDA kernels (phase 1; phases 2-3 "
+                  "fused); phase 2 makes no launch of its own")
+        if not np.isfinite(elbo).all():
+            fail(f"Flocking (fold {fold}): ELBO not finite")
+        if not (np.diff(elbo) > 0).all():
+            fail(f"Flocking (fold {fold}): ELBO did not rise at every sweep")
+        check_launches(f"Flocking (fold {fold})", launches, plain, want[fold])
+        pa = model.particular_assignment()
+        shape = (FLOCK["T"], FLOCK["batch"], FLOCK["n_birds"])
+        if tuple(pa.shape) != shape or pa.min() < 0 or pa.max() > FLOCK["number_of_objects"]:
+            fail(f"particular_assignment: shape {tuple(pa.shape)}, values "
+                 f"{int(pa.min())}..{int(pa.max())}")
+        counts = np.bincount(pa.flatten().cpu().numpy(), minlength=4).tolist()
+        print(f"  particular_assignment {tuple(pa.shape)}, label counts {counts}")
+        elbos[fold], launches_by_route[fold] = elbo, launches
+    dev = (np.abs(elbos["auto"] - elbos["0"]) / np.abs(elbos["0"])).max()
+    print(f"  fold on vs off: max rel ELBO dev {dev:.3e}")
+    if not dev <= REL_TOL:
+        fail(f"Flocking: the fold changes the ELBO trajectory by {dev:.3e}")
+    return launches_by_route
+
+
+def phase_flocking_compare(card):
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state
+
+    compare_card_cpu("phase 13 DMBD-Flocking (card: fold on)", dmbd_from_state,
+                     flocking_state(FLOCK["seed"] + 1), flocking_data(torch.float64, "cpu"),
+                     FLOCK["compare_sweeps"], card, card_fold="auto")
+
+
+def phase_mixlds_folded(card):
+    """Phase 14: MixLDS (phase 5's data and state) with the time fold off,
+    then forced on ("1", the only switch that folds a lane scan).  Returns
+    the forced run's launches."""
+    from pyvbmp_tpu_torch.utils.convert import mixlds_from_state
+
+    y = torch.from_numpy(mixlds_data()).cuda()
+    state = mixlds_state0(MIX["seed"])
+    n = MIX["compare_sweeps"]
+    want = {"0": {"kalman_lane_scan": 2 * n, "kalman_lane_scan_folded": 0},
+            "1": {"kalman_lane_scan": 0, "kalman_lane_scan_folded": 2 * n}}
+    elbos = {}
+    for fold in ("0", "1"):
+        model = mixlds_from_state(state, device="cuda", dtype=torch.float32)
+        with time_fold(fold):
+            dt, launches, plain = drive(model, n, y)
+        print(f"phase 14 MixLDS time fold {fold}, {n} sweeps: {n / dt:.3f} sweeps/s "
+              f"({dt:.3f} s); card {card}")
+        check_launches(f"MixLDS (fold {fold})", launches, plain, {
+            "logsemiring_scan": 0, "kalman_plane_scan": 0, "logsemiring_scan_folded": 0,
+            "kalman_plane_scan_folded": 0, "weighted_outer": 0, **want[fold]})
+        elbos[fold] = np.asarray(model.ELBO_save, np.float64)
+        if not np.isfinite(elbos[fold]).all():
+            fail(f"MixLDS (fold {fold}): ELBO not finite")
+    dev = (np.abs(elbos["1"] - elbos["0"]) / np.abs(elbos["0"])).max()
+    print(f"  fold on vs off: ELBO {elbos['1'].tolist()} vs {elbos['0'].tolist()}; "
+          f"max rel dev {dev:.3e}")
+    if not dev <= REL_TOL:
+        fail(f"MixLDS: the fold changes the ELBO trajectory by {dev:.3e}")
+    return launches
+
+
 def main():
     card = phase_guard()
     record = phase_kernels(card)
@@ -564,6 +776,10 @@ def main():
     state, elbo, labels, launches_mnlr = phase_mnlr(card, data)
     phase_mnlr_compare(card, data, state, elbo, labels)
     phase_other_arms(card, data)
+    folded, one_pass = phase_fold_kernels(card)
+    launches_flock = phase_flocking(card)
+    phase_flocking_compare(card)
+    launches_mix_folded = phase_mixlds_folded(card)
     from pyvbmp_tpu_torch.ops import scan, weighted_scatter as ws
 
     kernels = []
@@ -571,8 +787,18 @@ def main():
         r = record[s.name]
         kernels.append(dict(
             name=s.name, route="cuda", source=s.source, replaces=s.replaces,
-            launches=launches_dmbd[s.name] + launches_mix[s.name],
-            max_abs_err=r["abs"], ms=r["ms"], plain_ms=r["plain_ms"],
+            launches=launches_dmbd[s.name] + launches_mix[s.name]
+            + launches_flock["0"][s.name],
+            max_abs_err=max(r["abs"], one_pass[s.name]), ms=r["ms"],
+            plain_ms=r["plain_ms"],
+        ))
+    for s in scan.FOLDED_SCANS:
+        r = folded[s.name]
+        kernels.append(dict(
+            name=s.name, route="cuda", source=s.source, replaces=s.replaces,
+            launches=launches_flock["auto"][s.name] + launches_mix_folded[s.name],
+            max_abs_err=r["abs"],
+            ms=r["ms"], plain_ms=r["plain_ms"],
         ))
     w = ws.WEIGHTED_OUTER
     kernels.append(dict(

@@ -24,13 +24,23 @@
 //   forward: out[t] = e[0] o ... o e[t]
 //   reverse: out[t] = e[t] o ... o e[T-1]   (walked t = T-1..0, e_t o carry)
 //
+// The time fold (C > 1; pyvbmp_tpu/ops/pallas_scan.py:_build_folded_call)
+// is the three-phase block scan.  Chunk c holds rows [c L + offset,
+// (c + 1) L + offset) clipped to [0, T); offset is 0 forward and C L - T rows
+// to the left in reverse, so the one short chunk is the one whose total no
+// other chunk needs.  kalman_lane_scan_kernel (grid (lane blocks, C)) runs
+// phase 1 and writes each chunk's total; kalman_lane_fixup_kernel runs
+// phases 2-3: each chunk folds the totals before it (after it, in reverse)
+// into its carry-in and combines it with each of its rows in place.  The
+// one-pass scan is C = 1, L = T.
+//
 // What bounds it on an H100: at the MixLDS bench shape (H=2, T=100,
 // N=4000) one scan reads each element once and writes each prefix once,
 // 15 floats * 4 B * 4000 * 100 = 24 MB each way, ~15 us at 3.35 TB/s.  The
 // bound is the serial walk of T-1 dependent combines per lane.  The carry
 // (15 floats at H=2, 28 at H=3) lives in registers, and the next element is
 // loaded while the current one is combined.  Blocks of one warp spread the
-// 4000 lanes over ~125 SMs.  Making the walk parallel in T is later work.
+// 4000 lanes over ~125 SMs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -222,57 +232,116 @@ __device__ __forceinline__ Potential<H> combine(const Potential<H>& e1,
   return out;
 }
 
-template <int H>
-__global__ void __launch_bounds__(kThreads)
-kalman_lane_scan_kernel(Leaves in, OutLeaves out, int T, int N, int reverse) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  Potential<H> carry, next;
-  load<H>(carry, in, reverse ? T - 1 : 0, N, n);
-  store<H>(carry, out, reverse ? T - 1 : 0, N, n);
-  if (T > 1) load<H>(next, in, reverse ? T - 2 : 1, N, n);
-  for (int s = 1; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const Potential<H> e = next;
-    if (s + 1 < T) load<H>(next, in, reverse ? T - 2 - s : s + 1, N, n);
-    carry = reverse ? combine<H>(e, carry) : combine<H>(carry, e);
-    store<H>(carry, out, t, N, n);
-  }
+// The rows [begin, end) of this block's chunk.
+__device__ __forceinline__ void chunk_rows(int T, int L, int offset,
+                                           int& begin, int& end) {
+  const int c = blockIdx.y;
+  begin = max(c * L + offset, 0);
+  end = min((c + 1) * L + offset, T);
 }
 
 template <int H>
-void launch(const void* const* in, void* const* out, int T, int N,
-            int reverse, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+kalman_lane_scan_kernel(Leaves in, OutLeaves out, OutLeaves totals, int T,
+                        int N, int L, int offset, int reverse) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  int begin, end;
+  chunk_rows(T, L, offset, begin, end);
+  const int len = end - begin;
+  auto row = [&](int s) { return reverse ? end - 1 - s : begin + s; };
+  Potential<H> carry, next;
+  load<H>(carry, in, row(0), N, n);
+  store<H>(carry, out, row(0), N, n);
+  if (len > 1) load<H>(next, in, row(1), N, n);
+  for (int s = 1; s < len; ++s) {
+    const Potential<H> e = next;
+    if (s + 1 < len) load<H>(next, in, row(s + 1), N, n);
+    carry = reverse ? combine<H>(e, carry) : combine<H>(carry, e);
+    store<H>(carry, out, row(s), N, n);
+  }
+  if (totals.w != nullptr) store<H>(carry, totals, blockIdx.y, N, n);
+}
+
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+kalman_lane_fixup_kernel(OutLeaves out, Leaves totals, int T, int N, int L,
+                         int offset, int C, int reverse) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = blockIdx.y;
+  // the first chunk in chain order has no carry-in
+  if (n >= N || c == (reverse ? C - 1 : 0)) return;
+  int begin, end;
+  chunk_rows(T, L, offset, begin, end);
+  // phase 2: acc = totals[0] o ... o totals[c-1], or in reverse
+  // totals[c+1] o ... o totals[C-1]
+  Potential<H> acc, e;
+  load<H>(acc, totals, reverse ? C - 1 : 0, N, n);
+  const int before = reverse ? C - 1 - c : c;
+  for (int s = 1; s < before; ++s) {
+    load<H>(e, totals, reverse ? C - 1 - s : s, N, n);
+    acc = reverse ? combine<H>(e, acc) : combine<H>(acc, e);
+  }
+  // phase 3: every row of the chunk takes the carry-in
+  const Leaves rows{out.Jaa, out.Jab, out.Jbb, out.ha, out.hb, out.w};
+  for (int t = begin; t < end; ++t) {
+    load<H>(e, rows, t, N, n);
+    store<H>(reverse ? combine<H>(e, acc) : combine<H>(acc, e), out, t, N, n);
+  }
+}
+
+OutLeaves out_leaves(void* const* p) {
+  return OutLeaves{static_cast<float*>(p[0]), static_cast<float*>(p[1]),
+                   static_cast<float*>(p[2]), static_cast<float*>(p[3]),
+                   static_cast<float*>(p[4]), static_cast<float*>(p[5])};
+}
+
+template <int H>
+int launch(const void* const* in, void* const* out, void* const* totals,
+           int T, int N, int C, int L, int offset, int reverse,
+           cudaStream_t stream) {
   Leaves src{static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
              static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
              static_cast<const float*>(in[4]), static_cast<const float*>(in[5])};
-  OutLeaves dst{static_cast<float*>(out[0]), static_cast<float*>(out[1]),
-                static_cast<float*>(out[2]), static_cast<float*>(out[3]),
-                static_cast<float*>(out[4]), static_cast<float*>(out[5])};
-  const int blocks = (N + kThreads - 1) / kThreads;
-  kalman_lane_scan_kernel<H><<<blocks, kThreads, 0, stream>>>(src, dst, T, N,
-                                                              reverse);
+  const OutLeaves dst = out_leaves(out);
+  const OutLeaves tot = out_leaves(totals);
+  const dim3 grid((N + kThreads - 1) / kThreads, C);
+  kalman_lane_scan_kernel<H><<<grid, kThreads, 0, stream>>>(
+      src, dst, tot, T, N, L, offset, reverse);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || C == 1) return static_cast<int>(err);
+  const Leaves tot_in{tot.Jaa, tot.Jab, tot.Jbb, tot.ha, tot.hb, tot.w};
+  kalman_lane_fixup_kernel<H><<<grid, kThreads, 0, stream>>>(
+      dst, tot_in, T, N, L, offset, C, reverse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Inputs and outputs in the order Jaa, Jab, Jbb, ha, hb, logw.  Returns 0 on
-// a clean launch, the cudaGetLastError() code otherwise, and
-// cudaErrorInvalidValue for an H that is not instantiated (the Python
-// wrapper checks H first).
+// Inputs, outputs and totals in the order Jaa, Jab, Jbb, ha, hb, logw.
+// One-pass scan: C = 1, L = T, offset = 0, totals may be NULL.  Time fold:
+// C > 1 chunks of L rows (C L >= T, every chunk non-empty), offset as above,
+// totals (C, ...) scratch leaves.  Returns 0 on a clean launch, the
+// cudaGetLastError() code otherwise, and cudaErrorInvalidValue for an H that
+// is not instantiated or a fold without totals (the Python wrapper checks
+// both first).
 extern "C" int kalman_lane_scan_f32(
     const void* Jaa, const void* Jab, const void* Jbb, const void* ha,
     const void* hb, const void* logw, void* oJaa, void* oJab, void* oJbb,
-    void* oha, void* ohb, void* ologw, int T, int H, int N, int reverse,
-    void* stream) {
+    void* oha, void* ohb, void* ologw, void* tJaa, void* tJab, void* tJbb,
+    void* tha, void* thb, void* tlogw, int T, int H, int N, int C, int L,
+    int offset, int reverse, void* stream) {
   const void* in[6] = {Jaa, Jab, Jbb, ha, hb, logw};
   void* out[6] = {oJaa, oJab, oJbb, oha, ohb, ologw};
+  void* tot[6] = {tJaa, tJab, tJbb, tha, thb, tlogw};
+  if (C > 1)
+    for (void* p : tot)
+      if (p == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 1: launch<1>(in, out, T, N, reverse, s); break;
-    case 2: launch<2>(in, out, T, N, reverse, s); break;
-    case 3: launch<3>(in, out, T, N, reverse, s); break;
+    case 1: return launch<1>(in, out, tot, T, N, C, L, offset, reverse, s);
+    case 2: return launch<2>(in, out, tot, T, N, C, L, offset, reverse, s);
+    case 3: return launch<3>(in, out, tot, T, N, C, L, offset, reverse, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -7,9 +7,9 @@ and the role transitions (role_mask).  Coordinate ascent interleaves the role
 smoother (a log-semiring scan pair) and the Kalman smoother (a Gaussian
 potential scan pair): four scans per sweep.
 
-Not ported yet: ``unique_obs=True``, ``time_mesh``, ``batch_shape``,
-``latent_iters``, the sequential smoothers (``parallel_scan=False``),
-``Elog_like``, ``KLqprior``/``ELBO`` and the assignment and plotting methods.
+Not ported yet: ``unique_obs=True``, ``time_mesh``, ``batch_shape``, the
+sequential smoothers (``parallel_scan=False``), ``Elog_like``,
+``KLqprior``/``ELBO`` and the plotting methods.
 """
 from __future__ import annotations
 
@@ -315,8 +315,25 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         )
 
     # ------------------------------------------------------------- full sweep
-    def _dmbd_step(self, x0, A, transition, initial, B, px, y, u, r, lr):
+    def _latents_given_p(self, x0, A, B, p, y, u, r):
+        """Latent E-step given role assignments p: (px, sufficient stats)."""
+        like = self.log_likelihood_function_role(B, p, y, r)
+        px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, logZ = (
+            self._smoother(self._latent_parms(A), x0, like, u)
+        )
+        ss = self._latent_suffstats(
+            px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, y, u, r, logZ
+        )
+        return px, ss
+
+    def _dmbd_step(self, x0, A, transition, initial, B, px, y, u, r, lr,
+                   latent_iters=1):
         om = self.obs_model
+        # warm-up passes (latent_iters - 1): roles from a fresh px, then the
+        # latents given them (reference DMBD.update:191-194)
+        for _ in range(latent_iters - 1):
+            p, _, _ = self._role_estep(transition, initial, B, self._init_px(r), y, r)
+            px, _ = self._latents_given_p(x0, A, B, p, y, u, r)
         # role E-step
         p, SEzz, SEz0 = self._role_estep(transition, initial, B, px, y, r)
         # role M-step
@@ -327,13 +344,7 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         XRY = (px4r, r.unsqueeze(-unsdim), y.unsqueeze(-unsdim))
         B = om._obs_update(B, XRY, p, lr, None)
         # latent E-step with updated roles
-        like = self.log_likelihood_function_role(B, p, y, r)
-        px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, logZ = (
-            self._smoother(self._latent_parms(A), x0, like, u)
-        )
-        ss = self._latent_suffstats(
-            px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, y, u, r, logZ
-        )
+        px, ss = self._latents_given_p(x0, A, B, p, y, u, r)
         logZ = ss["logZ"]
         # ELBO
         KL = x0.KLqprior() + A.KLqprior()
@@ -359,8 +370,11 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         x0, A, _ = self._ss_update(x0, A, ss, lr=lr)
         return x0, A, transition, initial, B, px, p, logZ, ELBO
 
-    def update(self, y, u=None, r=None, iters=1, lr=1.0, verbose=False):
-        """``iters`` VB-EM sweeps on data y: (T,) + sample + obs_shape."""
+    def update(self, y, u=None, r=None, iters=1, latent_iters=1, lr=1.0,
+               verbose=False):
+        """``iters`` VB-EM sweeps on data y: (T,) + sample + obs_shape, each
+        after ``latent_iters - 1`` warm-up passes of the role and latent
+        E-steps (the JAX package's signature)."""
         y, u, r = self.reshape_inputs(y, u, r)
         om = self.obs_model
         px = self._init_px(r) if self.px is None else self.px
@@ -369,7 +383,7 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         ELBOs = []
         for _ in range(iters):
             x0, A, transition, initial, B, px, p, logZ, ELBO = self._dmbd_step(
-                x0, A, transition, initial, B, px, y, u, r, lr
+                x0, A, transition, initial, B, px, y, u, r, lr, latent_iters
             )
             ELBOs.append(ELBO)
         self.x0, self.A = x0, A
@@ -385,6 +399,36 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
                 )
             self.ELBO_last = float(e)
             self.ELBO_save.append(float(e))
+
+    # ------------------------------------------------------------ assignments
+    def assignment_pr(self):
+        """Posterior probabilities of (s, b_1, z_1, ..., b_n, z_n) per
+        observable, summed over each block's roles."""
+        p_role = self.obs_model.assignment_pr()
+        rd = self.role_dims
+        out = [p_role[..., : rd[0]].sum(-1, keepdim=True)]
+        for n in range(self.number_of_objects):
+            start = rd[0] + n * (rd[1] + rd[2])
+            out.append(p_role[..., start : start + rd[1]].sum(-1, keepdim=True))
+            out.append(
+                p_role[..., start + rd[1] : start + rd[1] + rd[2]].sum(-1, keepdim=True)
+            )
+        return torch.cat(out, -1)
+
+    def particular_assignment_pr(self):
+        """Probabilities of (environment, object 1, ..., object n), each
+        object's blanket and internal roles together."""
+        p_sbz = self.assignment_pr()
+        out = [p_sbz[..., :1]]
+        for n in range(self.number_of_objects):
+            out.append(p_sbz[..., 2 * n + 1 : 2 * n + 3].sum(-1, keepdim=True))
+        return torch.cat(out, -1)
+
+    def particular_assignment(self):
+        return self.particular_assignment_pr().argmax(-1)
+
+    def assignment(self):
+        return self.assignment_pr().argmax(-1)
 
 
 def _arhmm_elog_like_X(om, B, YR, p):

@@ -2,7 +2,8 @@
 pyvbmp_tpu/models/hmm.py).
 
 The port carries what DMBD's role chain uses: the shell's state (transition
-and initial Dirichlets, observation model, assignments).  Its smoother is
+and initial Dirichlets, observation model, assignments) and the assignment
+readers.  Its smoother is
 ``ops.parallel_hmm.forward_backward_parallel``; the sequential
 ``forward_backward``, ``smoother_dispatch`` and the HMM's own ``update`` are
 not ported yet.
@@ -54,3 +55,9 @@ class HMM:
         if self.p is not None:
             self.p = self.p.to(device=device, dtype=dtype)
         return self
+
+    def assignment_pr(self):
+        return self.p
+
+    def assignment(self):
+        return self.p.argmax(-1)

@@ -41,9 +41,10 @@ def _bind(lib):
     as c_void_p (ctypes would cut them to 32-bit ints), sizes as c_int."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        "logsemiring_scan_f32": [vp, vp, ci, ci, ci, ci, vp],
-        "kalman_plane_scan_f32": [vp] * 12 + [ci] * 4 + [vp],
-        "kalman_lane_scan_f32": [vp] * 12 + [ci] * 4 + [vp],
+        # leaves, outputs, chunk totals; T, size, N, chunks, L, offset, reverse
+        "logsemiring_scan_f32": [vp] * 3 + [ci] * 7 + [vp],
+        "kalman_plane_scan_f32": [vp] * 18 + [ci] * 7 + [vp],
+        "kalman_lane_scan_f32": [vp] * 18 + [ci] * 7 + [vp],
         "weighted_outer_f32": [vp] * 4 + [ci] * 5 + [vp],
     }
     for name, argtypes in signatures.items():

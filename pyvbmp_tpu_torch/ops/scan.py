@@ -1,6 +1,7 @@
-"""The smoothers' prefix and suffix scans: three CUDA kernels and their plain
-PyTorch versions (counterpart of pyvbmp_tpu/ops/chunked_scan.py:auto_scan and
-the Pallas kernel pyvbmp_tpu/ops/pallas_scan.py:_build_call).
+"""The smoothers' prefix and suffix scans: three CUDA kernels, each walked in
+one pass or folded into time chunks, and their plain PyTorch versions
+(counterpart of pyvbmp_tpu/ops/chunked_scan.py:auto_scan and the Pallas
+kernels pyvbmp_tpu/ops/pallas_scan.py:_build_call and _build_folded_call).
 
 All three are inclusive scans over axis 0 of an associative combine with no
 identity element, in chain order:
@@ -17,18 +18,70 @@ identity element, in chain order:
   packed by components (``ops/smallmat.py``), the combine is
   ``parallel_kalman._combine_lane`` (the latent chain, h <= 3).
 
+Time fold (pyvbmp_tpu/ops/pallas_scan.py:80-101, 477-585): with
+``TIME_FOLD`` = "auto" a scan of T >= ``TIME_FOLD_MIN_T`` rows over
+N <= ``TIME_FOLD_MAX_N`` lanes is cut into Cp = ``_time_fold_cp(T, N)``
+chunks of L = ceil(T / Cp) rows and run as a three-phase block scan: (1) the
+in-chunk scans, the chunks as a batch axis; (2) an exclusive scan of the
+chunk totals; (3) one combine of each chunk's carry-in with each of its
+rows.  "1" folds every scan that can be cut into chunks of >= 2 rows, "0"
+(the default, as in the JAX package) none.  A lane scan folds only under
+"1": the JAX package's automatic dispatch never sends a lane-layout scan at
+small N to the Pallas kernel.  The switch and thresholds are read from the
+JAX package's environment variables once, into module attributes that a
+caller (or a test) may set.
+
 Dispatch is by the device of the input: a CPU tensor goes through the plain
-version (a sequential left fold of the combine), a CUDA tensor launches the
-kernel and raises on anything the kernel does not take.  There is no
-fallback from one to the other.
+version (a sequential fold of the combine; folded, the three phases above in
+torch ops, with the JAX package's duplicate-edge padding), a CUDA tensor
+launches the kernel and raises on anything the kernel does not take.  There
+is no fallback from one to the other.  A folded kernel launch runs two CUDA
+kernels: phase 1, then phases 2-3 fused; it counts once, on the scan's
+``folded`` counter.
 
 The kernels are built and loaded by ``ops/_cuda.py``.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ._cuda import load_library
+
+TIME_FOLD = os.environ.get("PYVBMP_PALLAS_TIME_FOLD", "0")
+TIME_FOLD_MAX_N = int(os.environ.get("PYVBMP_PALLAS_TIME_FOLD_MAX_N", "256"))
+TIME_FOLD_MIN_T = int(os.environ.get("PYVBMP_PALLAS_TIME_FOLD_MIN_T", "96"))
+TIME_FOLD_CP = int(os.environ.get("PYVBMP_PALLAS_TIME_FOLD_CP", "8"))
+
+
+def _time_fold_cp(T, N):
+    """Number of chunks for the folded scan: more chunks shorten the serial
+    walk (L = ceil(T/Cp)) but add phase-2/3 work; keep L >= 16."""
+    cp = TIME_FOLD_CP
+    while cp > 2 and (T + cp - 1) // cp < 16:
+        cp //= 2
+    return max(cp, 1)
+
+
+def _time_fold_ok(leaves, T, N):
+    """The JAX package's fold decision (``leaves`` is unused, as there)."""
+    if TIME_FOLD == "0":
+        return False
+    if T < TIME_FOLD_MIN_T or N > TIME_FOLD_MAX_N:
+        return TIME_FOLD == "1"
+    return _time_fold_cp(T, N) >= 2
+
+
+def fold_shape(T, N):
+    """(Cp, L) of the time fold of T rows, or None where it cannot be cut
+    into Cp >= 2 non-empty chunks of L >= 2 rows (the JAX package then runs
+    the scan unfolded)."""
+    Cp = _time_fold_cp(T, N)
+    L = -(-T // Cp)
+    if Cp < 2 or L < 2 or Cp * L - T >= L:
+        return None
+    return Cp, L
 
 
 def _logmatmul_plane(a, b):
@@ -49,14 +102,34 @@ def _combine_lane(e1, e2):
     return combine(e1[3].shape[-2], e1, e2)
 
 
-class Scan:
-    """One scan: its kernel, its plain version and their counts.
+def _fold(combine, leaves, reverse):
+    """Sequential inclusive scan over axis 0 in chain order; the combine
+    broadcasts over any axes between time and the leaf's own."""
+    T = leaves[0].shape[0]
+    out = [torch.empty_like(x) for x in leaves]
+    carry = None
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        e = tuple(x[t] for x in leaves)
+        if carry is None:
+            carry = e
+        elif reverse:
+            carry = combine(e, carry)
+        else:
+            carry = combine(carry, e)
+        for o, c in zip(out, carry):
+            o[t] = c
+    return out
 
-    ``launches`` counts kernel launches and nothing else; ``plain_calls``
-    counts runs of the plain version."""
+
+class Scan:
+    """One scan: its kernel, its plain version and their counts, and its
+    time-folded route (``folded``, with counts of its own).
+
+    ``launches`` counts one-pass kernel launches and nothing else;
+    ``plain_calls`` counts runs of the one-pass plain version."""
 
     def __init__(self, name, symbol, source, replaces, sizes, combine,
-                 leaf_shapes, size_of):
+                 leaf_shapes, size_of, fold_auto=True):
         self.name = name
         self.symbol = symbol
         self.source = source
@@ -65,36 +138,36 @@ class Scan:
         self.combine = combine
         self.leaf_shapes = leaf_shapes  # (T, size, N) -> shape of each leaf
         self.size_of = size_of  # leaves -> K or H
+        self.fold_auto = fold_auto  # whether TIME_FOLD="auto" may fold it
         self.launches = 0
         self.plain_calls = 0
+        self.folded = FoldedScan(self)
+
+    def fold_plan(self, T, N):
+        """(Cp, L) when the time-fold switch folds this scan, else None."""
+        if TIME_FOLD == "auto" and not self.fold_auto:
+            return None
+        if not _time_fold_ok(None, T, N):
+            return None
+        return fold_shape(T, N)
 
     def __call__(self, leaves, reverse=False):
+        folded = self.fold_plan(leaves[0].shape[0], leaves[0].shape[-1]) is not None
+        route = self.folded if folded else self
         device = leaves[0].device
         if device.type == "cpu":
-            return self.plain(leaves, reverse)
+            return route.plain(leaves, reverse)
         if device.type == "cuda":
-            return self.kernel(leaves, reverse)
-        raise ValueError(f"{self.name}: no version for device {device}")
+            return route.kernel(leaves, reverse)
+        raise ValueError(f"{route.name}: no version for device {device}")
 
     def plain(self, leaves, reverse=False):
         """Sequential left fold in the kernel's association order."""
         self.plain_calls += 1
-        T = leaves[0].shape[0]
-        out = [torch.empty_like(x) for x in leaves]
-        carry = None
-        for t in (range(T - 1, -1, -1) if reverse else range(T)):
-            e = tuple(x[t] for x in leaves)
-            if carry is None:
-                carry = e
-            elif reverse:
-                carry = self.combine(e, carry)
-            else:
-                carry = self.combine(carry, e)
-            for o, c in zip(out, carry):
-                o[t] = c
-        return out
+        return _fold(self.combine, leaves, reverse)
 
-    def kernel(self, leaves, reverse=False):
+    def check(self, leaves):
+        """(T, size, N) of leaves the kernel takes; raises on any other."""
         T, N = leaves[0].shape[0], leaves[0].shape[-1]
         size = self.size_of(leaves)
         if size not in self.sizes:
@@ -114,16 +187,98 @@ class Scan:
                 )
         if T < 1 or N < 1:
             raise ValueError(f"{self.name}: empty scan (T={T}, N={N})")
+        return T, size, N
+
+    def launch(self, leaves, reverse, chunks=1, L=None, offset=0):
+        """Run the kernel over checked leaves: one pass (chunks=1) or folded
+        into ``chunks`` chunks of L rows whose first row is c L + offset."""
+        T, size, N = self.check(leaves)
         lib = load_library()
         out = [torch.empty_like(x) for x in leaves]
+        totals = [x.new_empty((chunks,) + x.shape[1:]) if chunks > 1 else None
+                  for x in leaves]
+        device = leaves[0].device
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = getattr(lib, self.symbol)(
                 *(x.data_ptr() for x in leaves), *(o.data_ptr() for o in out),
-                T, size, N, int(bool(reverse)), stream,
+                *(None if t is None else t.data_ptr() for t in totals),
+                T, size, N, chunks, T if L is None else L, offset,
+                int(bool(reverse)), stream,
             )
         if rc != 0:
             raise RuntimeError(f"{self.name}: launch failed, cudaError {rc}")
+        return out
+
+    def kernel(self, leaves, reverse=False):
+        out = self.launch(leaves, reverse)
+        self.launches += 1
+        return out
+
+
+class FoldedScan:
+    """The time-folded route of a ``Scan`` (the counterpart of
+    pallas_scan.py:_time_folded_scan, whose phase 1 is the Pallas kernel
+    _build_folded_call): the folded kernel, its plain version and their
+    counts."""
+
+    replaces = "pyvbmp_tpu/ops/pallas_scan.py:351"
+
+    def __init__(self, scan):
+        self.scan = scan
+        self.name = scan.name + "_folded"
+        self.source = scan.source
+        self.launches = 0
+        self.plain_calls = 0
+
+    def shape(self, leaves):
+        T, N = leaves[0].shape[0], leaves[0].shape[-1]
+        plan = fold_shape(T, N)
+        if plan is None:
+            raise ValueError(f"{self.name}: T={T} cannot be folded into chunks")
+        return plan
+
+    def plain(self, leaves, reverse=False):
+        """The three phases in torch ops, as _time_folded_scan runs them.
+        Time is padded to Cp L rows with copies of the edge element (the
+        last row forward; the first row in reverse, where the JAX package
+        flips the scan), which no output row depends on."""
+        self.plain_calls += 1
+        combine = self.scan.combine
+        T = leaves[0].shape[0]
+        Cp, L = self.shape(leaves)
+        pad = Cp * L - T
+
+        def padded(x):
+            fill = (x[:1] if reverse else x[-1:]).expand((pad,) + x.shape[1:])
+            return torch.cat([fill, x] if reverse else [x, fill], 0)
+
+        # phase 1: the in-chunk scans, time leading, the chunks a batch axis
+        local = _fold(
+            combine,
+            [padded(x).reshape((Cp, L) + x.shape[1:]).transpose(0, 1) for x in leaves],
+            reverse,
+        )
+        # phase 2: inclusive scan of the chunk totals; chunk c's carry-in is
+        # entry c - 1 of it (c + 1 in reverse)
+        incl = _fold(combine, [x[0 if reverse else -1] for x in local], reverse)
+        # phase 3: each chunk's carry-in with every row of the chunk
+        for c in range(Cp):
+            if c == (Cp - 1 if reverse else 0):
+                continue  # the first chunk in chain order has no carry-in
+            carry = tuple(x[c + 1 if reverse else c - 1] for x in incl)
+            rows = tuple(x[:, c] for x in local)
+            res = combine(rows, carry) if reverse else combine(carry, rows)
+            for x, r in zip(local, res):
+                x[:, c] = r
+        out = [x.transpose(0, 1).reshape((Cp * L,) + x.shape[2:]) for x in local]
+        return [x[pad:] if reverse else x[:T] for x in out]
+
+    def kernel(self, leaves, reverse=False):
+        T = leaves[0].shape[0]
+        Cp, L = self.shape(leaves)
+        offset = T - Cp * L if reverse else 0
+        out = self.scan.launch(leaves, reverse, chunks=Cp, L=L, offset=offset)
         self.launches += 1
         return out
 
@@ -133,7 +288,7 @@ LOGSEMIRING = Scan(
     "logsemiring_scan_f32",
     "pyvbmp_tpu_torch/csrc/logsemiring_scan.cu",
     "pyvbmp_tpu/ops/pallas_scan.py:219",
-    sizes=(4, 7),
+    sizes=(4, 7, 14),
     combine=lambda a, b: (_logmatmul_plane(a[0], b[0]),),
     leaf_shapes=lambda T, K, N: [(T, K, K, N)],
     size_of=lambda leaves: leaves[0].shape[1],
@@ -143,7 +298,7 @@ KALMAN_PLANE = Scan(
     "kalman_plane_scan_f32",
     "pyvbmp_tpu_torch/csrc/kalman_plane_scan.cu",
     "pyvbmp_tpu/ops/pallas_scan.py:219",
-    sizes=(6, 10),
+    sizes=(6, 10, 14),
     combine=_combine_plane,
     leaf_shapes=lambda T, H, N: [(T, H, H, N)] * 3 + [(T, H, N)] * 2 + [(T, N)],
     size_of=lambda leaves: leaves[0].shape[1],
@@ -160,8 +315,10 @@ KALMAN_LANE = Scan(
         + [(T, H, N)] * 2 + [(T, N)]
     ),
     size_of=lambda leaves: leaves[3].shape[1] if len(leaves) > 3 else None,
+    fold_auto=False,
 )
 SCANS = (LOGSEMIRING, KALMAN_PLANE, KALMAN_LANE)
+FOLDED_SCANS = tuple(s.folded for s in SCANS)
 
 
 def logsemiring_scan(M, reverse=False):

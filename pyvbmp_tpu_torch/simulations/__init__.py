@@ -1,4 +1,5 @@
 """Data simulators."""
+from .flocking import Flocking
 from .lorenz import Lorenz
 
-__all__ = ["Lorenz"]
+__all__ = ["Flocking", "Lorenz"]

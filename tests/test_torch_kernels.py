@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (the scans and the weighted scatter) against their
-plain PyTorch versions, on the card.  A CUDA kernel has no interpret mode, so these tests need a GPU (and
-nvcc): they are marked ``gpu`` and skip on a machine without one.  Run them
-on the card with ``python -m pytest tests/test_torch_kernels.py``.
+"""The port's CUDA kernels (the scans, one pass and time-folded, and the
+weighted scatter) against their plain PyTorch versions, on the card.  A CUDA
+kernel has no interpret mode, so these tests need a GPU (and nvcc): they are
+marked ``gpu`` and skip on a machine without one.  Run them on the card with
+``python -m pytest --noconftest tests/test_torch_kernels.py``.
 
 float32 on both sides; tolerance max |kernel - plain| / max |plain| <= 1e-4
 per output (the kernel's plane Kalman combine uses Cholesky factors where
@@ -61,8 +62,8 @@ def rel_err(out, ref):
     return ((out[fin] - ref[fin]).abs().max() / ref[fin].abs().max()).item()
 
 
-CASES = [("logsemiring", 4), ("logsemiring", 7), ("kalman", 6), ("kalman", 10),
-         ("lane", 1), ("lane", 2), ("lane", 3)]
+CASES = [("logsemiring", 4), ("logsemiring", 7), ("logsemiring", 14), ("kalman", 6),
+         ("kalman", 10), ("kalman", 14), ("lane", 1), ("lane", 2), ("lane", 3)]
 MAKERS = {"logsemiring": (scan.LOGSEMIRING, semiring),
           "kalman": (scan.KALMAN_PLANE, kalman), "lane": (scan.KALMAN_LANE, lane)}
 
@@ -79,6 +80,28 @@ def test_kernel_matches_plain(cuda, which, size, reverse):
     assert s.launches == launches + 1
     ref = s.plain(leaves, reverse)
     for o, r in zip(out, ref):
+        assert rel_err(o, r) <= TOL
+
+
+# the Flocking scans (T=150: Cp=8, L=19, two rows short) and a ragged T=37
+# (Cp=2, L=19, one row short) at every instantiated size
+FOLD_CASES = ([("logsemiring", 14, 150, 240), ("kalman", 14, 150, 20)]
+              + [(w, k, 37, 45) for w, k in CASES])
+
+
+@pytest.mark.parametrize("which,size,T,N", FOLD_CASES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_folded_kernel_matches_folded_plain(cuda, which, size, T, N, reverse):
+    rs = np.random.RandomState(size + T)
+    s, make = MAKERS[which]
+    leaves = make(rs, T, size, N, cuda)
+    launches, one_pass = s.folded.launches, s.launches
+    out = s.folded.kernel(leaves, reverse)
+    torch.cuda.synchronize()
+    assert s.folded.launches == launches + 1 and s.launches == one_pass
+    ref = s.folded.plain(leaves, reverse)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
         assert rel_err(o, r) <= TOL
 
 
@@ -116,6 +139,32 @@ def test_dmbd_sweep_runs_four_kernel_launches(cuda):
     assert np.isfinite(m.ELBO_save).all()
 
 
+@pytest.mark.parametrize("fold", ["0", "auto"])
+def test_dmbd_flocking_sweep_launches_per_route(cuda, fold, monkeypatch):
+    """Three objects (K = H = 14): four one-pass launches a sweep with the
+    fold off, four folded launches with it on, never a plain scan."""
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.simulations import Flocking
+
+    monkeypatch.setattr(scan, "TIME_FOLD", fold)
+    monkeypatch.setattr(scan, "TIME_FOLD_MIN_T", 8)
+    g = torch.Generator().manual_seed(0)
+    y = Flocking(n_birds=5, Tmax=40, batch_size=3).simulate(g, torch.float32).to(cuda)
+    m = DynamicMarkovBlanketDiscovery(
+        (5, 4), (2, 2, 2), (2, 2, 2), number_of_objects=3, generator=g,
+        dtype=torch.float32, device=cuda,
+    )
+    counters = [*scan.SCANS, *scan.FOLDED_SCANS]
+    before = [c.launches for c in counters]
+    plain = [c.plain_calls for c in counters]
+    m.update(y, iters=2)
+    want = [4, 4, 0, 0, 0, 0] if fold == "0" else [0, 0, 0, 4, 4, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == want
+    assert [c.plain_calls for c in counters] == plain
+    assert np.isfinite(m.ELBO_save).all()
+    assert m.particular_assignment().shape == (40, 3, 5)
+
+
 def test_mixlds_sweep_runs_two_lane_kernel_launches(cuda):
     from pyvbmp_tpu_torch.models import MixtureofLinearDynamicalSystems
 
@@ -134,6 +183,31 @@ def test_mixlds_sweep_runs_two_lane_kernel_launches(cuda):
     assert [s.plain_calls for s in scan.SCANS] == plain
     assert np.isfinite(m.ELBO_save).all()
     assert m.p.shape == (16, 4) and torch.isfinite(m.p).all()
+
+
+def test_mixlds_sweep_folds_the_lane_scans_only_when_forced(cuda, monkeypatch):
+    """TIME_FOLD="1" sends the lane scans to the folded kernel; "auto" does
+    not (the JAX package never folds a lane scan automatically)."""
+    from pyvbmp_tpu_torch.models import MixtureofLinearDynamicalSystems
+
+    monkeypatch.setattr(scan, "TIME_FOLD_MIN_T", 8)
+    rs = np.random.RandomState(3)
+    y = torch.tensor(np.cumsum(rs.randn(40, 16, 3) * 0.3, 0), dtype=torch.float32,
+                     device=cuda)
+    counters = [*scan.SCANS, *scan.FOLDED_SCANS]
+    for fold, want in (("auto", [0, 0, 2, 0, 0, 0]), ("1", [0, 0, 0, 0, 0, 2])):
+        monkeypatch.setattr(scan, "TIME_FOLD", fold)
+        m = MixtureofLinearDynamicalSystems(
+            4, (3,), 2, 0, 0, parallel_scan=True,
+            generator=torch.Generator().manual_seed(0), dtype=torch.float32,
+            device=cuda,
+        )
+        before = [c.launches for c in counters]
+        plain = [c.plain_calls for c in counters]
+        m.update(y)
+        assert [c.launches - b for c, b in zip(counters, before)] == want
+        assert [c.plain_calls for c in counters] == plain
+        assert np.isfinite(m.ELBO_save).all()
 
 
 # ---------------------------------------------------------- weighted scatter
