@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (pyvbmp_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline CSRC_DIR] [--trace]
 
 Phases, each reported on a line of its own; any failure exits non-zero and
 prints no result:
@@ -30,8 +30,10 @@ prints no result:
 7. the weighted_outer kernel against its plain version (computed in float64
    on the card) at the digits shape (S=1347, p=65, K=9), the JAX module's
    measured size (S=400000, p=32, K=16) and an MNIST-16x16 shape (S=60000,
-   p=257, K=9): max |kernel - plain| / max |plain| <= 1e-4, with the
-   kernel's and the float32 plain version's times;
+   p=257, K=9): max |kernel - plain| / max |plain| <= 1e-4 and an exactly
+   symmetric output, with the kernel's time (per call, and on the device
+   from a profiler trace), the float32 plain version's and one
+   torch.einsum call's;
 8. MultiNomialLogisticRegression (Polya-Gamma) on the digits bake-off
    (benchmarks/classification_bakeoff.py: 1347 train / 450 test, 64 pixels,
    10 classes) in float32 on the card with TF32 enabled globally: 10 x
@@ -70,18 +72,31 @@ prints no result:
    times, no plain version; the two ELBO trajectories within relative 1e-4.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
-says; phases 11-14 set it themselves.
+says; phases 11-14 set it themselves.  Phases 7 and 11 print each kernel's
+bound (BOUND_MS: bytes in once and out once over 3.35 TB/s, or FP32
+operations over 67 TFLOP/s, whichever is larger) and its share of it.
+
+--baseline CSRC_DIR builds a second set of kernels from CSRC_DIR (an earlier
+version of pyvbmp_tpu_torch/csrc, e.g. unpacked with git archive into a
+gitignored directory) beside ours, and times the two in turns (baseline,
+ours, ours, baseline) at the phase-7 scatter shapes and the plane Kalman
+shapes of phases 2 and 11.  --trace profiles 3 sweeps of DMBD-Lorenz and of
+DMBD-Flocking on both routes (device busy time, kernel time by kind, wall
+clock).  Neither changes what the phases check.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -103,6 +118,37 @@ FLOCK = dict(T=150, batch=20, n_birds=12, obs_dim=4, role_dims=(2, 2, 2),
 SCATTER_SHAPES = [("digits", 1347, 65, 9), ("weighted_scatter.py:16", 400000, 32, 16),
                   ("MNIST-16x16", 60000, 257, 9)]
 REL_TOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (dense FP32 below)
+FP32_FLOP_PER_S = 67e12
+
+
+def bound_ms(nbytes, flops):
+    """(least time in ms, what bounds it) for a function that must move
+    ``nbytes`` and do ``flops`` FP32 operations on one H100."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_work(name, T, size, N):
+    """(bytes, FP32 operations) of one inclusive scan of T elements on N
+    lanes: each element read once and each prefix written once, and one
+    combine per row after the first.  logsemiring: K^3 adds, exps and sums;
+    plane Kalman: Cholesky (2/3 H^3), 2H+1 solves ((2H+1) H^2), A'A, B'B,
+    A'B (6 H^3) and A'c, B'c, c'c; lane Kalman: the same on h <= 3."""
+    if name.startswith("logsemiring"):
+        floats, ops = size * size, 3 * size ** 3
+    else:
+        H = size
+        packed = name.startswith("kalman_lane")
+        floats = (H * (H + 1) + H * H if packed else 3 * H * H) + 2 * H + 1
+        ops = 2 * H ** 3 / 3 + (2 * H + 1) * H * H + 6 * H ** 3 + 4 * H * H + 2 * H
+    return 2 * 4 * T * N * floats, (T - 1) * N * ops
+
+
+def scatter_work(S, p, K):
+    """(bytes, FP32 operations) of the weighted scatter: X, W read once, O
+    written once; one multiply-add per (s, k) and upper-triangle entry."""
+    return 4 * (S * p + S * K + K * p * p), 2 * S * K * p * (p + 1) // 2
 
 
 def fail(msg):
@@ -135,7 +181,107 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_guard():
+def build_baseline(csrc):
+    """The kernels of another csrc directory, built as ours are (into a build
+    directory beside it) and bound with the earlier scatter signature when
+    the directory has it."""
+    import ctypes
+
+    from pyvbmp_tpu_torch.ops import _cuda
+
+    csrc = Path(csrc).resolve()
+    lib = _cuda.build(csrc, csrc.parent / "_build")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if "int group" not in (csrc / "weighted_outer.cu").read_text():
+        lib.weighted_outer_f32.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+        lib.baseline_scatter_args = 5
+    else:
+        lib.baseline_scatter_args = 7
+    return lib
+
+
+@contextlib.contextmanager
+def library(lib):
+    """The kernels taken from ``lib`` (a baseline build) inside the block."""
+    from pyvbmp_tpu_torch.ops import _cuda
+
+    old, _cuda._library = _cuda._library, lib
+    try:
+        yield
+    finally:
+        _cuda._library = old
+
+
+def in_turns(ours, theirs, reps):
+    """(our ms, their ms), timed in turns: theirs, ours, ours, theirs."""
+    b1 = time_ms(theirs, reps)
+    o1, o2 = time_ms(ours, reps), time_ms(ours, reps)
+    b2 = time_ms(theirs, reps)
+    return (o1 + o2) / 2, (b1 + b2) / 2
+
+
+def timed(fn, reps, base=None):
+    """(our ms, baseline ms or None): with a baseline library, ``fn`` timed
+    in turns with its kernels taken from the baseline."""
+    if base is None:
+        return time_ms(fn, reps), None
+
+    def theirs():
+        with library(base):
+            return fn()
+
+    return in_turns(fn, theirs, reps)
+
+
+def baseline_scatter(lib, X, W):
+    """The scatter through a baseline library; one with the earlier
+    signature gets the earlier split plan (pass-1 blocks per upper tile,
+    class and S-chunk, ~4 per SM, chunks of >= 128 rows)."""
+    from pyvbmp_tpu_torch.ops import weighted_scatter as ws
+
+    if lib.baseline_scatter_args == 7:
+        with library(lib):
+            return ws.WEIGHTED_OUTER.kernel(X, W)
+    S, p = X.shape
+    K = W.shape[1]
+    n_tiles = -(-p // 32)
+    n_upper = n_tiles * (n_tiles + 1) // 2
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    want = max(1, min(-(-4 * sms // (K * n_upper)), -(-S // 128)))
+    rows = -(-(-(-S // want)) // 32) * 32
+    n_splits = -(-S // rows)
+    out = torch.empty((K, p, p), dtype=torch.float32, device=X.device)
+    partial = torch.empty(n_splits * K * n_upper * 1024, dtype=torch.float32, device=X.device)
+    rc = lib.weighted_outer_f32(X.data_ptr(), W.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                                S, p, K, n_splits, rows, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"baseline weighted_outer: cudaError {rc}")
+    return out
+
+
+def device_ms(fn, reps=10):
+    """Device time of one ``fn()`` in ms: the sum of its kernels' durations
+    in a profiler trace of ``reps`` calls (free of the host's dispatch time,
+    which sets the event-timed figure for a call this short)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans) / reps / 1e3 if spans else float("nan")
+
+
+def share(ms, bound):
+    return f"bound {bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}% of it"
+
+
+def phase_guard(baseline=None):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     smi = subprocess.run(
@@ -151,15 +297,20 @@ def phase_guard():
     scan.TIME_FOLD = "0"
 
     t0 = time.perf_counter()
-    _cuda.load_library()
-    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        ours = pool.submit(_cuda.load_library)
+        base = pool.submit(build_baseline, baseline) if baseline else None
+        ours.result()
+        build_s = time.perf_counter() - t0
+        base_lib = base.result() if base else None
     print(f"phase 1 guard: {torch.cuda.get_device_name(0)}; card {card}; "
-          f"kernels built and loaded in {build_s:.2f} s")
+          f"kernels built and loaded in {build_s:.2f} s"
+          + (f" (baseline {baseline} built beside them)" if baseline else ""))
     for so_log in sorted(_cuda.BUILD_DIR.glob("*.log")):
         for line in so_log.read_text().splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")):
                 print(f"  ptxas: {line.strip()}")
-    return card
+    return card, base_lib
 
 
 def semiring_elems(rs, T, K, N):
@@ -195,7 +346,7 @@ def lane_elems(rs, T, H, N):
             ha, hb, w)
 
 
-def phase_kernels(card):
+def phase_kernels(card, base=None):
     from pyvbmp_tpu_torch.ops import scan
 
     rs = np.random.RandomState(CFG["seed"])
@@ -211,10 +362,12 @@ def phase_kernels(card):
         (scan.KALMAN_LANE, "H=3 T=100 N=4000", lane_elems(rs, MIX["T"], 3, N_mix)),
         (scan.KALMAN_LANE, "H=1 T=100 N=4000", lane_elems(rs, MIX["T"], 1, N_mix)),
     ]
-    record = {s.name: dict(abs=0.0, ms=None, plain_ms=None) for s in scan.SCANS}
+    record = {s.name: dict(abs=0.0, ms=None, plain_ms=None, bound=None) for s in scan.SCANS}
     for s, label, arrays in cases:
         leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
                        for a in arrays)
+        Tn, Nn = leaves[0].shape[0], leaves[0].shape[-1]
+        bound = bound_ms(*scan_work(s.name, Tn, s.size_of(leaves), Nn))
         for reverse in (False, True):
             out = s.kernel(leaves, reverse)
             ref = s.plain(leaves, reverse)
@@ -222,17 +375,19 @@ def phase_kernels(card):
             errs = [rel_err(o, r) for o, r in zip(out, ref)]
             err = max(e[0] for e in errs)
             abs_err = max(e[1] for e in errs)
-            ms = time_ms(lambda: s.kernel(leaves, reverse), 20)
+            ms, base_ms = timed(lambda: s.kernel(leaves, reverse), 20,
+                                base if s is scan.KALMAN_PLANE else None)
             plain_ms = time_ms(lambda: s.plain(leaves, reverse), 2)
             print(f"phase 2 {s.name} {label} {'reverse' if reverse else 'forward'}: "
-                  f"max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.3f} ms; card {card}")
+                  f"max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms"
+                  + (f" (baseline {base_ms:.4f} ms)" if base_ms else "")
+                  + f", plain {plain_ms:.3f} ms; {share(ms, bound)}; card {card}")
             if not err <= REL_TOL:
                 fail(f"{s.name} {label}: kernel disagrees with plain ({err:.3e})")
             rec = record[s.name]
             rec["abs"] = max(rec["abs"], abs_err)
             if "bench" in label and not reverse:
-                rec["ms"], rec["plain_ms"] = ms, plain_ms
+                rec["ms"], rec["plain_ms"], rec["bound"] = ms, plain_ms, bound
     return record
 
 
@@ -423,11 +578,11 @@ def phase_mixlds_compare(card):
                      torch.from_numpy(mixlds_data()).double(), MIX["compare_sweeps"], card)
 
 
-def phase_scatter(card):
+def phase_scatter(card, base=None):
     from pyvbmp_tpu_torch.ops import weighted_scatter as ws
 
     rs = np.random.RandomState(CFG["seed"])
-    rec = dict(abs=0.0, ms=None, plain_ms=None)
+    rec = dict(abs=0.0, ms=None, plain_ms=None, library_ms=None, bound=None)
     for label, S, p, K in SCATTER_SHAPES:
         X = torch.tensor(rs.randn(S, p), dtype=torch.float32, device="cuda")
         W = torch.tensor(rs.rand(S, K), dtype=torch.float32, device="cuda")
@@ -435,17 +590,31 @@ def phase_scatter(card):
         ref = ws.weighted_outer_einsum(X.double(), W.double())
         torch.cuda.synchronize()
         err, abs_err = rel_err(out.double(), ref)
-        ms = time_ms(lambda: ws.WEIGHTED_OUTER.kernel(X, W), 20)
+        bound = bound_ms(*scatter_work(S, p, K))
+        ours = lambda: ws.WEIGHTED_OUTER.kernel(X, W)
+        dev_txt = f" (device {device_ms(ours):.4f} ms)"
+        if base is None:
+            ms, base_txt = time_ms(ours, 20), ""
+        else:
+            theirs = lambda: baseline_scatter(base, X, W)
+            ms, base_ms = in_turns(ours, theirs, 20)
+            base_err = rel_err(theirs().double(), ref)[0]
+            base_txt = (f"; baseline kernel {base_ms:.4f} ms (device {device_ms(theirs):.4f} "
+                        f"ms; max rel err {base_err:.3e})")
         plain_ms = time_ms(lambda: ws.weighted_outer_einsum(X, W), 20)
-        gflop = 2.0 * S * K * p * p / 1e9
-        print(f"phase 7 weighted_outer {label} S={S} p={p} K={K} ({gflop:.3f} GFLOP "
-              f"full): max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms, "
-              f"plain (float32 einsum) {plain_ms:.4f} ms; card {card}")
+        library_ms = time_ms(lambda: torch.einsum("sk,si,sj->kij", W, X, X), 20)
+        print(f"phase 7 weighted_outer {label} S={S} p={p} K={K} "
+              f"({scatter_work(S, p, K)[1] / 1e9:.3f} GFLOP on the triangle): max rel err "
+              f"{err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms{dev_txt}, plain (float32 einsum "
+              f"formulation) {plain_ms:.4f} ms, one torch.einsum call {library_ms:.4f} ms; "
+              f"{share(ms, bound)}{base_txt}; card {card}")
         if not err <= REL_TOL:
             fail(f"weighted_outer {label}: kernel disagrees with plain ({err:.3e})")
+        if not torch.equal(out, out.transpose(1, 2)):
+            fail(f"weighted_outer {label}: output not exactly symmetric")
         rec["abs"] = max(rec["abs"], abs_err)
         if label == "digits":
-            rec["ms"], rec["plain_ms"] = ms, plain_ms
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound=bound)
     return rec
 
 
@@ -598,7 +767,7 @@ def phase_other_arms(card, data):
             fail(f"{name} ELBO not finite")
 
 
-def phase_fold_kernels(card):
+def phase_fold_kernels(card, base=None):
     """Phase 11: one-pass and folded kernels against their plain versions at
     the DMBD-Flocking shapes (and the folded lane kernel at the MixLDS
     shape).  Returns the folded kernels' record and the one-pass kernels'
@@ -613,12 +782,15 @@ def phase_fold_kernels(card):
         (scan.KALMAN_PLANE, "H=14 T=150 N=20 (Flocking)", kalman_elems(rs, T, 14, FLOCK["batch"])),
         (scan.KALMAN_LANE, "H=2 T=100 N=4000", lane_elems(rs, MIX["T"], 2, MIX["batch"] * 4)),
     ]
-    folded = {s.folded.name: dict(abs=0.0, ms=None, plain_ms=None) for s in scan.SCANS}
+    folded = {s.folded.name: dict(abs=0.0, ms=None, plain_ms=None, bound=None)
+              for s in scan.SCANS}
     one_pass = {s.name: 0.0 for s in scan.SCANS}
     for s, label, arrays in cases:
         leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
                        for a in arrays)
         Cp, L = scan.fold_shape(leaves[0].shape[0], leaves[0].shape[-1])
+        bound = bound_ms(*scan_work(s.name, leaves[0].shape[0], s.size_of(leaves),
+                                    leaves[0].shape[-1]))
         routes = ([("folded", s.folded, "folded scan (phase 1 + fused phases 2-3)")]
                   + ([] if s is scan.KALMAN_LANE else [("one-pass", s, "one-pass kernel")]))
         for reverse in (False, True):
@@ -628,12 +800,14 @@ def phase_fold_kernels(card):
                 torch.cuda.synchronize()
                 errs = [rel_err(o, r) for o, r in zip(out, ref)]
                 err, abs_err = max(e[0] for e in errs), max(e[1] for e in errs)
-                ms = time_ms(lambda: fn.kernel(leaves, reverse), 10)
+                ms, base_ms = timed(lambda: fn.kernel(leaves, reverse), 10,
+                                    base if s is scan.KALMAN_PLANE else None)
                 plain_ms = time_ms(lambda: fn.plain(leaves, reverse), 1)
                 print(f"phase 11 {fn.name} {label} {'reverse' if reverse else 'forward'}"
                       f"{f' (Cp={Cp}, L={L})' if route == 'folded' else ''}: max rel err "
-                      f"{err:.3e} (abs {abs_err:.3e}); {what} {ms:.4f} ms, plain "
-                      f"{plain_ms:.3f} ms; card {card}")
+                      f"{err:.3e} (abs {abs_err:.3e}); {what} {ms:.4f} ms"
+                      + (f" (baseline {base_ms:.4f} ms)" if base_ms else "")
+                      + f", plain {plain_ms:.3f} ms; {share(ms, bound)}; card {card}")
                 if not err <= REL_TOL:
                     fail(f"{fn.name} {label}: kernel disagrees with plain ({err:.3e})")
                 if route == "one-pass":
@@ -642,7 +816,7 @@ def phase_fold_kernels(card):
                 rec = folded[fn.name]
                 rec["abs"] = max(rec["abs"], abs_err)
                 if not reverse:
-                    rec["ms"], rec["plain_ms"] = ms, plain_ms
+                    rec["ms"], rec["plain_ms"], rec["bound"] = ms, plain_ms, bound
     return folded, one_pass
 
 
@@ -764,48 +938,112 @@ def phase_mixlds_folded(card):
     return launches
 
 
+def trace_sweeps(card, label, model, y, fit, fold, n=3):
+    """Per sweep of ``model.update(y, iters=n, **fit)`` under the time fold
+    ``fold``: the untraced wall clock (median of 5 runs), then one traced
+    run: device busy time (the union of kernel intervals), kernel time by
+    kind, and host and device event counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with time_fold(fold):
+        model.update(y, iters=1, **fit)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.update(y, iters=n, **fit)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / n * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.update(y, iters=n, **fit)
+            torch.cuda.synchronize()
+    events = list(prof.events())
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"trace {label}: the profiler saw no device events; card {card}")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    kinds = {}
+    for e in kernels:
+        kind = next((k for k in ("kalman_plane_scan_kernel", "kalman_plane_fixup_kernel",
+                                 "logsemiring", "kalman_lane", "weighted_outer")
+                     if k in e.name), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + (e.time_range.end - e.time_range.start)
+    by_kind = ", ".join(f"{k} {v / n / 1e3:.3f}" for k, v in sorted(kinds.items()))
+    print(f"trace {label}, time fold {fold}, per sweep: wall {np.median(walls):.3f} ms "
+          f"(median of 5 x {n} sweeps, range {min(walls):.3f}-{max(walls):.3f}); device "
+          f"busy {busy / n / 1e3:.3f} ms; kernels ms: {by_kind}; device events "
+          f"{len(kernels) / n:.0f}, host events {(len(events) - len(kernels)) / n:.0f}; "
+          f"card {card}")
+
+
+def phase_trace(card):
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    y = lorenz_data(torch.float32, "cuda")
+    state = dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"])))
+    trace_sweeps(card, "DMBD-Lorenz", dmbd_from_state(state, "cuda", torch.float32), y, {},
+                 "0")
+    y = flocking_data(torch.float32, "cuda")
+    state = flocking_state(FLOCK["seed"])
+    for fold in ("0", "auto"):
+        trace_sweeps(card, "DMBD-Flocking", dmbd_from_state(state, "cuda", torch.float32), y,
+                     dict(latent_iters=1, lr=1.0), fold)
+
+
+def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):
+    bound = r["bound"]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=abs_err, ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms)
+
+
 def main():
-    card = phase_guard()
-    record = phase_kernels(card)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", help="a second csrc directory to time beside ours")
+    ap.add_argument("--trace", action="store_true", help="profile the DMBD sweeps")
+    args = ap.parse_args()
+    card, base = phase_guard(args.baseline)
+    record = phase_kernels(card, base)
     launches_dmbd = phase_dmbd(card)
     phase_compare(card)
     launches_mix = phase_mixlds(card)
     phase_mixlds_compare(card)
-    scatter = phase_scatter(card)
+    scatter = phase_scatter(card, base)
     data = digits()
     state, elbo, labels, launches_mnlr = phase_mnlr(card, data)
     phase_mnlr_compare(card, data, state, elbo, labels)
     phase_other_arms(card, data)
-    folded, one_pass = phase_fold_kernels(card)
+    folded, one_pass = phase_fold_kernels(card, base)
     launches_flock = phase_flocking(card)
     phase_flocking_compare(card)
     launches_mix_folded = phase_mixlds_folded(card)
+    if args.trace:
+        phase_trace(card)
     from pyvbmp_tpu_torch.ops import scan, weighted_scatter as ws
 
     kernels = []
     for s in scan.SCANS:
-        r = record[s.name]
-        kernels.append(dict(
-            name=s.name, route="cuda", source=s.source, replaces=s.replaces,
-            launches=launches_dmbd[s.name] + launches_mix[s.name]
-            + launches_flock["0"][s.name],
-            max_abs_err=max(r["abs"], one_pass[s.name]), ms=r["ms"],
-            plain_ms=r["plain_ms"],
-        ))
+        kernels.append(record_line(
+            s.name, s.source, s.replaces,
+            launches_dmbd[s.name] + launches_mix[s.name] + launches_flock["0"][s.name],
+            max(record[s.name]["abs"], one_pass[s.name]), record[s.name]))
     for s in scan.FOLDED_SCANS:
-        r = folded[s.name]
-        kernels.append(dict(
-            name=s.name, route="cuda", source=s.source, replaces=s.replaces,
-            launches=launches_flock["auto"][s.name] + launches_mix_folded[s.name],
-            max_abs_err=r["abs"],
-            ms=r["ms"], plain_ms=r["plain_ms"],
-        ))
+        kernels.append(record_line(
+            s.name, s.source, s.replaces,
+            launches_flock["auto"][s.name] + launches_mix_folded[s.name],
+            folded[s.name]["abs"], folded[s.name]))
     w = ws.WEIGHTED_OUTER
-    kernels.append(dict(
-        name=w.name, route="cuda", source=w.source, replaces=w.replaces,
-        launches=launches_mnlr[w.name], max_abs_err=scatter["abs"],
-        ms=scatter["ms"], plain_ms=scatter["plain_ms"],
-    ))
+    kernels.append(record_line(w.name, w.source, w.replaces, launches_mnlr[w.name],
+                               scatter["abs"], scatter, scatter["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-// Inclusive scan of Gaussian pair potentials over time, one thread per batch
+// Inclusive scan of Gaussian pair potentials over time, one warp per batch
 // lane, walked in one pass or folded into time chunks.
 //
 // Replaces pyvbmp_tpu/ops/pallas_scan.py:_build_call (one pass) and
@@ -27,26 +27,34 @@
 // whose total no other chunk needs.
 //   kalman_plane_scan_kernel, grid (lane blocks, C): phase 1, the in-chunk
 //     inclusive scan, and each chunk's total into the totals planes (C, ...);
-//   kalman_plane_fixup_kernel, grid (lane blocks, C): phases 2-3 fused.
-//     Each chunk folds the totals of the chunks before it (after it, in
-//     reverse) into its carry-in and combines it with each of its rows in
-//     place.
+//   kalman_plane_fixup_kernel, grid (N, C): phases 2-3 fused.  Warp 0 folds
+//     the totals of the chunks before it (after it, in reverse) into the
+//     chunk's carry-in; then every warp of the block combines it with its
+//     own rows of the chunk, in place, at the same time.
 // The one-pass scan is C = 1, L = T: phase 1 alone.
 //
-// What bounds it on an H100: at DMBD-Lorenz (H=6, T=399, N=100) one scan
-// reads each element once and writes each prefix once, 121*4 B * 100 * 399
-// = 19 MB each way, a few microseconds at 3.35 TB/s.  The bound is the
-// serial walk of dependent combines (an HxH Cholesky, 2H+1 triangular solves
-// and three H^3 products each) on N = 100 threads: four warps.  The fold
-// cuts the walk from T steps to L + (C - 1) + L and spreads the lanes over C
-// times as many warps.  At H <= 10 the carry (3H^2 + 2H + 1 = 121 floats at
-// H=6) lives in registers and local memory and the combine is fully
-// unrolled.  At H = 14 (Flocking, three objects) the carry is 617 floats and
-// the combine's factors another 600: everything lives in local memory, so
-// the combine's outer loops stay rolled and it is one out-of-line function
-// shared by every call site, which keeps compile time and code size in
-// bounds.  The fix-up kernel (off the one-pass path) calls the out-of-line
-// combine at every H for the same reason.
+// What bounds it on an H100: one scan reads each element once and writes
+// each prefix once (Flocking, H=14, T=150, N=20: 617 floats * 3000 elements,
+// 7.4 MB each way, a few microseconds at 3.35 TB/s).  The bound in practice
+// is the chain of T dependent combines (an HxH Cholesky, 2H+1 triangular
+// solves, a (2H+1)^2 Gram matrix of the solutions) on few lanes.  So the
+// design cuts the latency of one combine:
+//   - a warp cooperates on one lane's combine.  Thread i holds row i of M
+//     and the Cholesky runs column by column with warp shuffles (the
+//     trailing update spread over the rows); the 2H+1 = 29 forward
+//     substitutions take one right-hand side per thread, its column in
+//     registers; the products A'A, B'B, A'B, A'c, B'c, c'c are rows of the
+//     Gram matrix of the solutions, thread r computing row r (29
+//     independent dot products) against the solutions read from shared
+//     memory as float4 broadcasts, then writing the outputs its row holds;
+//   - the carry, the incoming element and the factors live in shared
+//     memory (~10 KB per lane at H=14), never in local memory;
+//   - each time step's slab for the block's four lanes is copied with
+//     cp.async, coalesced over the lanes (the minor axis), double-buffered:
+//     step t+1 loads while step t combines; the prefixes are stored the
+//     same way;
+//   - the fix-up applies the carry-in to a chunk's rows in parallel, one
+//     row per warp, instead of walking them in series.
 // The combine writes its result in place over either operand.
 
 #include <cuda_runtime.h>
@@ -54,274 +62,359 @@
 
 namespace {
 
-constexpr int kThreads = 32;
 constexpr float kLog2Pi = 1.8378770664093453f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLanes = 4;     // lanes (warps) per block of the scan kernel
+constexpr int kFixWarps = 8;  // warps per block of the fix-up kernel
 
+// Offsets of an element's entries in shared memory, in plane order.
 template <int H>
-struct Potential {
-  float Jaa[H][H];
-  float Jab[H][H];
-  float Jbb[H][H];
-  float ha[H];
-  float hb[H];
-  float w;
+struct Layout {
+  static constexpr int HH = H * H;
+  static constexpr int Jaa = 0, Jab = HH, Jbb = 2 * HH;
+  static constexpr int ha = 3 * HH, hb = 3 * HH + H, w = 3 * HH + 2 * H;
+  static constexpr int size = 3 * HH + 2 * H + 1;
+  static constexpr int padded = (size + 3) & ~3;
+};
+
+// A warp's factors: L (rows i, columns k <= i), 1 / L_ii, and the 2H+1
+// solutions (A's columns, B's columns, c) as rows of V, padded to whole
+// float4s.
+template <int H>
+struct Work {
+  static constexpr int kV = (H + 3) & ~3;
+  float L[H][H + 1];
+  float inv_d[H];
+  __align__(16) float V[2 * H + 1][kV];
 };
 
 struct Planes {
-  const float* Jaa;
-  const float* Jab;
-  const float* Jbb;
-  const float* ha;
-  const float* hb;
-  const float* w;
+  const float* p[6];  // Jaa, Jab, Jbb, ha, hb, logw
 };
 
 struct OutPlanes {
-  float* Jaa;
-  float* Jab;
-  float* Jbb;
-  float* ha;
-  float* hb;
-  float* w;
+  float* p[6];
 };
 
-__host__ __device__ inline Planes readable(const OutPlanes& p) {
-  return Planes{p.Jaa, p.Jab, p.Jbb, p.ha, p.hb, p.w};
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
 
-template <int H>
-__device__ __forceinline__ void load(Potential<H>& p, const Planes& src,
-                                     int t, int N, int n) {
-  const size_t mat = static_cast<size_t>(t) * H * H * N + n;
-  const size_t vec = static_cast<size_t>(t) * H * N + n;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      const size_t o = mat + static_cast<size_t>(i * H + j) * N;
-      p.Jaa[i][j] = src.Jaa[o];
-      p.Jab[i][j] = src.Jab[o];
-      p.Jbb[i][j] = src.Jbb[o];
-    }
-    p.ha[i] = src.ha[vec + static_cast<size_t>(i) * N];
-    p.hb[i] = src.hb[vec + static_cast<size_t>(i) * N];
-  }
-  p.w = src.w[static_cast<size_t>(t) * N + n];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int H>
-__device__ __forceinline__ void store(const Potential<H>& p,
-                                      const OutPlanes& dst, int t, int N,
-                                      int n) {
-  const size_t mat = static_cast<size_t>(t) * H * H * N + n;
-  const size_t vec = static_cast<size_t>(t) * H * N + n;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      const size_t o = mat + static_cast<size_t>(i * H + j) * N;
-      dst.Jaa[o] = p.Jaa[i][j];
-      dst.Jab[o] = p.Jab[i][j];
-      dst.Jbb[o] = p.Jbb[i][j];
-    }
-    dst.ha[vec + static_cast<size_t>(i) * N] = p.ha[i];
-    dst.hb[vec + static_cast<size_t>(i) * N] = p.hb[i];
-  }
-  dst.w[static_cast<size_t>(t) * N + n] = p.w;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// out = e1 o e2.  `out` may be the same object as e1 or e2: every input
-// entry that an output entry overwrites is read before the write (M, A, B
-// and c consume J1bb, J2aa, J1ab, J2ab, h1b, h2a first; the remaining
-// outputs read only the same entry of the input they replace).  The outer
-// loops are unrolled up to H = 10.
+// out = e1 o e2 by the 32 threads of a warp (l = lane in the warp).  `out`
+// may be e1 or e2: every input entry that an output entry overwrites is
+// read before the __syncwarp that precedes the writes (M, the right-hand
+// sides and w consume J1bb, J2aa, J1ab, J2ab, h1b, h2a, w1, w2 first; the
+// other outputs read only the same entry of the input they replace, in the
+// same thread).
 template <int H>
-__device__ __forceinline__ void combine_body(const Potential<H>& e1,
-                                             const Potential<H>& e2,
-                                             Potential<H>& out) {
-  // Cholesky of M = J1bb + J2aa, lower triangle, in place.
-  float L[H][H];
-#pragma unroll (H <= 10 ? H : 1)
-  for (int i = 0; i < H; ++i)
+__device__ __forceinline__ void combine(const float* e1, const float* e2, float* out,
+                                        Work<H>& wk, int l) {
+  using Y = Layout<H>;
+  constexpr int R = 2 * H + 1;
+  static_assert(R <= 32, "one right-hand side per thread");
+
+  // Cholesky of M = J1bb + J2aa: thread i < H holds row i (entries k <= i
+  // are the factor's); the other threads follow along on a copy of row 0.
+  const int li = l < H ? l : 0;
+  float row[H];
 #pragma unroll
-    for (int j = 0; j <= i; ++j) L[i][j] = e1.Jbb[i][j] + e2.Jaa[i][j];
+  for (int k = 0; k < H; ++k) row[k] = e1[Y::Jbb + li * H + k] + e2[Y::Jaa + li * H + k];
   float half_logdet = 0.0f;
-#pragma unroll (H <= 10 ? H : 1)
+#pragma unroll
   for (int j = 0; j < H; ++j) {
-    float d = L[j][j];
+    const float djj = __shfl_sync(kFull, row[j], j);  // M_jj less the earlier columns
+    const float inv = rsqrtf(djj);
+    half_logdet += 0.5f * logf(djj);
+    if (l == j) wk.inv_d[j] = inv;
+    const float lij = row[j] * inv;  // L_ij for i > j, L_jj for i == j
+    row[j] = lij;
 #pragma unroll
-    for (int k = 0; k < j; ++k) d -= L[j][k] * L[j][k];
-    d = sqrtf(d);
-    L[j][j] = d;
-    half_logdet += logf(d);
-    const float inv = 1.0f / d;
-#pragma unroll
-    for (int i = j + 1; i < H; ++i) {
-      float v = L[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) v -= L[i][k] * L[j][k];
-      L[i][j] = v * inv;
-    }
+    for (int k = j + 1; k < H; ++k) row[k] -= lij * __shfl_sync(kFull, lij, k);
   }
-  // Forward substitution: A[:, c] = L^-1 J1ab[c, :]', B[:, c] = L^-1 J2ab[:, c],
-  // cv = L^-1 (h1b + h2a).
-  float A[H][H], B[H][H], cv[H];
-#pragma unroll (H <= 10 ? H : 1)
+  if (l < H) {
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+      if (k <= l) wk.L[l][k] = row[k];
+  }
+  // right-hand sides: J1ab's row r (r < H), J2ab's column r - H, h1b + h2a
+  const int rr = l < R ? l : R - 1;
+  const float* src = rr < H ? e1 + Y::Jab + rr * H : e2 + Y::Jab + (rr < 2 * H ? rr - H : 0);
+  const int stride = rr < H ? 1 : H;
+  float x[H];
+#pragma unroll
+  for (int i = 0; i < H; ++i)
+    x[i] = rr < 2 * H ? src[i * stride] : e1[Y::hb + i] + e2[Y::ha + i];
+  const float w12 = e1[Y::w] + e2[Y::w];
+  __syncwarp();
+  // forward substitution L x = rhs, column by column
+#pragma unroll
   for (int i = 0; i < H; ++i) {
-    const float inv = 1.0f / L[i][i];
+    x[i] *= wk.inv_d[i];
 #pragma unroll
-    for (int c = 0; c < H; ++c) {
-      float a = e1.Jab[c][i];
-      float b = e2.Jab[i][c];
-#pragma unroll
-      for (int k = 0; k < i; ++k) {
-        a -= L[i][k] * A[k][c];
-        b -= L[i][k] * B[k][c];
-      }
-      A[i][c] = a * inv;
-      B[i][c] = b * inv;
-    }
-    float v = e1.hb[i] + e2.ha[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) v -= L[i][k] * cv[k];
-    cv[i] = v * inv;
+    for (int k = i + 1; k < H; ++k) x[k] -= wk.L[k][i] * x[i];
   }
-  float cc = 0.0f;
+  if (l < R) {
 #pragma unroll
-  for (int k = 0; k < H; ++k) cc += cv[k] * cv[k];
-  const float w = e1.w + e2.w + 0.5f * cc - half_logdet + 0.5f * H * kLog2Pi;
-#pragma unroll (H <= 10 ? H : 1)
-  for (int i = 0; i < H; ++i) {
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      float aa = 0.0f, bb = 0.0f, ab = 0.0f;
-#pragma unroll
-      for (int k = 0; k < H; ++k) {
-        aa += A[k][i] * A[k][j];
-        bb += B[k][i] * B[k][j];
-        ab += A[k][i] * B[k][j];
-      }
-      out.Jaa[i][j] = e1.Jaa[i][j] - aa;
-      out.Jbb[i][j] = e2.Jbb[i][j] - bb;
-      out.Jab[i][j] = -ab;
-    }
-    float ac = 0.0f, bc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < H; ++k) {
-      ac += A[k][i] * cv[k];
-      bc += B[k][i] * cv[k];
-    }
-    out.ha[i] = e1.ha[i] - ac;
-    out.hb[i] = e2.hb[i] - bc;
+    for (int i = 0; i < H; ++i) wk.V[l][i] = x[i];
   }
-  out.w = w;
+  __syncwarp();
+  // Gram row l against every solution (independent dot products, the
+  // solutions read as float4 broadcasts), then each thread writes the
+  // outputs its row holds: A'A, A'B, A'c (threads < H), B'B, B'c (threads
+  // H..2H-1), c'c (thread 2H).
+  constexpr int kV = Work<H>::kV;
+  float dot[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    dot[s] = 0.0f;
+#pragma unroll
+    for (int k4 = 0; k4 < kV; k4 += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(&wk.V[s][k4]);
+      const float vk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (k4 + u < H) dot[s] = fmaf(x[k4 + u], vk[u], dot[s]);
+    }
+  }
+  if (l < H) {
+#pragma unroll
+    for (int s = 0; s < H; ++s) {
+      out[Y::Jaa + l * H + s] = e1[Y::Jaa + l * H + s] - dot[s];
+      out[Y::Jab + l * H + s] = -dot[H + s];
+    }
+    out[Y::ha + l] = e1[Y::ha + l] - dot[2 * H];
+  } else if (l < 2 * H) {
+    const int c = l - H;
+#pragma unroll
+    for (int s = 0; s < H; ++s) out[Y::Jbb + c * H + s] = e2[Y::Jbb + c * H + s] - dot[H + s];
+    out[Y::hb + c] = e2[Y::hb + c] - dot[2 * H];
+  } else if (l == 2 * H) {
+    out[Y::w] = w12 + 0.5f * dot[2 * H] - half_logdet + 0.5f * H * kLog2Pi;
+  }
+  __syncwarp();
+}
+
+// Element row t of lane n at `src` (planes of `rows` rows) into shared `dst`
+// by one warp, synchronously.
+template <int H>
+__device__ __forceinline__ void warp_load(float* dst, const Planes& src, int t, int N,
+                                          int n, int l) {
+  using Y = Layout<H>;
+  for (int q = l; q < Y::HH; q += 32) {
+    const size_t o = (static_cast<size_t>(t) * Y::HH + q) * N + n;
+    dst[Y::Jaa + q] = src.p[0][o];
+    dst[Y::Jab + q] = src.p[1][o];
+    dst[Y::Jbb + q] = src.p[2][o];
+  }
+  if (l < H) {
+    const size_t o = (static_cast<size_t>(t) * H + l) * N + n;
+    dst[Y::ha + l] = src.p[3][o];
+    dst[Y::hb + l] = src.p[4][o];
+  }
+  if (l == 0) dst[Y::w] = src.p[5][static_cast<size_t>(t) * N + n];
+  __syncwarp();
 }
 
 template <int H>
-__device__ __noinline__ void combine_outlined(const Potential<H>& e1,
-                                              const Potential<H>& e2,
-                                              Potential<H>& out) {
-  combine_body<H>(e1, e2, out);
-}
-
-template <int H>
-__device__ __forceinline__ void combine(const Potential<H>& e1,
-                                        const Potential<H>& e2,
-                                        Potential<H>& out) {
-  if constexpr (H <= 10)
-    combine_body<H>(e1, e2, out);
-  else
-    combine_outlined<H>(e1, e2, out);
+__device__ __forceinline__ void warp_store(const float* e, const OutPlanes& dst, int t, int N,
+                                           int n, int l) {
+  using Y = Layout<H>;
+  for (int q = l; q < Y::HH; q += 32) {
+    const size_t o = (static_cast<size_t>(t) * Y::HH + q) * N + n;
+    dst.p[0][o] = e[Y::Jaa + q];
+    dst.p[1][o] = e[Y::Jab + q];
+    dst.p[2][o] = e[Y::Jbb + q];
+  }
+  if (l < H) {
+    const size_t o = (static_cast<size_t>(t) * H + l) * N + n;
+    dst.p[3][o] = e[Y::ha + l];
+    dst.p[4][o] = e[Y::hb + l];
+  }
+  if (l == 0) dst.p[5][static_cast<size_t>(t) * N + n] = e[Y::w];
 }
 
 // The rows [begin, end) of this block's chunk.
-__device__ __forceinline__ void chunk_rows(int T, int L, int offset,
-                                           int& begin, int& end) {
+__device__ __forceinline__ void chunk_rows(int T, int L, int offset, int& begin, int& end) {
   const int c = blockIdx.y;
   begin = max(c * L + offset, 0);
   end = min((c + 1) * L + offset, T);
 }
 
 template <int H>
-__global__ void __launch_bounds__(kThreads)
-kalman_plane_scan_kernel(Planes in, OutPlanes out, OutPlanes totals, int T,
-                         int N, int L, int offset, int reverse) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  int begin, end;
-  chunk_rows(T, L, offset, begin, end);
-  Potential<H> carry, e;
-  for (int s = 0; s < end - begin; ++s) {
-    const int t = reverse ? end - 1 - s : begin + s;
-    if (s == 0) {
-      load<H>(carry, in, t, N, n);
-    } else {
-      load<H>(e, in, t, N, n);
-      if (reverse)
-        combine<H>(e, carry, carry);
-      else
-        combine<H>(carry, e, carry);
-    }
-    store<H>(carry, out, t, N, n);
+struct ScanLane {
+  float carry[Layout<H>::padded];
+  float e[2][Layout<H>::padded];
+  Work<H> wk;
+};
+
+// Row t of the block's lanes n0 .. n0 + kLanes - 1, by the whole block:
+// consecutive threads take consecutive lanes of one entry.
+template <int H>
+__device__ __forceinline__ void block_load_async(ScanLane<H>* sm, int buf, const Planes& src,
+                                                 int t, int N, int n0) {
+  using Y = Layout<H>;
+  for (int e = threadIdx.x; e < Y::HH * kLanes; e += blockDim.x) {
+    const int q = e / kLanes, w = e % kLanes, n = n0 + w;
+    if (n >= N) continue;
+    const size_t o = (static_cast<size_t>(t) * Y::HH + q) * N + n;
+    float* d = sm[w].e[buf];
+    cp_async4(d + Y::Jaa + q, src.p[0] + o);
+    cp_async4(d + Y::Jab + q, src.p[1] + o);
+    cp_async4(d + Y::Jbb + q, src.p[2] + o);
   }
-  if (totals.w != nullptr) store<H>(carry, totals, blockIdx.y, N, n);
+  for (int e = threadIdx.x; e < H * kLanes; e += blockDim.x) {
+    const int q = e / kLanes, w = e % kLanes, n = n0 + w;
+    if (n >= N) continue;
+    const size_t o = (static_cast<size_t>(t) * H + q) * N + n;
+    cp_async4(sm[w].e[buf] + Y::ha + q, src.p[3] + o);
+    cp_async4(sm[w].e[buf] + Y::hb + q, src.p[4] + o);
+  }
+  if (threadIdx.x < kLanes && n0 + threadIdx.x < N)
+    cp_async4(sm[threadIdx.x].e[buf] + Y::w, src.p[5] + static_cast<size_t>(t) * N + n0 +
+                                                 threadIdx.x);
+  cp_async_commit();
 }
 
 template <int H>
-__global__ void __launch_bounds__(kThreads)
-kalman_plane_fixup_kernel(OutPlanes out, Planes totals, int T, int N, int L,
-                          int offset, int C, int reverse) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y;
-  // the first chunk in chain order has no carry-in
-  if (n >= N || c == (reverse ? C - 1 : 0)) return;
+__device__ __forceinline__ void block_store(const ScanLane<H>* sm, const OutPlanes& dst, int t,
+                                            int N, int n0) {
+  using Y = Layout<H>;
+  for (int e = threadIdx.x; e < Y::HH * kLanes; e += blockDim.x) {
+    const int q = e / kLanes, w = e % kLanes, n = n0 + w;
+    if (n >= N) continue;
+    const size_t o = (static_cast<size_t>(t) * Y::HH + q) * N + n;
+    const float* c = sm[w].carry;
+    dst.p[0][o] = c[Y::Jaa + q];
+    dst.p[1][o] = c[Y::Jab + q];
+    dst.p[2][o] = c[Y::Jbb + q];
+  }
+  for (int e = threadIdx.x; e < H * kLanes; e += blockDim.x) {
+    const int q = e / kLanes, w = e % kLanes, n = n0 + w;
+    if (n >= N) continue;
+    const size_t o = (static_cast<size_t>(t) * H + q) * N + n;
+    dst.p[3][o] = sm[w].carry[Y::ha + q];
+    dst.p[4][o] = sm[w].carry[Y::hb + q];
+  }
+  if (threadIdx.x < kLanes && n0 + threadIdx.x < N)
+    dst.p[5][static_cast<size_t>(t) * N + n0 + threadIdx.x] = sm[threadIdx.x].carry[Y::w];
+}
+
+// grid (ceil(N / kLanes), C), kLanes warps: warp w walks lane
+// blockIdx.x * kLanes + w through the rows of chunk blockIdx.y.
+template <int H>
+__global__ void __launch_bounds__(kLanes * 32)
+kalman_plane_scan_kernel(Planes in, OutPlanes out, OutPlanes totals, int T, int N, int L,
+                         int offset, int reverse) {
+  __shared__ __align__(16) ScanLane<H> sm[kLanes];
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int n0 = blockIdx.x * kLanes;
+  const bool live = n0 + w < N;
   int begin, end;
   chunk_rows(T, L, offset, begin, end);
-  Potential<H> acc, e;
-  // phase 2: acc = totals[0] o ... o totals[c-1], or in reverse
-  // totals[c+1] o ... o totals[C-1]
-  load<H>(acc, totals, reverse ? C - 1 : 0, N, n);
-  const int before = reverse ? C - 1 - c : c;
-  for (int s = 1; s < before; ++s) {
-    load<H>(e, totals, reverse ? C - 1 - s : s, N, n);
-    if (reverse)
-      combine_outlined<H>(e, acc, acc);
-    else
-      combine_outlined<H>(acc, e, acc);
+  const int steps = end - begin;
+  ScanLane<H>& me = sm[w];
+  block_load_async<H>(sm, 0, in, reverse ? end - 1 : begin, N, n0);
+  for (int s = 0; s < steps; ++s) {
+    const int t = reverse ? end - 1 - s : begin + s;
+    cp_async_wait_all();
+    __syncthreads();  // row t landed for every lane; row t - 1 stored
+    if (s + 1 < steps) block_load_async<H>(sm, (s + 1) & 1, in, reverse ? t - 1 : t + 1, N, n0);
+    const float* e = me.e[s & 1];
+    if (live) {
+      if (s == 0) {
+        for (int q = l; q < Layout<H>::size; q += 32) me.carry[q] = e[q];
+      } else if (reverse) {
+        combine<H>(e, me.carry, me.carry, me.wk, l);
+      } else {
+        combine<H>(me.carry, e, me.carry, me.wk, l);
+      }
+    }
+    __syncthreads();  // every lane's prefix complete
+    block_store<H>(sm, out, t, N, n0);
   }
-  // phase 3: every row of the chunk takes the carry-in
-  const Planes rows = readable(out);
-  for (int t = begin; t < end; ++t) {
-    load<H>(e, rows, t, N, n);
+  if (totals.p[5] != nullptr) block_store<H>(sm, totals, blockIdx.y, N, n0);
+}
+
+template <int H>
+struct FixWarp {
+  float e[Layout<H>::padded];
+  Work<H> wk;
+};
+
+// grid (N, C), kFixWarps warps: phases 2-3 for lane blockIdx.x, chunk
+// blockIdx.y.
+template <int H>
+__global__ void __launch_bounds__(kFixWarps * 32)
+kalman_plane_fixup_kernel(OutPlanes out, Planes totals, int T, int N, int L, int offset, int C,
+                          int reverse) {
+  __shared__ __align__(16) float acc[Layout<H>::padded];
+  __shared__ __align__(16) FixWarp<H> fw[kFixWarps];
+  const int n = blockIdx.x, c = blockIdx.y;
+  // the first chunk in chain order has no carry-in
+  if (c == (reverse ? C - 1 : 0)) return;
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  int begin, end;
+  chunk_rows(T, L, offset, begin, end);
+  if (w == 0) {
+    // phase 2: acc = totals[0] o ... o totals[c-1], or in reverse
+    // totals[c+1] o ... o totals[C-1]
+    warp_load<H>(acc, totals, reverse ? C - 1 : 0, N, n, l);
+    const int before = reverse ? C - 1 - c : c;
+    for (int s = 1; s < before; ++s) {
+      warp_load<H>(fw[0].e, totals, reverse ? C - 1 - s : s, N, n, l);
+      if (reverse)
+        combine<H>(fw[0].e, acc, acc, fw[0].wk, l);
+      else
+        combine<H>(acc, fw[0].e, acc, fw[0].wk, l);
+    }
+  }
+  __syncthreads();
+  // phase 3: each warp combines the carry-in with its rows of the chunk
+  const Planes rows{{out.p[0], out.p[1], out.p[2], out.p[3], out.p[4], out.p[5]}};
+  FixWarp<H>& me = fw[w];
+  for (int t = begin + w; t < end; t += kFixWarps) {
+    warp_load<H>(me.e, rows, t, N, n, l);
     if (reverse)
-      combine_outlined<H>(e, acc, e);
+      combine<H>(me.e, acc, me.e, me.wk, l);
     else
-      combine_outlined<H>(acc, e, e);
-    store<H>(e, out, t, N, n);
+      combine<H>(acc, me.e, me.e, me.wk, l);
+    warp_store<H>(me.e, out, t, N, n, l);
   }
 }
 
 OutPlanes out_planes(void* const* p) {
-  return OutPlanes{static_cast<float*>(p[0]), static_cast<float*>(p[1]),
-                   static_cast<float*>(p[2]), static_cast<float*>(p[3]),
-                   static_cast<float*>(p[4]), static_cast<float*>(p[5])};
+  return OutPlanes{{static_cast<float*>(p[0]), static_cast<float*>(p[1]),
+                    static_cast<float*>(p[2]), static_cast<float*>(p[3]),
+                    static_cast<float*>(p[4]), static_cast<float*>(p[5])}};
+}
+
+Planes readable(const OutPlanes& o) {
+  return Planes{{o.p[0], o.p[1], o.p[2], o.p[3], o.p[4], o.p[5]}};
 }
 
 template <int H>
-int launch(const void* const* in, void* const* out, void* const* totals,
-           int T, int N, int C, int L, int offset, int reverse,
-           cudaStream_t stream) {
-  Planes src{static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
-             static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
-             static_cast<const float*>(in[4]), static_cast<const float*>(in[5])};
+int launch(const void* const* in, void* const* out, void* const* totals, int T, int N, int C,
+           int L, int offset, int reverse, cudaStream_t stream) {
+  const Planes src{{static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
+                    static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
+                    static_cast<const float*>(in[4]), static_cast<const float*>(in[5])}};
   const OutPlanes dst = out_planes(out);
   const OutPlanes tot = out_planes(totals);
-  const dim3 grid((N + kThreads - 1) / kThreads, C);
-  kalman_plane_scan_kernel<H><<<grid, kThreads, 0, stream>>>(
-      src, dst, tot, T, N, L, offset, reverse);
+  const dim3 grid((N + kLanes - 1) / kLanes, C);
+  kalman_plane_scan_kernel<H><<<grid, kLanes * 32, 0, stream>>>(src, dst, tot, T, N, L,
+                                                                 offset, reverse);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || C == 1) return static_cast<int>(err);
-  kalman_plane_fixup_kernel<H><<<grid, kThreads, 0, stream>>>(
+  kalman_plane_fixup_kernel<H><<<dim3(N, C), kFixWarps * 32, 0, stream>>>(
       dst, readable(tot), T, N, L, offset, C, reverse);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,7 @@ from ..dists.delta import Delta
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..transforms import MatrixNormalWishart
 from ..utils.linalg import block_diag_matrix_builder
+from ..utils.torchutils import default_device
 
 
 class ARHMM_prXRY(HMM):
@@ -18,6 +19,7 @@ class ARHMM_prXRY(HMM):
     def __init__(self, dim, n, p1, p2, batch_shape=(), mask=None, X_mask=None,
                  transition_mask=None, generator=None, dtype=None,
                  device=None):
+        device = default_device(device)
         self.p1 = p1
         self.p2 = p2
         dist = MatrixNormalWishart.create(

@@ -21,7 +21,7 @@ from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..ops.parallel_hmm import forward_backward_parallel
 from ..transforms import MatrixNormalGamma
 from ..utils.linalg import mT, psd_inv_and_logdet
-from ..utils.torchutils import brole_avg, replace, sum_leading
+from ..utils.torchutils import brole_avg, default_device, replace, sum_leading
 from .arhmm import ARHMM_prXRY
 from .lds import LinearDynamicalSystems
 
@@ -167,6 +167,7 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
             raise NotImplementedError(
                 "the sequential smoothers (parallel_scan=False) are not ported yet"
             )
+        device = default_device(device)
         dtype = dtype or torch.get_default_dtype()
         control_dim = control_dim + 1
         regression_dim = regression_dim + 1

@@ -29,7 +29,7 @@ from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..transforms import MatrixNormalGamma, MatrixNormalWishart
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv, psd_inv_and_logdet
-from ..utils.torchutils import sum_leading
+from ..utils.torchutils import default_device, sum_leading
 
 
 class LinearDynamicalSystems:
@@ -53,6 +53,7 @@ class LinearDynamicalSystems:
     ):
         if time_mesh is not None:
             raise NotImplementedError("time_mesh (the time-sharded smoother) is not ported")
+        device = default_device(device)
         dtype = dtype or torch.get_default_dtype()
         control_dim = control_dim + 1
         regression_dim = regression_dim + 1

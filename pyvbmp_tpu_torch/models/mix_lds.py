@@ -38,7 +38,7 @@ class MixtureofLinearDynamicalSystems:
         self.lds.expand_to_batch = True
         self.pi = Dirichlet.create(
             (num_systems,), generator=generator, dtype=self.lds.x0.mu.dtype,
-            device=device,
+            device=self.lds.x0.mu.device,  # the LDS resolved the default
         )
         self.ELBO_save = []
         self.p = None

@@ -45,7 +45,7 @@ def _bind(lib):
         "logsemiring_scan_f32": [vp] * 3 + [ci] * 7 + [vp],
         "kalman_plane_scan_f32": [vp] * 18 + [ci] * 7 + [vp],
         "kalman_lane_scan_f32": [vp] * 18 + [ci] * 7 + [vp],
-        "weighted_outer_f32": [vp] * 4 + [ci] * 5 + [vp],
+        "weighted_outer_f32": [vp] * 4 + [ci] * 7 + [vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -53,25 +53,23 @@ def _bind(lib):
         fn.restype = ci
 
 
-def load_library():
-    """Build (once per source hash) and load the kernels' shared library.
-
-    Returns the ``ctypes.CDLL``.  The compiler's report (registers, spills)
-    is kept beside the library as ``<name>.log``."""
-    global _library
-    if _library is not None:
-        return _library
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+def build(csrc_dir, build_dir):
+    """Build (once per source hash) every ``*.cu`` of ``csrc_dir`` into one
+    shared library under ``build_dir`` and load it; returns the bound
+    ``ctypes.CDLL``.  The compiler's report (registers, spills) is kept
+    beside the library as ``<name>.log``."""
+    sources = sorted(Path(csrc_dir).glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    so = BUILD_DIR / f"libpyvbmp_kernels_{digest.hexdigest()[:16]}.so"
+    build_dir = Path(build_dir)
+    so = build_dir / f"libpyvbmp_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         nvcc = _find_nvcc()
         tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        objs = [build_dir / f"{src.stem}.{tag}.o" for src in sources]
         procs = [
             subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
@@ -98,5 +96,13 @@ def load_library():
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _bind(lib)
-    _library = lib
     return lib
+
+
+def load_library():
+    """The package's kernels (``csrc/`` built into ``_build/``), built and
+    loaded once per process."""
+    global _library
+    if _library is None:
+        _library = build(CSRC_DIR, BUILD_DIR)
+    return _library

@@ -11,13 +11,18 @@ switch: the device is the switch.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ._cuda import load_library
 
 TILE = 32  # the kernel's output tile edge (csrc/weighted_outer.cu:kTile)
-MIN_SPLIT_ROWS = 4 * TILE  # fewest sample rows worth a block of their own
-BLOCKS_PER_SM = 4  # pass-1 blocks to aim for on each SM
+STAGE_ROWS = 64  # S rows per stage (kRows)
+MAX_GROUP = 16  # classes per block (kMaxGroup); the block has 16 threads per class
+REGS_PER_THREAD = 128  # the launch bound's cap: 2 blocks of 256 threads per SM
+REGS_PER_SM = 65536
+MAX_BLOCKS_PER_SM = 32
 
 
 def weighted_outer_einsum(X, W):
@@ -28,17 +33,38 @@ def weighted_outer_einsum(X, W):
     return (A.T @ X).reshape(K, p, p)
 
 
-def _splits(S, K, p, device):
-    """(n_splits, rows_per_split, upper tiles per class): S-chunks enough to
-    give each SM about BLOCKS_PER_SM pass-1 blocks, none shorter than
-    MIN_SPLIT_ROWS."""
+class Plan(NamedTuple):
+    """The kernel's launch: ``n_splits`` S-chunks of ``rows`` rows, the
+    classes in ``n_groups`` groups of ``group``, ``n_upper`` upper tiles per
+    class; pass 1 writes ``scratch`` floats of partials."""
+
+    n_splits: int
+    rows: int
+    group: int
+    n_groups: int
+    n_upper: int
+    threads: int
+    blocks_per_sm: int
+    scratch: int
+
+
+def _plan(S, K, p, sms):
+    """The launch for X (S, p), W (S, K) on a card with ``sms`` SMs: class
+    groups as even as 16 classes a block allow, then S-chunks of whole
+    stages, as few stages each as one wave of every SM's resident blocks
+    allows (a block's time is its stage count)."""
     n_tiles = -(-p // TILE)
-    blocks = K * n_tiles * (n_tiles + 1) // 2
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(-(-BLOCKS_PER_SM * sms // blocks), -(-S // MIN_SPLIT_ROWS)))
-    rows = -(-S // want)
-    rows = -(-rows // TILE) * TILE
-    return -(-S // rows), rows, blocks // K
+    n_upper = n_tiles * (n_tiles + 1) // 2
+    n_groups = -(-K // MAX_GROUP)
+    group = -(-K // n_groups)
+    threads = 16 * group
+    warps = -(-threads // 32)
+    blocks_per_sm = min(MAX_BLOCKS_PER_SM, REGS_PER_SM // (warps * 32 * REGS_PER_THREAD))
+    want = max(1, sms * blocks_per_sm // (n_upper * n_groups))
+    rows = -(-S // (want * STAGE_ROWS)) * STAGE_ROWS
+    n_splits = -(-S // rows)
+    scratch = n_splits * n_groups * n_upper * group * TILE * TILE
+    return Plan(n_splits, rows, group, n_groups, n_upper, threads, blocks_per_sm, scratch)
 
 
 class WeightedOuter:
@@ -81,17 +107,17 @@ class WeightedOuter:
                 raise TypeError(f"{self.name}: X and W must be float32 on {X.device}")
             if not x.is_contiguous():
                 raise ValueError(f"{self.name}: X and W must be contiguous")
-        n_splits, rows, n_upper = _splits(S, K, p, X.device)
+        sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+        plan = _plan(S, K, p, sms)
+        vec = int(p % 4 == 0 and X.data_ptr() % 16 == 0)
         lib = load_library()
         out = torch.empty((K, p, p), dtype=torch.float32, device=X.device)
-        partial = torch.empty(
-            (n_splits, K, n_upper, TILE, TILE), dtype=torch.float32, device=X.device
-        )
+        partial = torch.empty(plan.scratch, dtype=torch.float32, device=X.device)
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream(X.device).cuda_stream
             rc = getattr(lib, self.symbol)(
                 X.data_ptr(), W.data_ptr(), out.data_ptr(), partial.data_ptr(),
-                S, p, K, n_splits, rows, stream,
+                S, p, K, plan.n_splits, plan.rows, plan.group, vec, stream,
             )
         if rc != 0:
             raise RuntimeError(f"{self.name}: launch failed, cudaError {rc}")

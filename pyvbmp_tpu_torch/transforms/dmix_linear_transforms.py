@@ -14,6 +14,7 @@ import torch
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..utils import math as um
 from ..utils.linalg import mT, psd_logdet
+from ..utils.torchutils import default_device
 from ._fused import fused_fit
 from .matrix_normal_wishart import MatrixNormalWishart
 from .mnlr import MultiNomialLogisticRegression
@@ -25,6 +26,7 @@ class dMixtureofLinearTransforms:
                  dtype=None, device=None):
         if type != "Wishart":
             raise ValueError(f"expert type {type!r} is not ported (only 'Wishart')")
+        device = default_device(device)
         self.event_shape = (mixture_dim, n, p)
         self.batch_shape = tuple(batch_shape)
         self.batch_dim = len(batch_shape)

@@ -19,7 +19,7 @@ from ..dists.mvn_ard import MVN_ard
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv
-from ..utils.torchutils import highest_precision, normal, replace
+from ..utils.torchutils import default_device, highest_precision, normal, replace
 
 
 def _stick_breaking_stats(Y):
@@ -43,6 +43,7 @@ def _one_hots(n, batch_ndim, like):
 class MultiNomialLogisticRegression:
     def __init__(self, n, p, batch_shape=(), pad_X=True, generator=None,
                  dtype=None, device=None):
+        device = default_device(device)
         if pad_X:
             p = p + 1
         n = n - 1

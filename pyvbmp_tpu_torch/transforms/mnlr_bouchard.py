@@ -8,7 +8,7 @@ import torch
 
 from ..dists.mvn_ard import MVN_ard
 from ..utils.linalg import mT
-from ..utils.torchutils import highest_precision, normal, replace
+from ..utils.torchutils import default_device, highest_precision, normal, replace
 from .mnlr import _ones_col, _one_hots
 
 
@@ -23,6 +23,7 @@ def log_sigmoid(xi):
 class MultiNomialLogisticRegression_Bouchard:
     def __init__(self, n, p, batch_shape=(), pad_X=True, generator=None,
                  dtype=None, device=None):
+        device = default_device(device)
         if pad_X:
             p = p + 1
         self.n = n

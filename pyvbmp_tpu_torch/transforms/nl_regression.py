@@ -7,6 +7,7 @@ import torch
 
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..utils.linalg import mT
+from ..utils.torchutils import default_device
 from ._fused import fused_fit, record_elbos
 from .matrix_normal_wishart import MatrixNormalWishart
 from .mnlr import MultiNomialLogisticRegression
@@ -18,6 +19,7 @@ class NLRegression_Multinomial:
 
     def __init__(self, n, p, mixture_dim, batch_shape=(), generator=None,
                  dtype=None, device=None):
+        device = default_device(device)
         self.batch_shape = tuple(batch_shape)
         self.batch_dim = len(batch_shape)
         self.event_dim = 2

@@ -6,7 +6,10 @@ numpy arrays.
   package or of the JAX package ``pyvbmp_tpu`` (whose arrays it converts
   with ``np.asarray``; jax itself is never imported here);
 - ``dmbd_from_state``, ``lds_from_state`` and ``mixlds_from_state`` (state,
-  device, dtype) build this package's model from such a dict.
+  device, dtype) build this package's model from such a dict: built on the
+  CPU in float64, then moved to ``device``, which defaults to the card
+  (``torchutils.default_device``: with no card and no device they raise
+  before building anything).
 
 The classifiers have the same pair of functions: ``mvn_ard_state`` (an
 MVN_ard node with its Gamma, and its shapes), ``mnlr_state``,
@@ -40,6 +43,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .torchutils import default_device
 
 _PX_FIELDS = ("mu", "Sigma", "invSigmamu", "invSigma")
 
@@ -127,12 +132,13 @@ def load_state(n, d):
 
 def dmbd_from_state(state, device=None, dtype=None):
     """This package's DMBD holding ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
     from ..models import DynamicMarkovBlanketDiscovery
 
     model = DynamicMarkovBlanketDiscovery(
         **state["config"],
         generator=torch.Generator().manual_seed(0),
-        dtype=torch.float64,
+        dtype=torch.float64, device="cpu",
     )
     om = model.obs_model
     model.x0 = load_state(model.x0, state["x0"])
@@ -196,13 +202,14 @@ def lds_state(model):
 
 def lds_from_state(state, device=None, dtype=None):
     """This package's LDS holding ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
     from ..dists.mvn_vector_format import MultivariateNormal_vector_format
     from ..models import LinearDynamicalSystems
 
     model = LinearDynamicalSystems(
         **state["config"],
         generator=torch.Generator().manual_seed(0),
-        dtype=torch.float64,
+        dtype=torch.float64, device="cpu",
     )
     model.expand_to_batch = state["expand_to_batch"]
     _load_lds_nodes(model, state)
@@ -237,12 +244,13 @@ def mixlds_state(model):
 
 def mixlds_from_state(state, device=None, dtype=None):
     """This package's MixLDS holding ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
     from ..models import MixtureofLinearDynamicalSystems
 
     model = MixtureofLinearDynamicalSystems(
         **state["config"],
         generator=torch.Generator().manual_seed(0),
-        dtype=torch.float64,
+        dtype=torch.float64, device="cpu",
     )
     _load_lds_nodes(model.lds, state["lds"])
     model.pi = load_state(model.pi, state["pi"])
@@ -263,10 +271,11 @@ def mvn_ard_state(n):
 
 def mvn_ard_from_state(state, device=None, dtype=None):
     """This package's MVN_ard holding ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
     from ..dists.mvn_ard import MVN_ard
 
     n = MVN_ard.create(**state["config"], generator=torch.Generator().manual_seed(0),
-                       dtype=torch.float64)
+                       dtype=torch.float64, device="cpu")
     return load_state(n, state["node"]).to(device, dtype)
 
 
@@ -288,13 +297,14 @@ def bouchard_state(model):
 
 def _classifier_from_state(cls, state, device, dtype):
     model = cls(**state["config"], generator=torch.Generator().manual_seed(0),
-                dtype=torch.float64)
+                dtype=torch.float64, device="cpu")
     model.beta = load_state(model.beta, state["beta"])
     return model.to(device, dtype)
 
 
 def mnlr_from_state(state, device=None, dtype=None):
     """This package's MNLR holding ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
     from ..transforms import MultiNomialLogisticRegression
 
     return _classifier_from_state(MultiNomialLogisticRegression, state, device, dtype)
@@ -303,6 +313,7 @@ def mnlr_from_state(state, device=None, dtype=None):
 def bouchard_from_state(state, device=None, dtype=None):
     """This package's Bouchard MNLR holding ``state``, on ``device`` in
     ``dtype``."""
+    device = default_device(device)
     from ..transforms import MultiNomialLogisticRegression_Bouchard
 
     return _classifier_from_state(
@@ -327,11 +338,12 @@ def dmixlt_state(model):
 
 def dmixlt_from_state(state, device=None, dtype=None):
     """This package's dMixLT holding ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
     from ..transforms import dMixtureofLinearTransforms
 
     model = dMixtureofLinearTransforms(
         **state["config"], generator=torch.Generator().manual_seed(0),
-        dtype=torch.float64,
+        dtype=torch.float64, device="cpu",
     )
     model.A = load_state(model.A, state["A"])
     model.pi.beta = load_state(model.pi.beta, state["pi"])
@@ -342,7 +354,9 @@ def nlrm_state(model):
     """Nested dict of numpy arrays holding an NLRegression_Multinomial
     (experts A and gate Z)."""
     return {
-        "config": dict(n=model.n, p=model.p, mixture_dim=model.mixture_dim,
+        # model.p holds the last responsibilities (None before a fit); the
+        # input width is A's, less its bias column
+        "config": dict(n=model.n, p=model.A.p - 1, mixture_dim=model.mixture_dim,
                        batch_shape=tuple(model.batch_shape)),
         "A": node_state(model.A),
         "Z": node_state(model.Z.beta),
@@ -352,11 +366,12 @@ def nlrm_state(model):
 def nlrm_from_state(state, device=None, dtype=None):
     """This package's NLRegression_Multinomial holding ``state``, on
     ``device`` in ``dtype``."""
+    device = default_device(device)
     from ..transforms import NLRegression_Multinomial
 
     model = NLRegression_Multinomial(
         **state["config"], generator=torch.Generator().manual_seed(0),
-        dtype=torch.float64,
+        dtype=torch.float64, device="cpu",
     )
     model.A = load_state(model.A, state["A"])
     model.Z.beta = load_state(model.Z.beta, state["Z"])

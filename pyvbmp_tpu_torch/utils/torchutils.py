@@ -157,6 +157,25 @@ def centered_scatter(X, pv, sdims):
     return SExx, SEx, N
 
 
+class NoCardError(RuntimeError):
+    """An entry point was built without a device on a host with no CUDA
+    card."""
+
+
+def default_device(device=None):
+    """The device an entry point builds on: ``device`` when given, else the
+    card.  With no card and no ``device`` it raises ``NoCardError``: the
+    port never falls back to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise NoCardError(
+            "no CUDA card: the port builds on the card by default; pass "
+            "device='cpu' to build on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def as_tensor(x, dtype=None, device=None):
     """A floating tensor of ``dtype`` (default: torch's default dtype)."""
     return torch.as_tensor(

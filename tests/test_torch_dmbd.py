@@ -55,7 +55,7 @@ def fitted(request):
                   iters=SWEEPS)
         jm_p = np.asarray(jm.obs_model.p)
         jm_mu = np.asarray(jm.px.mu)
-    tm = dmbd_from_state(state, dtype=torch.float64)
+    tm = dmbd_from_state(state, device="cpu", dtype=torch.float64)
     tm.update(*(None if a is None else torch.tensor(a) for a in (y, u, r)),
               iters=SWEEPS)
     return (jm, jm_p, jm_mu), tm
@@ -85,7 +85,7 @@ def test_final_posteriors_match_jax(fitted):
 def test_state_round_trips_through_numpy(fitted):
     """The state dict of a fitted port model rebuilds the same model."""
     _, tm = fitted
-    again = dmbd_from_state(dmbd_state(tm), dtype=torch.float64)
+    again = dmbd_from_state(dmbd_state(tm), device="cpu", dtype=torch.float64)
     assert torch.equal(again.A.mu, tm.A.mu)
     assert torch.equal(again.obs_model.obs_dist.invU.invU, tm.obs_model.obs_dist.invU.invU)
     assert torch.equal(again.px.mu, tm.px.mu)

@@ -95,7 +95,7 @@ def fitted(request, data):
         ref = dict(elbo=np.asarray(jm.ELBO_save), p=np.asarray(jm.obs_model.p),
                    mu=np.asarray(jm.px.mu), pa=np.asarray(jm.particular_assignment()),
                    a=np.asarray(jm.assignment()))
-    tm = dmbd_from_state(state, dtype=torch.float64)
+    tm = dmbd_from_state(state, device="cpu", dtype=torch.float64)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(scan, "TIME_FOLD", "auto")
         mp.setattr(scan, "TIME_FOLD_MIN_T", 8)
@@ -140,7 +140,7 @@ def test_final_posteriors_and_assignments_match_jax(fitted):
 
 def test_three_object_state_round_trips_through_numpy(fitted):
     _, _, tm, _ = fitted
-    again = dmbd_from_state(dmbd_state(tm), dtype=torch.float64)
+    again = dmbd_from_state(dmbd_state(tm), device="cpu", dtype=torch.float64)
     assert again.number_of_objects == 3 and again.role_dim == 14
     assert torch.equal(again.A.mu, tm.A.mu)
     assert torch.equal(again.obs_model.transition.alpha, tm.obs_model.transition.alpha)
@@ -151,7 +151,8 @@ def test_three_object_state_round_trips_through_numpy(fitted):
 def test_update_binds_positional_arguments_as_jax_does(monkeypatch):
     """update(y, u, r, iters, latent_iters, lr, verbose): a positional
     (y, None, None, 2, 1, 0.5) is two sweeps at latent_iters 1, lr 0.5."""
-    m = TDMBD((3, 2), (1, 2, 1), (2, 2, 2), generator=torch.Generator().manual_seed(0))
+    m = TDMBD((3, 2), (1, 2, 1), (2, 2, 2), generator=torch.Generator().manual_seed(0),
+              device="cpu")
     seen = []
     step = m._dmbd_step
 

@@ -105,6 +105,27 @@ def test_folded_kernel_matches_folded_plain(cuda, which, size, T, N, reverse):
         assert rel_err(o, r) <= TOL
 
 
+# the warp-per-lane plane Kalman kernels at H=14: lane counts that are not a
+# multiple of the block's lanes, one and two rows, and folds with a short
+# chunk, each against the one-pass plain scan
+PLANE14 = [(T, C, N) for N in (1, 5, 20, 33)
+           for T, C in ((1, 1), (2, 1), (2, 2), (150, 1), (150, 8), (150, 7))]
+
+
+@pytest.mark.parametrize("T,C,N", PLANE14)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plane_kalman_h14_edges(cuda, T, C, N, reverse):
+    s = scan.KALMAN_PLANE
+    leaves = kalman(np.random.RandomState(T * 100 + N), T, 14, N, cuda)
+    L = -(-T // C)
+    assert C * L - T < L  # every chunk non-empty
+    out = s.launch(leaves, reverse, chunks=C, L=L, offset=T - C * L if reverse else 0)
+    torch.cuda.synchronize()
+    ref = s.plain(leaves, reverse)
+    for o, r in zip(out, ref):
+        assert rel_err(o, r) <= TOL
+
+
 def test_cuda_tensors_launch_the_kernel(cuda):
     M = semiring(np.random.RandomState(0), 9, 4, 5, cuda)[0]
     launches, plain = scan.LOGSEMIRING.launches, scan.LOGSEMIRING.plain_calls
@@ -218,9 +239,9 @@ def scatter_inputs(S, p, K, device):
     return X, W
 
 
-@pytest.mark.parametrize("p", [1, 65, 257])
-@pytest.mark.parametrize("K", [1, 9, 16])
-@pytest.mark.parametrize("S", [37, 1347])  # neither a multiple of the tile
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 65, 257])
+@pytest.mark.parametrize("K", [1, 9, 16, 17])
+@pytest.mark.parametrize("S", [1, 37, 1347])  # none a multiple of a stage
 def test_weighted_outer_matches_plain(cuda, S, p, K):
     X, W = scatter_inputs(S, p, K, cuda)
     launches = ws.WEIGHTED_OUTER.launches
@@ -233,10 +254,27 @@ def test_weighted_outer_matches_plain(cuda, S, p, K):
     assert torch.equal(out, out.transpose(1, 2))
 
 
-def test_weighted_outer_repeats_bit_for_bit(cuda):
-    X, W = scatter_inputs(60000, 65, 9, cuda)  # split across many blocks
+@pytest.mark.parametrize("S,p,K", [(100003, 33, 17), (100003, 32, 16), (60000, 65, 9)])
+def test_weighted_outer_repeats_bit_for_bit(cuda, S, p, K):
+    """Many S-chunks (the last one short), every class group, both copy
+    widths (p = 32 takes the 16-byte copies): within TOL of the float64
+    plain version, exactly symmetric, and the same bits on every run."""
+    X, W = scatter_inputs(S, p, K, cuda)
     first = ws.weighted_outer(X, W)
+    ref = ws.weighted_outer_einsum(X.double(), W.double())
+    assert ((first.double() - ref).abs().max() / ref.abs().max()).item() <= TOL
+    assert torch.equal(first, first.transpose(1, 2))
     assert all(torch.equal(first, ws.weighted_outer(X, W)) for _ in range(3))
+
+
+def test_weighted_outer_unaligned_rows(cuda):
+    """X starting 4 bytes past a 16-byte boundary takes the 4-byte copies."""
+    X, W = scatter_inputs(2000, 33, 5, cuda)
+    Xu = X.reshape(-1)[1:1 + 2000 * 32].reshape(2000, 32)
+    assert Xu.is_contiguous() and Xu.data_ptr() % 16 != 0
+    out = ws.weighted_outer(Xu, W)
+    ref = ws.weighted_outer_einsum(Xu.double(), W.double())
+    assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= TOL
 
 
 def test_weighted_outer_refuses_what_it_does_not_take(cuda):

@@ -91,7 +91,7 @@ def smoother_case(request):
         out = jax.tree_util.tree_map(np.asarray, out)
     port_in = (
         {k: T64(v) for k, v in parms.items()},
-        lds_from_state(state).x0,
+        lds_from_state(state, "cpu").x0,
         tuple(T64(v) for v in like),
         T64(uv),
     )
@@ -139,7 +139,7 @@ def mixlds_fitted():
         jm.lds.update_latents(*jm.lds.reshape_inputs(jy))
         ref = dict(ELBO=np.asarray(jm.ELBO_save), p=np.asarray(jm.p),
                    logZ=np.asarray(jm.logZ), mu=np.asarray(jm.lds.px.mu))
-    tm = mixlds_from_state(state, dtype=torch.float64)
+    tm = mixlds_from_state(state, device="cpu", dtype=torch.float64)
     ty = torch.tensor(y)
     calls = scan.KALMAN_LANE.plain_calls
     tm.update(ty, iters=SWEEPS)
@@ -173,7 +173,7 @@ def test_mixlds_assignments(mixlds_fitted):
 
 def test_mixlds_state_round_trips(mixlds_fitted):
     _, tm, _ = mixlds_fitted
-    again = mixlds_from_state(mixlds_state(tm), dtype=torch.float64)
+    again = mixlds_from_state(mixlds_state(tm), device="cpu", dtype=torch.float64)
     assert torch.equal(again.lds.A.mu, tm.lds.A.mu)
     assert torch.equal(again.lds.obs_model.invU.invU, tm.lds.obs_model.invU.invU)
     assert torch.equal(again.pi.alpha, tm.pi.alpha)
@@ -208,7 +208,7 @@ def lds_fitted(request):
         jm.update(*args, iters=SWEEPS - 1)
         ref = dict(ELBO=np.asarray(jm.ELBO_save), mu=np.asarray(jm.px.mu),
                    ELBO_now=np.asarray(jm.ELBO()))
-    tm = lds_from_state(state, dtype=torch.float64)
+    tm = lds_from_state(state, device="cpu", dtype=torch.float64)
     parallel = kw.get("parallel_scan", False)
     assert tm.parallel_scan == parallel and tm.cross_cov_compat == (not parallel)
     args = [opt(a, torch.tensor) for a in (y, u, r)]
@@ -233,7 +233,7 @@ def test_lds_matches_jax(lds_fitted):
 
 def test_lds_state_round_trips(lds_fitted):
     _, tm = lds_fitted
-    again = lds_from_state(lds_state(tm), dtype=torch.float64)
+    again = lds_from_state(lds_state(tm), device="cpu", dtype=torch.float64)
     assert type(again.A) is type(tm.A)
     assert torch.equal(again.A.mu, tm.A.mu)
     assert torch.equal(again.x0.mu, tm.x0.mu)
@@ -244,8 +244,10 @@ def test_lds_split_estep_mstep_matches_update():
     """update_latents + ss_update is the latent half of one update sweep."""
     rs = np.random.RandomState(5)
     y = torch.tensor(trajectories(rs, B=3))
-    a = TLDS((3,), 2, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
-    b = TLDS((3,), 2, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+    a = TLDS((3,), 2, generator=torch.Generator().manual_seed(1), dtype=torch.float64,
+             device="cpu")
+    b = TLDS((3,), 2, generator=torch.Generator().manual_seed(1), dtype=torch.float64,
+             device="cpu")
     a.update(y)
     b.update_latents(*b.reshape_inputs(y))
     b.ss_update()

@@ -96,7 +96,7 @@ def test_mvn_ard_ss_update_and_kl(decay):
         jout = jn.ss_update(jnp.asarray(SExx), jnp.asarray(SEx), lr=0.8, beta=decay)
         jout = jout.ss_update(jnp.asarray(SExx), jnp.asarray(SEx), beta=decay)
         jKL = np.asarray(jout.KLqprior())
-    tn = mvn_ard_from_state(state)
+    tn = mvn_ard_from_state(state, "cpu")
     out = tn.ss_update(T64(SExx), T64(SEx), lr=0.8, beta=decay)
     out = out.ss_update(T64(SExx), T64(SEx), beta=decay)
     assert_beta_close(out, jout)
@@ -143,7 +143,7 @@ def mnlr_case():
 
 def test_mnlr_raw_update_fast_path(mnlr_case):
     state0, _, ref, d = mnlr_case
-    m = mnlr_from_state(state0)
+    m = mnlr_from_state(state0, "cpu")
     plain = ws.WEIGHTED_OUTER.plain_calls
     m.raw_update(T64(d["X"]), T64(d["Y"]), iters=3)
     assert ws.WEIGHTED_OUTER.plain_calls == plain + 3  # the scatter ran per iter
@@ -156,7 +156,7 @@ def test_mnlr_raw_update_fast_path(mnlr_case):
                                   "predict_2"])
 def test_mnlr_predict_bounds(mnlr_case, what):
     _, state1, ref, d = mnlr_case
-    m = mnlr_from_state(state1)
+    m = mnlr_from_state(state1, "cpu")
     out = getattr(m, what)(T64(d["Xt"]))
     assert rel_dev(out, ref[what], what) <= TOL
     assert (out.argmax(-1).numpy() == ref[what].argmax(-1)).all()
@@ -165,7 +165,7 @@ def test_mnlr_predict_bounds(mnlr_case, what):
 def test_mnlr_messages(mnlr_case):
     """forward, the message-valued update, and backward (Elog_like_X)."""
     _, state1, ref, d = mnlr_case
-    m = mnlr_from_state(state1)
+    m = mnlr_from_state(state1, "cpu")
     pX = TMVN_vf(mu=T64(d["mu"]), Sigma=T64(d["Sigma"]))
     assert rel_dev(m.forward(pX), ref["forward"]) <= TOL
     m.update(pX, T64(d["pY"]), iters=2)
@@ -188,7 +188,7 @@ def test_mnlr_raw_update_general_path():
         state = mnlr_state(jm)
         jm.raw_update(jnp.asarray(X), jnp.asarray(Y), iters=2, p=jnp.asarray(p))
         ref = jax.tree_util.tree_map(np.asarray, jm.beta)
-    m = mnlr_from_state(state)
+    m = mnlr_from_state(state, "cpu")
     plain = ws.WEIGHTED_OUTER.plain_calls
     m.raw_update(T64(X), T64(Y), iters=2, p=T64(p))
     assert ws.WEIGHTED_OUTER.plain_calls == plain
@@ -206,7 +206,7 @@ def test_bouchard_raw_update():
         jm.raw_update(jnp.asarray(X), jnp.asarray(Y), iters=3)
         ref = jax.tree_util.tree_map(np.asarray, jm.beta)
         ref_lp = np.asarray(jm.log_predict(jnp.asarray(Xt)))
-    m = bouchard_from_state(state)
+    m = bouchard_from_state(state, "cpu")
     m.raw_update(T64(X), T64(Y), iters=3)
     assert_beta_close(m.beta, ref)
     assert rel_dev(m.log_predict(T64(Xt)), ref_lp) <= TOL
@@ -309,7 +309,7 @@ def test_dmixlt_message_path():
         ref = [np.asarray(a) for a in (
             jm.ELBO_save, jm.p, f.mean(), f.ESigma(), b.mean(), bp, bm.mean(), bmp,
             bmRes, d.mean(), dlogZ, dp, ell, ell_data)]
-    m = dmixlt_from_state(state)
+    m = dmixlt_from_state(state, "cpu")
     pX = TMVN_vf(mu=T64(mx), Sigma=T64(Sx))
     pY = TMVN_vf(mu=T64(my), Sigma=T64(Sy))
     m.update(pX, pY, iters=3)
@@ -346,7 +346,7 @@ def moe_case(request):
         ref = dict(ELBO=np.asarray(jm.ELBO_save), mu=np.asarray(pY.mean()),
                    Sigma=np.asarray(pY.ESigma()), p=np.asarray(p),
                    last=np.asarray(jm.p))
-    return request.param, lambda: from_state(state), ref, (X, Y, Xt)
+    return request.param, lambda: from_state(state, "cpu"), ref, (X, Y, Xt)
 
 
 def test_moe_raw_update_and_predict(moe_case):
@@ -420,6 +420,6 @@ def test_digits_bakeoff_arm(digits300, arm):
         state = to_state(jm)
         jlab, jelbo = _fit_arm(arm, jm, *(jnp.asarray(a) for a in (Xtr, Ytr, Xte)))
         jlab, jelbo = np.asarray(jlab), np.asarray(jelbo)
-    lab, elbo = _fit_arm(arm, from_state(state), T64(Xtr), T64(Ytr), T64(Xte))
+    lab, elbo = _fit_arm(arm, from_state(state, "cpu"), T64(Xtr), T64(Ytr), T64(Xte))
     assert (lab.numpy() == jlab).all()
     assert rel_dev(np.asarray(elbo), jelbo) <= TOL
