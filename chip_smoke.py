@@ -9,9 +9,16 @@ prints no result:
 1. guard: a CUDA card is present; its name and power limit; TF32 off; the
    four kernels build from pyvbmp_tpu_torch/csrc with nvcc (one process per
    source, all at once);
-2. each kernel against its plain PyTorch version at the shapes of the two
-   main paths, forward and reverse (max relative error <= 1e-4, logw
-   relative to its scale), with both times;
+2. each kernel against its plain PyTorch version, forward and reverse (max
+   relative error <= 1e-4, logw relative to its scale, the -inf pattern
+   identical), with both times (the plain one a call after a first call):
+   the logsemiring kernel at K = 4 (DMBD-Lorenz) and every rung (K = 3, 6,
+   7, 8, 10, 16, 32) and the generic K = 40 (T=399, N=300), and K = 121
+   (T=40, N=8); the plane Kalman kernel at H = 6 (DMBD-Lorenz), 4, 8, 10,
+   15, 16 and 32 (T=399, N=100); the lane kernel at H = 1, 2, 3; and the
+   scans of phases 15-17 at the shapes those paths give them (HMM-core
+   K=8 T=200 N=200; Cradle K=6 T=200 N=50 and H=6 N=10; Flame K=3 T=100
+   N=12 and H=4 N=1);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -69,7 +76,23 @@ prints no result:
 14. MixLDS (phase 5's data and state) for 3 sweeps with the fold off, then
    forced on ("1", the only switch that folds a lane scan): the one-pass,
    then the folded lane kernel ran 2 x sweeps times, every other kernel 0
-   times, no plain version; the two ELBO trajectories within relative 1e-4.
+   times, no plain version; the two ELBO trajectories within relative 1e-4;
+15. HMM-core (benchmarks/core_models_bench.py:19: T=200, batch=200, K=8,
+   d=4, NormalInverseWishart observations, its hmm_data recipe, seed 0),
+   HMM(..., parallel_scan=True) for 10 sweeps after a warm-up: sweeps/s;
+   the ELBO is finite and ends above where it started; the logsemiring
+   kernel ran 2 x sweeps times, every other kernel 0 times, no plain
+   version; then card f32 vs CPU f64 from one numpy state, 3 sweeps, within
+   relative 1e-4;
+16-17. DMBD at the Cradle widths (obs (5,2), role_dims and hidden_dims
+   (2,2,2): K = 6, h = 6; T=200, batch=10) and the Flame widths (obs
+   (12,1), role_dims (1,1,1), hidden_dims (2,1,1): K = 3, h = 4; T=100,
+   batch=1), smooth random walks from a numpy seed, parallel_scan=True, 3
+   sweeps: 2 launches a sweep of each scan kernel, no plain version, ELBO
+   within relative 1e-4 of the CPU in float64;
+18. DMBD-Lorenz with parallel_scan=False (the JAX default), 3 sweeps: no
+   kernel launched and no plain scan; the ELBO rises; card f32 within
+   relative 1e-4 of CPU f64; ELBO() is ELBO_last and KLqprior() is finite.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 7 and 11 print each kernel's
@@ -79,10 +102,11 @@ operations over 67 TFLOP/s, whichever is larger) and its share of it.
 --baseline CSRC_DIR builds a second set of kernels from CSRC_DIR (an earlier
 version of pyvbmp_tpu_torch/csrc, e.g. unpacked with git archive into a
 gitignored directory) beside ours, and times the two in turns (baseline,
-ours, ours, baseline) at the phase-7 scatter shapes and the plane Kalman
-shapes of phases 2 and 11.  --trace profiles 3 sweeps of DMBD-Lorenz and of
-DMBD-Flocking on both routes (device busy time, kernel time by kind, wall
-clock).  Neither changes what the phases check.
+ours, ours, baseline) at the phase-7 scatter shapes and at the phase-2 and
+phase-11 scan shapes whose size the earlier kernels took (BASELINE_SIZES).
+--trace profiles 3 sweeps of DMBD-Lorenz and of DMBD-Flocking on both
+routes (device busy time, kernel time by kind, wall clock).  Neither
+changes what the phases check.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -117,6 +141,29 @@ FLOCK = dict(T=150, batch=20, n_birds=12, obs_dim=4, role_dims=(2, 2, 2),
              seed=0)
 SCATTER_SHAPES = [("digits", 1347, 65, 9), ("weighted_scatter.py:16", 400000, 32, 16),
                   ("MNIST-16x16", 60000, 257, 9)]
+# phase 2's other sizes: every logsemiring rung (K <= 4, 8, 16, 32) and the
+# generic K > 32; the plane Kalman kernel's one-solve-per-thread design (H
+# <= 14) and its looped one (H >= 15), exact rungs and padded sizes
+PHASE2_K = (3, 6, 7, 8, 10, 16, 32, 40)
+PHASE2_H = (4, 8, 10, 15, 16, 32)
+# the generic logsemiring path past any shared-memory size (no main path)
+PHASE2_WIDE_K = dict(K=121, T=40, N=8)
+# the sizes a --baseline build is timed at: those the kernels took before
+# they took every size (K = 4, 7, 14 and H = 6, 10, 14)
+BASELINE_SIZES = {"logsemiring_scan": (4, 7, 14), "kalman_plane_scan": (6, 10, 14)}
+# benchmarks/core_models_bench.py:19 (HMM_CFG), NormalInverseWishart
+# observations, data from its hmm_data recipe
+HMM_CORE = dict(T=200, batch=200, K=8, d=4, sweeps=10, compare_sweeps=3, data_seed=0,
+                seed=0)
+# DMBD at the Newton's-cradle widths (benchmarks/cradle_bench.py:21: K = 6,
+# h = 6) and the Flame widths (examples/flame_example.py:16-26: K = 3, h = 4)
+# on smooth random walks from a numpy seed
+WIDTHS = {
+    "Cradle": dict(obs_shape=(5, 2), role_dims=(2, 2, 2), hidden_dims=(2, 2, 2), T=200,
+                   batch=10),
+    "Flame": dict(obs_shape=(12, 1), role_dims=(1, 1, 1), hidden_dims=(2, 1, 1), T=100,
+                  batch=1),
+}
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (dense FP32 below)
 FP32_FLOP_PER_S = 67e12
@@ -169,8 +216,11 @@ def rel_err(out, ref):
     return diff / max(scale, 1e-30), diff
 
 
-def time_ms(fn, reps):
-    fn()
+def time_ms(fn, reps, warm=True):
+    """Mean ms of ``reps`` calls of ``fn``, after one call of its own
+    unless ``warm`` is false (the caller has just made it)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -308,8 +358,8 @@ def phase_guard(baseline=None):
           + (f" (baseline {baseline} built beside them)" if baseline else ""))
     for so_log in sorted(_cuda.BUILD_DIR.glob("*.log")):
         for line in so_log.read_text().splitlines():
-            if any(k in line for k in ("Compiling entry", "registers", "spill")):
-                print(f"  ptxas: {line.strip()}")
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "nvcc ")):
+                print(f"  build: {line.strip()}")
     return card, base_lib
 
 
@@ -327,7 +377,7 @@ def kalman_elems(rs, T, H, N):
     """Pair potentials whose joint (a, b) precision is SPD, so every prefix
     and suffix stays a proper potential."""
     W = rs.randn(T, N, 2 * H, 2 * H)
-    J = np.einsum("tnij,tnkj->tnik", W, W) / (2 * H) + np.eye(2 * H)
+    J = W @ np.swapaxes(W, -1, -2) / (2 * H) + np.eye(2 * H)  # batched BLAS, not einsum
     plane = lambda x: np.ascontiguousarray(np.moveaxis(x, 1, -1))
     return (
         plane(J[..., :H, :H]), plane(J[..., :H, H:]), plane(J[..., H:, H:]),
@@ -353,31 +403,48 @@ def phase_kernels(card, base=None):
     T = CFG["T"]
     N_roles = CFG["batch"] * CFG["obs_shape"][0]
     N_mix = MIX["batch"] * MIX["num_systems"]
+    wide = PHASE2_WIDE_K
     cases = [
         (scan.LOGSEMIRING, "K=4 N=300 (bench)", (semiring_elems(rs, T, 4, N_roles),)),
-        (scan.LOGSEMIRING, "K=7 N=300", (semiring_elems(rs, T, 7, N_roles),)),
+        *[(scan.LOGSEMIRING, f"K={k} N=300", (semiring_elems(rs, T, k, N_roles),))
+          for k in PHASE2_K],
+        (scan.LOGSEMIRING, f"K={wide['K']} T={wide['T']} N={wide['N']}",
+         (semiring_elems(rs, wide["T"], wide["K"], wide["N"]),)),
         (scan.KALMAN_PLANE, "H=6 N=100 (bench)", kalman_elems(rs, T, 6, CFG["batch"])),
-        (scan.KALMAN_PLANE, "H=10 N=100", kalman_elems(rs, T, 10, CFG["batch"])),
+        *[(scan.KALMAN_PLANE, f"H={h} N=100", kalman_elems(rs, T, h, CFG["batch"]))
+          for h in PHASE2_H],
         (scan.KALMAN_LANE, "H=2 T=100 N=4000 (bench)", lane_elems(rs, MIX["T"], 2, N_mix)),
         (scan.KALMAN_LANE, "H=3 T=100 N=4000", lane_elems(rs, MIX["T"], 3, N_mix)),
         (scan.KALMAN_LANE, "H=1 T=100 N=4000", lane_elems(rs, MIX["T"], 1, N_mix)),
     ]
+    # the scans of the HMM-core, Cradle and Flame paths at the shapes those
+    # paths give them (T, K or H, lanes), ragged lane blocks included
+    hc = HMM_CORE
+    cases.append((scan.LOGSEMIRING, f"K={hc['K']} T={hc['T']} N={hc['batch']} (HMM-core)",
+                  (semiring_elems(rs, hc["T"], hc["K"], hc["batch"]),)))
+    for name, w in WIDTHS.items():
+        K, H = sum(w["role_dims"]), sum(w["hidden_dims"])
+        N = w["batch"] * w["obs_shape"][0]
+        cases.append((scan.LOGSEMIRING, f"K={K} T={w['T']} N={N} ({name})",
+                      (semiring_elems(rs, w["T"], K, N),)))
+        cases.append((scan.KALMAN_PLANE, f"H={H} T={w['T']} N={w['batch']} ({name})",
+                      kalman_elems(rs, w["T"], H, w["batch"])))
     record = {s.name: dict(abs=0.0, ms=None, plain_ms=None, bound=None) for s in scan.SCANS}
     for s, label, arrays in cases:
         leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
                        for a in arrays)
         Tn, Nn = leaves[0].shape[0], leaves[0].shape[-1]
         bound = bound_ms(*scan_work(s.name, Tn, s.size_of(leaves), Nn))
+        size = s.size_of(leaves)
         for reverse in (False, True):
             out = s.kernel(leaves, reverse)
             ref = s.plain(leaves, reverse)
-            torch.cuda.synchronize()
+            plain_ms = time_ms(lambda: s.plain(leaves, reverse), 1, warm=False)
             errs = [rel_err(o, r) for o, r in zip(out, ref)]
             err = max(e[0] for e in errs)
             abs_err = max(e[1] for e in errs)
             ms, base_ms = timed(lambda: s.kernel(leaves, reverse), 20,
-                                base if s is scan.KALMAN_PLANE else None)
-            plain_ms = time_ms(lambda: s.plain(leaves, reverse), 2)
+                                base if size in BASELINE_SIZES.get(s.name, ()) else None)
             print(f"phase 2 {s.name} {label} {'reverse' if reverse else 'forward'}: "
                   f"max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms"
                   + (f" (baseline {base_ms:.4f} ms)" if base_ms else "")
@@ -401,13 +468,13 @@ def lorenz_data(dtype, device):
     return data.to(device=device, dtype=dtype)
 
 
-def build_model(generator):
+def build_model(generator, parallel_scan=True):
     from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
 
     return DynamicMarkovBlanketDiscovery(
         obs_shape=CFG["obs_shape"], role_dims=CFG["role_dims"],
-        hidden_dims=CFG["hidden_dims"], parallel_scan=True,
-        generator=generator, dtype=torch.float64,
+        hidden_dims=CFG["hidden_dims"], parallel_scan=parallel_scan,
+        generator=generator, dtype=torch.float64, device="cpu",
     )
 
 
@@ -477,11 +544,16 @@ def time_fold(switch):
 def compare_card_cpu(label, from_state, state, y64, n, card, card_fold="0"):
     """``n`` sweeps from one numpy state on the card (float32, time fold
     ``card_fold``) and on the CPU (float64, fold off): the ELBO trajectories
-    agree within REL_TOL."""
+    agree within REL_TOL.  Returns the card's model and its run's launches
+    and plain calls."""
     gpu = from_state(state, device="cuda", dtype=torch.float32)
     cpu = from_state(state, device="cpu", dtype=torch.float64)
+    y32 = y64.to(device="cuda", dtype=torch.float32)
     with time_fold(card_fold):
-        gpu.update(y64.to(device="cuda", dtype=torch.float32), iters=n)
+        reset_counts()
+        gpu.update(y32, iters=n)
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
     cpu.update(y64, iters=n)
     e_gpu = np.asarray(gpu.ELBO_save, np.float64)
     e_cpu = np.asarray(cpu.ELBO_save, np.float64)
@@ -490,6 +562,7 @@ def compare_card_cpu(label, from_state, state, y64, n, card, card_fold="0"):
           f"cpu {e_cpu.tolist()}; max rel dev {dev.max():.3e}; card {card}")
     if not dev.max() <= REL_TOL:
         fail(f"{label}: card and CPU ELBO trajectories differ by {dev.max():.3e}")
+    return gpu, launches, plain
 
 
 def phase_compare(card):
@@ -797,12 +870,11 @@ def phase_fold_kernels(card, base=None):
             for route, fn, what in routes:
                 out = fn.kernel(leaves, reverse)
                 ref = fn.plain(leaves, reverse)
-                torch.cuda.synchronize()
+                plain_ms = time_ms(lambda: fn.plain(leaves, reverse), 1, warm=False)
                 errs = [rel_err(o, r) for o, r in zip(out, ref)]
                 err, abs_err = max(e[0] for e in errs), max(e[1] for e in errs)
                 ms, base_ms = timed(lambda: fn.kernel(leaves, reverse), 10,
-                                    base if s is scan.KALMAN_PLANE else None)
-                plain_ms = time_ms(lambda: fn.plain(leaves, reverse), 1)
+                                    None if s is scan.KALMAN_LANE else base)
                 print(f"phase 11 {fn.name} {label} {'reverse' if reverse else 'forward'}"
                       f"{f' (Cp={Cp}, L={L})' if route == 'folded' else ''}: max rel err "
                       f"{err:.3e} (abs {abs_err:.3e}); {what} {ms:.4f} ms"
@@ -938,6 +1010,129 @@ def phase_mixlds_folded(card):
     return launches
 
 
+def hmm_data():
+    """benchmarks/core_models_bench.py:hmm_data at HMM_CORE: sticky K-state
+    chains (stay with probability 0.9) seen through Gaussian means, (T,
+    batch, d) float64."""
+    rs = np.random.RandomState(HMM_CORE["data_seed"])
+    K, T, B = HMM_CORE["K"], HMM_CORE["T"], HMM_CORE["batch"]
+    mus = rs.randn(K, HMM_CORE["d"]) * 3
+    z = np.zeros((T, B), np.int64)
+    for t in range(1, T):
+        stay = rs.rand(B) < 0.9
+        z[t] = np.where(stay, z[t - 1], rs.randint(0, K, B))
+    return torch.from_numpy(mus[z] + rs.randn(T, B, HMM_CORE["d"]))
+
+
+def hmm_state0(seed):
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.models import HMM
+    from pyvbmp_tpu_torch.utils.convert import hmm_state
+
+    g = torch.Generator().manual_seed(seed)
+    obs = NormalInverseWishart.create((HMM_CORE["d"],), (HMM_CORE["K"],), generator=g,
+                                      dtype=torch.float64)
+    return hmm_state(HMM(obs, parallel_scan=True, generator=g, dtype=torch.float64,
+                         device="cpu"))
+
+
+def phase_hmm(card):
+    """Phase 15: the standalone HMM at the core_hmm config with the scan
+    smoother, 10 sweeps after a warm-up, then card f32 vs CPU f64.  Returns
+    the timed run's launches."""
+    from pyvbmp_tpu_torch.utils.convert import hmm_from_state
+
+    y64 = hmm_data()
+    y = y64.to("cuda", torch.float32)
+    state = hmm_state0(HMM_CORE["seed"])
+    hmm_from_state(state, "cuda", torch.float32).update(y, iters=1)
+    model = hmm_from_state(state, "cuda", torch.float32)
+    sweeps = HMM_CORE["sweeps"]
+    dt, launches, plain = drive(model, sweeps, y)
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase 15 HMM-core T={HMM_CORE['T']} batch={HMM_CORE['batch']} K={HMM_CORE['K']} "
+          f"d={HMM_CORE['d']} (NIW, parallel_scan=True) {sweeps} sweeps: "
+          f"{sweeps / dt:.3f} sweeps/s ({dt:.3f} s); card {card}")
+    print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
+    if not np.isfinite(elbo).all():
+        fail("HMM-core ELBO not finite")
+    if not elbo[-1] > elbo[0]:
+        fail("HMM-core ELBO ended below where it started")
+    check_launches("HMM-core", launches, plain, {
+        "logsemiring_scan": 2 * sweeps, "kalman_plane_scan": 0, "kalman_lane_scan": 0,
+        "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
+        "kalman_lane_scan_folded": 0, "weighted_outer": 0})
+    if tuple(model.p.shape) != (HMM_CORE["T"], HMM_CORE["batch"], HMM_CORE["K"]):
+        fail(f"HMM-core p has shape {tuple(model.p.shape)}")
+    compare_card_cpu("phase 15 HMM-core", hmm_from_state, hmm_state0(HMM_CORE["seed"] + 1),
+                     y64, HMM_CORE["compare_sweeps"], card)
+    return launches
+
+
+def walk_data(cfg, seed):
+    """Smooth, standardized random walks (T, batch) + obs_shape, float64."""
+    rs = np.random.RandomState(seed)
+    y = np.cumsum(rs.randn(cfg["T"], cfg["batch"], *cfg["obs_shape"]) * 0.3, 0)
+    return torch.from_numpy((y - y.mean()) / y.std())
+
+
+def phase_widths(card):
+    """Phases 16-17: DMBD at the Cradle and Flame widths with the scan
+    smoothers, 3 sweeps on the card against the CPU in float64.  Returns the
+    launches of both card runs, summed."""
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    total = {}
+    for phase, (name, cfg) in zip((16, 17), WIDTHS.items()):
+        dims = {k: cfg[k] for k in ("obs_shape", "role_dims", "hidden_dims")}
+        state = dmbd_state(DynamicMarkovBlanketDiscovery(
+            **dims, parallel_scan=True, generator=torch.Generator().manual_seed(CFG["seed"]),
+            dtype=torch.float64, device="cpu"))
+        n = CFG["compare_sweeps"]
+        gpu, launches, plain = compare_card_cpu(
+            f"phase {phase} DMBD-{name} T={cfg['T']} batch={cfg['batch']} obs "
+            f"{cfg['obs_shape']} roles {cfg['role_dims']} hidden {cfg['hidden_dims']} "
+            f"(K={sum(cfg['role_dims'])}, h={sum(cfg['hidden_dims'])})",
+            dmbd_from_state, state, walk_data(cfg, phase), n, card)
+        check_launches(f"DMBD-{name}", launches, plain, {
+            "logsemiring_scan": 2 * n, "kalman_plane_scan": 2 * n, "kalman_lane_scan": 0,
+            "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
+            "weighted_outer": 0})
+        if not np.isfinite(gpu.ELBO_save).all():
+            fail(f"DMBD-{name}: ELBO not finite")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_sequential(card):
+    """Phase 18: DMBD-Lorenz with parallel_scan=False (the JAX default): the
+    sequential smoothers launch no kernel; the ELBO rises; card f32 vs CPU
+    f64; ELBO() is ELBO_last and KLqprior() is finite."""
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    state = dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"]),
+                                   parallel_scan=False))
+    n = CFG["compare_sweeps"]
+    t0 = time.perf_counter()
+    gpu, launches, plain = compare_card_cpu(
+        f"phase 18 DMBD-Lorenz parallel_scan=False T={CFG['T']} batch={CFG['batch']}",
+        dmbd_from_state, state, lorenz_data(torch.float64, "cpu"), n, card)
+    print(f"  card and CPU runs {time.perf_counter() - t0:.3f} s")
+    check_launches("DMBD sequential", launches, plain, {k: 0 for k in launches})
+    elbo = np.asarray(gpu.ELBO_save, np.float64)
+    kl = gpu.KLqprior()
+    print(f"  ELBO steps {np.diff(elbo).tolist()}; ELBO() {gpu.ELBO():.6e}; "
+          f"KLqprior() {float(kl):.6e}")
+    if gpu.parallel_scan or not gpu.cross_cov_compat:
+        fail("the state did not carry parallel_scan=False")
+    if not (np.diff(elbo) > 0).all():
+        fail("DMBD sequential: ELBO did not rise at every sweep")
+    if gpu.ELBO() != gpu.ELBO_last or not torch.isfinite(kl).all():
+        fail("DMBD sequential: ELBO() is not ELBO_last, or KLqprior() is not finite")
+
+
 def trace_sweeps(card, label, model, y, fit, fold, n=3):
     """Per sweep of ``model.update(y, iters=n, **fit)`` under the time fold
     ``fold``: the untraced wall clock (median of 5 runs), then one traced
@@ -1011,30 +1206,43 @@ def main():
     ap.add_argument("--baseline", help="a second csrc directory to time beside ours")
     ap.add_argument("--trace", action="store_true", help="profile the DMBD sweeps")
     args = ap.parse_args()
-    card, base = phase_guard(args.baseline)
-    record = phase_kernels(card, base)
-    launches_dmbd = phase_dmbd(card)
-    phase_compare(card)
-    launches_mix = phase_mixlds(card)
-    phase_mixlds_compare(card)
-    scatter = phase_scatter(card, base)
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def run(label, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card, base = run("1", phase_guard, args.baseline)
+    record = run("2", phase_kernels, card, base)
+    launches_dmbd = run("3", phase_dmbd, card)
+    run("4", phase_compare, card)
+    launches_mix = run("5", phase_mixlds, card)
+    run("6", phase_mixlds_compare, card)
+    scatter = run("7", phase_scatter, card, base)
     data = digits()
-    state, elbo, labels, launches_mnlr = phase_mnlr(card, data)
-    phase_mnlr_compare(card, data, state, elbo, labels)
-    phase_other_arms(card, data)
-    folded, one_pass = phase_fold_kernels(card, base)
-    launches_flock = phase_flocking(card)
-    phase_flocking_compare(card)
-    launches_mix_folded = phase_mixlds_folded(card)
+    state, elbo, labels, launches_mnlr = run("8", phase_mnlr, card, data)
+    run("9", phase_mnlr_compare, card, data, state, elbo, labels)
+    run("10", phase_other_arms, card, data)
+    folded, one_pass = run("11", phase_fold_kernels, card, base)
+    launches_flock = run("12", phase_flocking, card)
+    run("13", phase_flocking_compare, card)
+    launches_mix_folded = run("14", phase_mixlds_folded, card)
+    launches_hmm = run("15", phase_hmm, card)
+    launches_widths = run("16-17", phase_widths, card)
+    run("18", phase_sequential, card)
     if args.trace:
-        phase_trace(card)
+        run("trace", phase_trace, card)
     from pyvbmp_tpu_torch.ops import scan, weighted_scatter as ws
 
     kernels = []
     for s in scan.SCANS:
         kernels.append(record_line(
             s.name, s.source, s.replaces,
-            launches_dmbd[s.name] + launches_mix[s.name] + launches_flock["0"][s.name],
+            launches_dmbd[s.name] + launches_mix[s.name] + launches_flock["0"][s.name]
+            + launches_hmm[s.name] + launches_widths[s.name],
             max(record[s.name]["abs"], one_pass[s.name]), record[s.name]))
     for s in scan.FOLDED_SCANS:
         kernels.append(record_line(
@@ -1044,6 +1252,8 @@ def main():
     w = ws.WEIGHTED_OUTER
     kernels.append(record_line(w.name, w.source, w.replaces, launches_mnlr[w.name],
                                scatter["abs"], scatter, scatter["library_ms"]))
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s (seconds by phase: "
+          f"{seconds}); card {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

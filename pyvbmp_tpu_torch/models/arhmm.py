@@ -32,7 +32,7 @@ class ARHMM_prXRY(HMM):
             device=device,
         )
         super().__init__(dist, transition_mask=transition_mask,
-                         generator=generator)
+                         generator=generator, dtype=dtype, device=device)
 
     def _splice(self, pX, R):
         shape = pX.shape[:-2]

@@ -4,12 +4,17 @@ An LDS whose observation model is an ARHMM over "roles"; the latent x is
 partitioned into (environment s, boundary b, internal z) blocks per object,
 enforced by structural masks on the dynamics (A_mask), the emission (B_mask)
 and the role transitions (role_mask).  Coordinate ascent interleaves the role
-smoother (a log-semiring scan pair) and the Kalman smoother (a Gaussian
-potential scan pair): four scans per sweep.
+smoother and the Kalman smoother.  With ``parallel_scan=True`` both are
+scan pairs (a log-semiring scan pair and a Gaussian potential scan pair:
+four scan kernels a sweep on the card); with ``parallel_scan=False``, the
+JAX package's default, both are the sequential smoothers (the HMM's
+``forward_backward`` and the LDS ``forward_backward_loop`` with the
+reference's cross-covariance line, ``cross_cov_compat=True``), which run no
+kernel.
 
-Not ported yet: ``unique_obs=True``, ``time_mesh``, ``batch_shape``, the
-sequential smoothers (``parallel_scan=False``), ``Elog_like``,
-``KLqprior``/``ELBO`` and the plotting methods.
+Not ported yet: ``unique_obs=True``, ``time_mesh``, a non-empty
+``batch_shape`` (each raises ``NotImplementedError``), ``Elog_like`` and the
+plotting methods.
 """
 from __future__ import annotations
 
@@ -18,11 +23,11 @@ import torch
 
 from ..dists import NormalInverseWishart
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
-from ..ops.parallel_hmm import forward_backward_parallel
 from ..transforms import MatrixNormalGamma
 from ..utils.linalg import mT, psd_inv_and_logdet
 from ..utils.torchutils import brole_avg, default_device, replace, sum_leading
 from .arhmm import ARHMM_prXRY
+from .hmm import smoother_dispatch
 from .lds import LinearDynamicalSystems
 
 
@@ -154,19 +159,25 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         hidden_dims,
         control_dim=0,
         regression_dim=0,
+        batch_shape=(),
         number_of_objects=1,
         unique_obs=False,
-        parallel_scan=True,
+        parallel_scan=False,
+        time_mesh=None,
+        *,
         generator=None,
         dtype=None,
         device=None,
     ):
+        """The JAX package's signature and defaults; ``generator``, ``dtype``
+        and ``device`` (the card unless the caller asks for another) are
+        keyword-only."""
         if unique_obs:
             raise NotImplementedError("unique_obs=True is not ported yet")
-        if not parallel_scan:
-            raise NotImplementedError(
-                "the sequential smoothers (parallel_scan=False) are not ported yet"
-            )
+        if tuple(batch_shape):
+            raise NotImplementedError("a non-empty DMBD batch_shape is not ported yet")
+        if time_mesh is not None:
+            raise NotImplementedError("time_mesh (the time-sharded smoothers) is not ported")
         device = default_device(device)
         dtype = dtype or torch.get_default_dtype()
         control_dim = control_dim + 1
@@ -203,16 +214,18 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         self.batch_shape = ()
         self.batch_dim = 0
         self.offset = (1,) * (len(obs_shape) - 1)
-        # the LDS smoother flags: the scan-based smoother, whose
-        # cross-covariances are the corrected ones
-        self.parallel_scan = True
-        self.cross_cov_compat = False
+        # the smoothers' flags, as in the JAX package: the scan-based
+        # smoothers compute the corrected cross-covariances, the sequential
+        # ones reproduce the reference's
+        self.parallel_scan = parallel_scan
+        self.time_mesh = None
+        self.cross_cov_compat = not parallel_scan
         self.expand_to_batch = False
         self.ELBO_save = []
         self.ELBO_last = -float("inf")
         self.iters = 0
         self.px = None
-        self.logZ = None
+        self.logZ = torch.full((), -float("inf"), dtype=dtype, device=device)
 
         self.x0 = NormalInverseWishart.create(
             self.offset + (hidden_dim,), self.batch_shape, generator=generator,
@@ -269,6 +282,7 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         self.obs_model.to(device, dtype)
         if self.px is not None:
             self.px = self.px.to(device, dtype)
+        self.logZ = self.logZ.to(device=device, dtype=dtype)
         return self
 
     # -------------------------------------------------------- role E/M pieces
@@ -296,7 +310,8 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         px4r = self._px4r(px, r)
         XRY = (px4r, r.unsqueeze(-unsdim), y.unsqueeze(-unsdim))
         logits = om._obs_logits(B, XRY)
-        p, SEzz, SEz0, _ = forward_backward_parallel(
+        fb = smoother_dispatch(self)
+        p, SEzz, SEz0, _ = fb(
             transition.loggeomean(), initial.loggeomean(), logits, om.ptemp
         )
         keep = om.batch_dim + om.event_dim
@@ -400,6 +415,12 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
                 )
             self.ELBO_last = float(e)
             self.ELBO_save.append(float(e))
+
+    # KLqprior is the LDS's: x0's, A's and the role HMM's KLqprior()
+
+    def ELBO(self):
+        """The ELBO of the last sweep, as the JAX package returns it."""
+        return self.ELBO_last
 
     # ------------------------------------------------------------ assignments
     def assignment_pr(self):

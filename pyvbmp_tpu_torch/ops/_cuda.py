@@ -2,7 +2,7 @@
 
 Every ``pyvbmp_tpu_torch/csrc/*.cu`` is compiled with ``nvcc`` at the first
 launch of any kernel in a process, into ``pyvbmp_tpu_torch/_build/`` (keyed
-by a hash of the sources and flags; one nvcc per source, all run at once,
+by a hash of the sources, the headers beside them and the flags; one nvcc per source, all run at once,
 then one link), and the shared library is bound with ``ctypes``.  Each
 kernel's C entry point returns 0 on a clean launch and the
 ``cudaGetLastError()`` code otherwise.
@@ -14,6 +14,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -54,13 +56,15 @@ def _bind(lib):
 
 
 def build(csrc_dir, build_dir):
-    """Build (once per source hash) every ``*.cu`` of ``csrc_dir`` into one
-    shared library under ``build_dir`` and load it; returns the bound
+    """Build (once per hash of the sources and the ``*.cuh`` headers they
+    include) every ``*.cu`` of ``csrc_dir`` into one shared library under
+    ``build_dir`` and load it; returns the bound
     ``ctypes.CDLL``.  The compiler's report (registers, spills) is kept
-    beside the library as ``<name>.log``."""
+    beside the library as ``<name>.log``, with each source's compile time."""
     sources = sorted(Path(csrc_dir).glob("*.cu"))
+    headers = sorted(Path(csrc_dir).glob("*.cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     build_dir = Path(build_dir)
@@ -70,17 +74,20 @@ def build(csrc_dir, build_dir):
         nvcc = _find_nvcc()
         tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
         objs = [build_dir / f"{src.stem}.{tag}.o" for src in sources]
-        procs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            for src, obj in zip(sources, objs)
-        ]
-        logs = [p.communicate()[0] for p in procs]
+
+        def compile_one(src, obj):
+            t0 = time.perf_counter()
+            done = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            took = f"nvcc {src.name}: {time.perf_counter() - t0:.1f} s\n"
+            return done.returncode, done.stdout + took
+
+        with ThreadPoolExecutor(len(sources)) as pool:
+            results = list(pool.map(compile_one, sources, objs))
+        logs = [log for _, log in results]
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         link = None
-        if all(p.returncode == 0 for p in procs):
+        if all(rc == 0 for rc, _ in results):
             link = subprocess.run(
                 [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
                 capture_output=True, text=True,

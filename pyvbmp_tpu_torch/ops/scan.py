@@ -49,6 +49,12 @@ import torch
 
 from ._cuda import load_library
 
+# The sizes the kernels take: every K a C int holds (csrc/logsemiring_scan.cu
+# has a generic path above 32), and the JAX package's plane Kalman range
+# (parallel_kalman.py:PLANE_KALMAN_MAX_H).
+LOGSEMIRING_SIZES = range(1, 2**31)
+PLANE_MAX_H = 32
+
 TIME_FOLD = os.environ.get("PYVBMP_PALLAS_TIME_FOLD", "0")
 TIME_FOLD_MAX_N = int(os.environ.get("PYVBMP_PALLAS_TIME_FOLD_MAX_N", "256"))
 TIME_FOLD_MIN_T = int(os.environ.get("PYVBMP_PALLAS_TIME_FOLD_MIN_T", "96"))
@@ -134,7 +140,7 @@ class Scan:
         self.symbol = symbol
         self.source = source
         self.replaces = replaces
-        self.sizes = tuple(sizes)  # instantiated K or H
+        self.sizes = sizes  # the K or H the kernel takes (a range)
         self.combine = combine
         self.leaf_shapes = leaf_shapes  # (T, size, N) -> shape of each leaf
         self.size_of = size_of  # leaves -> K or H
@@ -172,7 +178,8 @@ class Scan:
         size = self.size_of(leaves)
         if size not in self.sizes:
             raise ValueError(
-                f"{self.name}: size {size} is not instantiated (have {self.sizes})"
+                f"{self.name}: size {size} is outside the kernel's range "
+                f"{self.sizes.start}..{self.sizes.stop - 1}"
             )
         want = self.leaf_shapes(T, size, N)
         if len(leaves) != len(want):
@@ -288,7 +295,7 @@ LOGSEMIRING = Scan(
     "logsemiring_scan_f32",
     "pyvbmp_tpu_torch/csrc/logsemiring_scan.cu",
     "pyvbmp_tpu/ops/pallas_scan.py:219",
-    sizes=(4, 7, 14),
+    sizes=LOGSEMIRING_SIZES,
     combine=lambda a, b: (_logmatmul_plane(a[0], b[0]),),
     leaf_shapes=lambda T, K, N: [(T, K, K, N)],
     size_of=lambda leaves: leaves[0].shape[1],
@@ -296,9 +303,9 @@ LOGSEMIRING = Scan(
 KALMAN_PLANE = Scan(
     "kalman_plane_scan",
     "kalman_plane_scan_f32",
-    "pyvbmp_tpu_torch/csrc/kalman_plane_scan.cu",
+    "pyvbmp_tpu_torch/csrc/kalman_plane_scan.cuh",
     "pyvbmp_tpu/ops/pallas_scan.py:219",
-    sizes=(6, 10, 14),
+    sizes=range(1, PLANE_MAX_H + 1),
     combine=_combine_plane,
     leaf_shapes=lambda T, H, N: [(T, H, H, N)] * 3 + [(T, H, N)] * 2 + [(T, N)],
     size_of=lambda leaves: leaves[0].shape[1],
@@ -308,7 +315,7 @@ KALMAN_LANE = Scan(
     "kalman_lane_scan_f32",
     "pyvbmp_tpu_torch/csrc/kalman_lane_scan.cu",
     "pyvbmp_tpu/ops/pallas_scan.py:219",
-    sizes=(1, 2, 3),
+    sizes=range(1, 4),
     combine=_combine_lane,
     leaf_shapes=lambda T, H, N: (
         [(T, H * (H + 1) // 2, N), (T, H * H, N), (T, H * (H + 1) // 2, N)]

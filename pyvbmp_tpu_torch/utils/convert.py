@@ -1,12 +1,12 @@
 """Carry a model's state across packages and devices as a nested dict of
 numpy arrays.
 
-- ``dmbd_state(model)``, ``lds_state(model)`` and ``mixlds_state(model)``
-  read the state by attribute access alone, so each takes a model of this
+- ``dmbd_state(model)``, ``hmm_state(model)``, ``lds_state(model)`` and
+  ``mixlds_state(model)`` read the state by attribute access alone, so each takes a model of this
   package or of the JAX package ``pyvbmp_tpu`` (whose arrays it converts
   with ``np.asarray``; jax itself is never imported here);
-- ``dmbd_from_state``, ``lds_from_state`` and ``mixlds_from_state`` (state,
-  device, dtype) build this package's model from such a dict: built on the
+- ``dmbd_from_state``, ``hmm_from_state``, ``lds_from_state`` and
+  ``mixlds_from_state`` (state, device, dtype) build this package's model from such a dict: built on the
   CPU in float64, then moved to ``device``, which defaults to the card
   (``torchutils.default_device``: with no card and no device they raise
   before building anything).
@@ -22,7 +22,8 @@ Random initialisation cannot be shared between the packages (``jax.random``
 and ``torch.Generator`` draw different numbers), so parity runs go JAX model
 -> state -> port.  A DMBD's dict holds:
 
-    config                  constructor arguments
+    config                  constructor arguments (parallel_scan and
+                            batch_shape among them)
     x0                      NormalInverseWishart (with its Wishart invU)
     A                       MatrixNormalGamma (with mask and its Gamma rows)
     obs_model.transition    Dirichlet (masked entries have alpha_0 == 0)
@@ -31,7 +32,10 @@ and ``torch.Generator`` draw different numbers), so parity runs go JAX model
     obs_model.obs_dist      MatrixNormalWishart (with X_mask)
     px, p                   the last posteriors, when the model has run
 
-An LDS's dict holds its config, x0 (NormalInverseWishart), A
+A standalone HMM's (NormalInverseWishart observations) holds its config
+(the observation shapes, ptemp, parallel_scan), transition and initial
+(Dirichlet), transition_mask (or None), obs_dist (NormalInverseWishart) and
+p when the model has run.  An LDS's dict holds its config, x0 (NormalInverseWishart), A
 (MatrixNormalGamma, or MatrixNormalWishart for latent_noise="shared"),
 obs_model (MatrixNormalWishart, masks included), expand_to_batch and px when
 the model has run; a MixLDS's holds its config, the LDS nodes, pi
@@ -76,8 +80,6 @@ def dmbd_state(model):
         raise ValueError("DMBD emission with pad_X=True is not supported")
     if getattr(model, "unique_obs", False):
         raise ValueError("unique_obs=True is not ported")
-    if tuple(model.batch_shape):
-        raise ValueError("a DMBD batch_shape is not ported")
     om = model.obs_model
     state = {
         "config": dict(
@@ -86,7 +88,9 @@ def dmbd_state(model):
             hidden_dims=tuple(model.hidden_dims),
             control_dim=model.control_dim - 1,
             regression_dim=model.regression_dim - 1,
+            batch_shape=tuple(model.batch_shape),
             number_of_objects=model.number_of_objects,
+            parallel_scan=bool(model.parallel_scan),
         ),
         "x0": node_state(model.x0),
         "A": node_state(model.A),
@@ -158,6 +162,53 @@ def dmbd_from_state(state, device=None, dtype=None):
         )
     if "p" in state:
         om.p = torch.tensor(np.asarray(state["p"], np.float64))
+    return model.to(device, dtype)
+
+
+def hmm_state(model):
+    """Nested dict of numpy arrays holding a standalone HMM with
+    NormalInverseWishart observations: its configuration and state."""
+    obs = model.obs_dist
+    mask = model.transition_mask
+    state = {
+        "config": dict(
+            event_shape=tuple(obs.event_shape),
+            batch_shape=tuple(obs.batch_shape),
+            ptemp=float(model.ptemp),
+            parallel_scan=bool(model.parallel_scan),
+        ),
+        "transition": node_state(model.transition),
+        "initial": node_state(model.initial),
+        "transition_mask": None if mask is None else _array(mask),
+        "obs_dist": node_state(obs),
+    }
+    if model.p is not None:
+        state["p"] = _array(model.p)
+    return state
+
+
+def hmm_from_state(state, device=None, dtype=None):
+    """This package's HMM (NormalInverseWishart observations) holding
+    ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
+    from ..dists import NormalInverseWishart
+    from ..models import HMM
+
+    cfg = state["config"]
+    g = torch.Generator().manual_seed(0)
+    obs = NormalInverseWishart.create(cfg["event_shape"], cfg["batch_shape"], generator=g,
+                                      dtype=torch.float64, device="cpu")
+    mask = state["transition_mask"]
+    model = HMM(
+        load_state(obs, state["obs_dist"]),
+        transition_mask=None if mask is None else torch.tensor(np.asarray(mask)),
+        ptemp=cfg["ptemp"], parallel_scan=cfg["parallel_scan"],
+        generator=g, dtype=torch.float64, device="cpu",
+    )
+    model.transition = load_state(model.transition, state["transition"])
+    model.initial = load_state(model.initial, state["initial"])
+    if "p" in state:
+        model.p = torch.tensor(np.asarray(state["p"], np.float64))
     return model.to(device, dtype)
 
 

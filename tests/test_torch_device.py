@@ -30,6 +30,9 @@ NODES = (NormalInverseWishart, MatrixNormalWishart, MVN_ard)
 # converter name -> the state of a small CPU model
 CONVERTERS = {
     "dmbd": lambda: convert.dmbd_state(CONSTRUCTORS["DMBD"](device="cpu")),
+    "hmm": lambda: convert.hmm_state(tm.HMM(
+        NormalInverseWishart.create((2,), (3,), generator=torch.Generator().manual_seed(0)),
+        device="cpu")),
     "lds": lambda: convert.lds_state(CONSTRUCTORS["LDS"](device="cpu")),
     "mixlds": lambda: convert.mixlds_state(CONSTRUCTORS["MixLDS"](device="cpu")),
     "mvn_ard": lambda: convert.mvn_ard_state(

@@ -29,7 +29,8 @@ def cuda():
 
 def semiring(rs, T, K, N, device):
     trans = np.log(rs.dirichlet(np.ones(K), K))
-    trans[0, K - 1] = trans[K - 1, 0] = -np.inf
+    if K > 1:  # masked transitions (at K = 1 the one entry stays finite)
+        trans[0, K - 1] = trans[K - 1, 0] = -np.inf
     M = trans[None, None] + rs.randn(T, N, 1, K) * 2.0
     return (torch.tensor(M.transpose(0, 2, 3, 1).copy(), dtype=torch.float32,
                          device=device),)
@@ -62,8 +63,15 @@ def rel_err(out, ref):
     return ((out[fin] - ref[fin]).abs().max() / ref[fin].abs().max()).item()
 
 
-CASES = [("logsemiring", 4), ("logsemiring", 7), ("logsemiring", 14), ("kalman", 6),
-         ("kalman", 10), ("kalman", 14), ("lane", 1), ("lane", 2), ("lane", 3)]
+# every rung of the logsemiring kernel (K <= 4, 8, 16, 32) at its edges and
+# inside, and the generic K > 32 (past any shared-memory size at K = 121);
+# the plane Kalman kernel from H = 1 to 32, at its rungs and padded up to
+# them, across its one-solve-per-thread (H <= 14) and looped (H >= 15)
+# designs
+CASES = ([("logsemiring", k)
+          for k in (1, 2, 3, 4, 6, 7, 8, 10, 14, 16, 17, 32, 33, 40, 121)]
+         + [("kalman", h) for h in (1, 4, 5, 6, 8, 10, 12, 14, 15, 16, 17, 24, 32)]
+         + [("lane", 1), ("lane", 2), ("lane", 3)])
 MAKERS = {"logsemiring": (scan.LOGSEMIRING, semiring),
           "kalman": (scan.KALMAN_PLANE, kalman), "lane": (scan.KALMAN_LANE, lane)}
 
@@ -78,6 +86,23 @@ def test_kernel_matches_plain(cuda, which, size, reverse):
     out = s.kernel(leaves, reverse)
     torch.cuda.synchronize()
     assert s.launches == launches + 1
+    ref = s.plain(leaves, reverse)
+    for o, r in zip(out, ref):
+        assert rel_err(o, r) <= TOL
+
+
+# the scans of the HMM-core, Cradle and Flame paths at the shapes those paths
+# give them (size, T, lanes): ragged lane blocks at every one
+MAIN_PATH = [("logsemiring", 8, 200, 200), ("logsemiring", 6, 200, 50),
+             ("logsemiring", 3, 100, 12), ("kalman", 6, 200, 10), ("kalman", 4, 100, 1)]
+
+
+@pytest.mark.parametrize("which,size,T,N", MAIN_PATH)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_kernel_matches_plain_at_main_path_shapes(cuda, which, size, T, N, reverse):
+    s, make = MAKERS[which]
+    leaves = make(np.random.RandomState(size + T + N), T, size, N, cuda)
+    out = s.kernel(leaves, reverse)
     ref = s.plain(leaves, reverse)
     for o, r in zip(out, ref):
         assert rel_err(o, r) <= TOL
@@ -126,6 +151,26 @@ def test_plane_kalman_h14_edges(cuda, T, C, N, reverse):
         assert rel_err(o, r) <= TOL
 
 
+# the logsemiring kernel at K=14 (four lanes a block): lane counts that are
+# not a multiple of the block's lanes, one and two rows, and folds with a
+# short chunk, each against the one-pass plain scan
+LOG14 = [(T, C, N) for N in (1, 3, 5, 17, 240)
+         for T, C in ((1, 1), (2, 1), (2, 2), (150, 1), (150, 8), (150, 7))]
+
+
+@pytest.mark.parametrize("T,C,N", LOG14)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_logsemiring_k14_edges(cuda, T, C, N, reverse):
+    s = scan.LOGSEMIRING
+    leaves = semiring(np.random.RandomState(T * 100 + N), T, 14, N, cuda)
+    L = -(-T // C)
+    assert C * L - T < L  # every chunk non-empty
+    out = s.launch(leaves, reverse, chunks=C, L=L, offset=T - C * L if reverse else 0)
+    torch.cuda.synchronize()
+    ref = s.plain(leaves, reverse)
+    assert rel_err(out[0], ref[0]) <= TOL
+
+
 def test_cuda_tensors_launch_the_kernel(cuda):
     M = semiring(np.random.RandomState(0), 9, 4, 5, cuda)[0]
     launches, plain = scan.LOGSEMIRING.launches, scan.LOGSEMIRING.plain_calls
@@ -148,7 +193,7 @@ def test_dmbd_sweep_runs_four_kernel_launches(cuda):
     rs = np.random.RandomState(2)
     y = torch.tensor(rs.randn(30, 6, 3, 2), dtype=torch.float32, device=cuda)
     m = DynamicMarkovBlanketDiscovery(
-        (3, 2), (1, 2, 1), (2, 2, 2),
+        (3, 2), (1, 2, 1), (2, 2, 2), parallel_scan=True,
         generator=torch.Generator().manual_seed(0), dtype=torch.float32,
         device=cuda,
     )
@@ -172,8 +217,8 @@ def test_dmbd_flocking_sweep_launches_per_route(cuda, fold, monkeypatch):
     g = torch.Generator().manual_seed(0)
     y = Flocking(n_birds=5, Tmax=40, batch_size=3).simulate(g, torch.float32).to(cuda)
     m = DynamicMarkovBlanketDiscovery(
-        (5, 4), (2, 2, 2), (2, 2, 2), number_of_objects=3, generator=g,
-        dtype=torch.float32, device=cuda,
+        (5, 4), (2, 2, 2), (2, 2, 2), number_of_objects=3, parallel_scan=True,
+        generator=g, dtype=torch.float32, device=cuda,
     )
     counters = [*scan.SCANS, *scan.FOLDED_SCANS]
     before = [c.launches for c in counters]
@@ -184,6 +229,79 @@ def test_dmbd_flocking_sweep_launches_per_route(cuda, fold, monkeypatch):
     assert [c.plain_calls for c in counters] == plain
     assert np.isfinite(m.ELBO_save).all()
     assert m.particular_assignment().shape == (40, 3, 5)
+
+
+# the Newton's-cradle widths (K = 6, h = 6) and the Flame widths (K = 3,
+# h = 4), sizes no earlier slice's kernels took
+DMBD_WIDTHS = {
+    "cradle": dict(obs_shape=(5, 2), role_dims=(2, 2, 2), hidden_dims=(2, 2, 2)),
+    "flame": dict(obs_shape=(12, 1), role_dims=(1, 1, 1), hidden_dims=(2, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DMBD_WIDTHS))
+def test_dmbd_fit_on_the_card_follows_the_cpu(cuda, name):
+    """3 sweeps from one state: the card in float32 (two launches a sweep of
+    each scan kernel, no plain scan) within relative 1e-4 of the CPU in
+    float64 (the plain scans)."""
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    cfg = DMBD_WIDTHS[name]
+    rs = np.random.RandomState(5)
+    y = np.cumsum(rs.randn(60, 4, *cfg["obs_shape"]) * 0.3, 0)
+    y = torch.tensor((y - y.mean()) / y.std())
+    state = dmbd_state(DynamicMarkovBlanketDiscovery(
+        **cfg, parallel_scan=True, generator=torch.Generator().manual_seed(0),
+        dtype=torch.float64, device="cpu"))
+    gpu = dmbd_from_state(state, device=cuda, dtype=torch.float32)
+    cpu = dmbd_from_state(state, device="cpu", dtype=torch.float64)
+    before = [s.launches for s in scan.SCANS]
+    plain = [s.plain_calls for s in scan.SCANS]
+    gpu.update(y.to(cuda, torch.float32), iters=3)
+    assert [s.launches - b for s, b in zip(scan.SCANS, before)] == [6, 6, 0]
+    assert [s.plain_calls for s in scan.SCANS] == plain
+    cpu.update(y, iters=3)
+    e_gpu, e_cpu = np.asarray(gpu.ELBO_save), np.asarray(cpu.ELBO_save)
+    assert (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max() <= TOL
+
+
+def test_sequential_dmbd_and_hmm_launch_no_kernel(cuda):
+    """parallel_scan=False (the JAX default) runs the sequential smoothers:
+    no scan kernel and no plain scan on the card."""
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.models import HMM, DynamicMarkovBlanketDiscovery
+
+    g = torch.Generator().manual_seed(0)
+    rs = np.random.RandomState(6)
+    counters = [*scan.SCANS, *scan.FOLDED_SCANS]
+    before = [(c.launches, c.plain_calls) for c in counters]
+    m = DynamicMarkovBlanketDiscovery((3, 2), (1, 2, 1), (2, 2, 2), generator=g,
+                                      dtype=torch.float32, device=cuda)
+    m.update(torch.tensor(rs.randn(30, 4, 3, 2), dtype=torch.float32, device=cuda), iters=2)
+    h = HMM(NormalInverseWishart.create((4,), (8,), generator=g), generator=g,
+            dtype=torch.float32, device=cuda)
+    h.update(torch.tensor(rs.randn(30, 5, 4), dtype=torch.float32, device=cuda), iters=2)
+    assert [(c.launches, c.plain_calls) for c in counters] == before
+    assert np.isfinite(m.ELBO_save).all() and np.isfinite(h.ELBO_save).all()
+
+
+def test_hmm_with_the_scan_smoother_launches_the_kernel(cuda):
+    """The core_hmm widths (K = 8, d = 4): two logsemiring launches a sweep."""
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.models import HMM
+
+    g = torch.Generator().manual_seed(0)
+    y = torch.tensor(np.random.RandomState(7).randn(40, 6, 4), dtype=torch.float32,
+                     device=cuda)
+    h = HMM(NormalInverseWishart.create((4,), (8,), generator=g), parallel_scan=True,
+            generator=g, dtype=torch.float32, device=cuda)
+    launches, plain = scan.LOGSEMIRING.launches, scan.LOGSEMIRING.plain_calls
+    h.update(y, iters=3)
+    assert scan.LOGSEMIRING.launches == launches + 6
+    assert scan.LOGSEMIRING.plain_calls == plain
+    assert np.isfinite(h.ELBO_save).all()
+    assert h.p.shape == (40, 6, 8)
 
 
 def test_mixlds_sweep_runs_two_lane_kernel_launches(cuda):

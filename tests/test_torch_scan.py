@@ -117,23 +117,41 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
 
 @pytest.mark.parametrize("which", ["logsemiring", "kalman", "lane"])
 def test_kernel_refuses_sizes_it_was_not_built_for(which):
-    """An uninstantiated K or H raises before anything is built or run;
-    there is no fallback to the plain version."""
+    """A K or H outside the kernel's range (logsemiring K = 0, plane Kalman
+    H > 32, lane Kalman H > 3) raises before anything is built or run; there
+    is no fallback to the plain version."""
     rs = np.random.RandomState(5)
     if which == "logsemiring":
-        s, leaves = scan.LOGSEMIRING, (torch.from_numpy(semiring_elems(rs, 4, 5, 3)),)
+        s = scan.LOGSEMIRING
+        leaves = (torch.zeros((4, 0, 0, 3)),)
     elif which == "kalman":
         s, leaves = scan.KALMAN_PLANE, tuple(
-            torch.from_numpy(e) for e in kalman_elems(rs, 4, 3, 3)
+            torch.from_numpy(e) for e in kalman_elems(rs, 4, 33, 3)
         )
     else:  # lane leaves at H=4: 10 symmetric components, 16 general
         s, leaves = scan.KALMAN_LANE, tuple(
             torch.zeros(shape) for shape in scan.KALMAN_LANE.leaf_shapes(4, 4, 3)
         )
     calls = s.plain_calls
-    with pytest.raises(ValueError, match="not instantiated"):
+    with pytest.raises(ValueError, match="outside the kernel's range"):
         s.kernel(leaves)
     assert s.plain_calls == calls
+
+
+@pytest.mark.parametrize("which,size", [("logsemiring", 1), ("logsemiring", 8),
+                                        ("logsemiring", 40), ("logsemiring", 121),
+                                        ("logsemiring", 200), ("kalman", 1),
+                                        ("kalman", 16), ("kalman", 32)])
+def test_check_takes_every_size_in_range(which, size):
+    """Every K >= 1 and every plane H from 1 to 32 passes the launch check
+    (the check runs before the kernels are built)."""
+    rs = np.random.RandomState(size)
+    if which == "logsemiring":
+        s, leaves = scan.LOGSEMIRING, (torch.from_numpy(semiring_elems(rs, 3, size, 2)),)
+    else:
+        s, leaves = scan.KALMAN_PLANE, tuple(
+            torch.from_numpy(e) for e in kalman_elems(rs, 3, size, 2))
+    assert s.check(leaves) == (3, size, 2)
 
 
 def test_other_devices_raise():
