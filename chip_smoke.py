@@ -11,11 +11,16 @@ prints no result:
    source, all at once);
 2. each kernel against its plain PyTorch version, forward and reverse (max
    relative error <= 1e-4, logw relative to its scale, the -inf pattern
-   identical), with both times (the plain one a call after a first call):
+   identical), with the kernel's time (launches into outputs allocated
+   once: the lane kernels replayed from a CUDA graph of 50 launches, the
+   others 20 launches in a row), the time through its wrapper (checks and
+   allocations included) and the plain version's (one call after a first
+   call):
    the logsemiring kernel at K = 4 (DMBD-Lorenz) and every rung (K = 3, 6,
    7, 8, 10, 16, 32) and the generic K = 40 (T=399, N=300), and K = 121
    (T=40, N=8); the plane Kalman kernel at H = 6 (DMBD-Lorenz), 4, 8, 10,
-   15, 16 and 32 (T=399, N=100); the lane kernel at H = 1, 2, 3; and the
+   15, 16 and 32 (T=399, N=100); the lane kernel at H = 1, 2, 3 (T=100,
+   N=4000) and at H = 2 on four times the lanes (N=16000); and the
    scans of phases 15-17 at the shapes those paths give them (HMM-core
    K=8 T=200 N=200; Cradle K=6 T=200 N=50 and H=6 N=10; Flame K=3 T=100
    N=12 and H=4 N=1);
@@ -58,8 +63,9 @@ prints no result:
 11. the scan kernels at the DMBD-Flocking shapes (logsemiring (150, 14, 14,
    240), plane Kalman H=14 at T=150, N=20), one pass and time-folded (Cp=8,
    L=19), forward and reverse, against their plain versions (max relative
-   error <= 1e-4), and the folded lane kernel at the MixLDS shape; kernel,
-   folded-scan (all three phases) and plain times;
+   error <= 1e-4), and the folded lane kernel at the MixLDS shape (Cp=4,
+   L=25) at H = 1, 2, 3; kernel, folded-scan (all three phases) and plain
+   times;
 12. DMBD on Flocking (benchmarks/flocking_bench.py:19: T=150, batch=20, 12
    birds x 4 channels, role_dims (2,2,2), hidden_dims (2,2,2), three
    objects: K = H = 14) in float32 on the card, update(y, iters=10,
@@ -95,7 +101,7 @@ prints no result:
    relative 1e-4 of CPU f64; ELBO() is ELBO_last and KLqprior() is finite.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
-says; phases 11-14 set it themselves.  Phases 7 and 11 print each kernel's
+says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
 bound (BOUND_MS: bytes in once and out once over 3.35 TB/s, or FP32
 operations over 67 TFLOP/s, whichever is larger) and its share of it.
 
@@ -104,9 +110,11 @@ version of pyvbmp_tpu_torch/csrc, e.g. unpacked with git archive into a
 gitignored directory) beside ours, and times the two in turns (baseline,
 ours, ours, baseline) at the phase-7 scatter shapes and at the phase-2 and
 phase-11 scan shapes whose size the earlier kernels took (BASELINE_SIZES).
---trace profiles 3 sweeps of DMBD-Lorenz and of DMBD-Flocking on both
-routes (device busy time, kernel time by kind, wall clock).  Neither
-changes what the phases check.
+With --baseline, MixLDS (phase 5's data and state) is also timed end to
+end with our lane kernel and the baseline's, in turns.  --trace profiles 3
+sweeps of DMBD-Lorenz, of DMBD-Flocking on both routes and of MixLDS with
+the fold off and forced on (device busy time, kernel time by kind, wall
+clock).  Neither changes what the phases check.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -149,8 +157,9 @@ PHASE2_H = (4, 8, 10, 15, 16, 32)
 # the generic logsemiring path past any shared-memory size (no main path)
 PHASE2_WIDE_K = dict(K=121, T=40, N=8)
 # the sizes a --baseline build is timed at: those the kernels took before
-# they took every size (K = 4, 7, 14 and H = 6, 10, 14)
-BASELINE_SIZES = {"logsemiring_scan": (4, 7, 14), "kalman_plane_scan": (6, 10, 14)}
+# they took every size (K = 4, 7, 14 and H = 6, 10, 14), and every lane H
+BASELINE_SIZES = {"logsemiring_scan": (4, 7, 14), "kalman_plane_scan": (6, 10, 14),
+                  "kalman_lane_scan": (1, 2, 3)}
 # benchmarks/core_models_bench.py:19 (HMM_CFG), NormalInverseWishart
 # observations, data from its hmm_data recipe
 HMM_CORE = dict(T=200, batch=200, K=8, d=4, sweeps=10, compare_sweeps=3, data_seed=0,
@@ -262,25 +271,66 @@ def library(lib):
         _cuda._library = old
 
 
-def in_turns(ours, theirs, reps):
+def graph_ms(fn, reps):
+    """Mean ms of one call of ``fn`` replayed from a CUDA graph of ``reps``
+    calls: the device's time for its launches, free of the host's time to
+    make them (longer than the lane kernels' own)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, 3) / reps
+
+
+def in_turns(ours, theirs, reps, clock=time_ms):
     """(our ms, their ms), timed in turns: theirs, ours, ours, theirs."""
-    b1 = time_ms(theirs, reps)
-    o1, o2 = time_ms(ours, reps), time_ms(ours, reps)
-    b2 = time_ms(theirs, reps)
+    b1 = clock(theirs, reps)
+    o1, o2 = clock(ours, reps), clock(ours, reps)
+    b2 = clock(theirs, reps)
     return (o1 + o2) / 2, (b1 + b2) / 2
 
 
-def timed(fn, reps, base=None):
+def bare(fn, leaves, reverse):
+    """A call of ``fn``'s kernel (a scan or its folded route) into outputs
+    allocated once, through whichever library is loaded when it is called:
+    the kernel's own time, free of the wrapper's checks and allocations
+    (which take longer than the lane kernels)."""
+    _, run = fn.launcher(leaves, reverse)
+
+    def call():
+        rc = run()
+        if rc != 0:
+            fail(f"{fn.name}: launch failed, cudaError {rc}")
+
+    return call
+
+
+def timed(fn, reps, base=None, clock=time_ms):
     """(our ms, baseline ms or None): with a baseline library, ``fn`` timed
     in turns with its kernels taken from the baseline."""
     if base is None:
-        return time_ms(fn, reps), None
+        return clock(fn, reps), None
 
     def theirs():
         with library(base):
             return fn()
 
-    return in_turns(fn, theirs, reps)
+    return in_turns(fn, theirs, reps, clock)
+
+
+def scan_clock(s):
+    """How a scan kernel is timed: the lane kernels (tens of microseconds)
+    from a CUDA graph of 50 launches, the others by 20 launches in a row."""
+    from pyvbmp_tpu_torch.ops import scan
+
+    if s is scan.KALMAN_LANE:
+        return graph_ms, 50, "device, CUDA graph"
+    return time_ms, 20, "launches in a row"
 
 
 def baseline_scatter(lib, X, W):
@@ -416,6 +466,8 @@ def phase_kernels(card, base=None):
         (scan.KALMAN_LANE, "H=2 T=100 N=4000 (bench)", lane_elems(rs, MIX["T"], 2, N_mix)),
         (scan.KALMAN_LANE, "H=3 T=100 N=4000", lane_elems(rs, MIX["T"], 3, N_mix)),
         (scan.KALMAN_LANE, "H=1 T=100 N=4000", lane_elems(rs, MIX["T"], 1, N_mix)),
+        # four times the lanes: four blocks of 32 lanes an SM, not one
+        (scan.KALMAN_LANE, "H=2 T=100 N=16000", lane_elems(rs, MIX["T"], 2, 4 * N_mix)),
     ]
     # the scans of the HMM-core, Cradle and Flame paths at the shapes those
     # paths give them (T, K or H, lanes), ragged lane blocks included
@@ -443,12 +495,15 @@ def phase_kernels(card, base=None):
             errs = [rel_err(o, r) for o, r in zip(out, ref)]
             err = max(e[0] for e in errs)
             abs_err = max(e[1] for e in errs)
-            ms, base_ms = timed(lambda: s.kernel(leaves, reverse), 20,
-                                base if size in BASELINE_SIZES.get(s.name, ()) else None)
+            clock, reps, how = scan_clock(s)
+            ms, base_ms = timed(bare(s, leaves, reverse), reps,
+                                base if size in BASELINE_SIZES.get(s.name, ()) else None, clock)
+            wrapped = time_ms(lambda: s.kernel(leaves, reverse), 20)
             print(f"phase 2 {s.name} {label} {'reverse' if reverse else 'forward'}: "
-                  f"max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms"
+                  f"max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms ({how})"
                   + (f" (baseline {base_ms:.4f} ms)" if base_ms else "")
-                  + f", plain {plain_ms:.3f} ms; {share(ms, bound)}; card {card}")
+                  + f", through the wrapper {wrapped:.4f} ms, plain {plain_ms:.3f} ms; "
+                  f"{share(ms, bound)}; card {card}")
             if not err <= REL_TOL:
                 fail(f"{s.name} {label}: kernel disagrees with plain ({err:.3e})")
             rec = record[s.name]
@@ -843,8 +898,8 @@ def phase_other_arms(card, data):
 def phase_fold_kernels(card, base=None):
     """Phase 11: one-pass and folded kernels against their plain versions at
     the DMBD-Flocking shapes (and the folded lane kernel at the MixLDS
-    shape).  Returns the folded kernels' record and the one-pass kernels'
-    largest absolute error at K = H = 14."""
+    shape, H = 1, 2, 3).  Returns the folded kernels' record and the
+    one-pass kernels' largest absolute error at K = H = 14."""
     from pyvbmp_tpu_torch.ops import scan
 
     rs = np.random.RandomState(FLOCK["seed"])
@@ -853,7 +908,8 @@ def phase_fold_kernels(card, base=None):
         (scan.LOGSEMIRING, "K=14 T=150 N=240 (Flocking)",
          (semiring_elems(rs, T, 14, FLOCK["batch"] * FLOCK["n_birds"]),)),
         (scan.KALMAN_PLANE, "H=14 T=150 N=20 (Flocking)", kalman_elems(rs, T, 14, FLOCK["batch"])),
-        (scan.KALMAN_LANE, "H=2 T=100 N=4000", lane_elems(rs, MIX["T"], 2, MIX["batch"] * 4)),
+        *[(scan.KALMAN_LANE, f"H={h} T=100 N=4000" + (" (MixLDS)" if h == MIX["hidden"] else ""),
+           lane_elems(rs, MIX["T"], h, MIX["batch"] * MIX["num_systems"])) for h in (2, 1, 3)],
     ]
     folded = {s.folded.name: dict(abs=0.0, ms=None, plain_ms=None, bound=None)
               for s in scan.SCANS}
@@ -873,13 +929,15 @@ def phase_fold_kernels(card, base=None):
                 plain_ms = time_ms(lambda: fn.plain(leaves, reverse), 1, warm=False)
                 errs = [rel_err(o, r) for o, r in zip(out, ref)]
                 err, abs_err = max(e[0] for e in errs), max(e[1] for e in errs)
-                ms, base_ms = timed(lambda: fn.kernel(leaves, reverse), 10,
-                                    None if s is scan.KALMAN_LANE else base)
+                clock, reps, how = scan_clock(s)
+                ms, base_ms = timed(bare(fn, leaves, reverse), reps, base, clock)
+                wrapped = time_ms(lambda: fn.kernel(leaves, reverse), 10)
                 print(f"phase 11 {fn.name} {label} {'reverse' if reverse else 'forward'}"
                       f"{f' (Cp={Cp}, L={L})' if route == 'folded' else ''}: max rel err "
-                      f"{err:.3e} (abs {abs_err:.3e}); {what} {ms:.4f} ms"
+                      f"{err:.3e} (abs {abs_err:.3e}); {what} {ms:.4f} ms ({how})"
                       + (f" (baseline {base_ms:.4f} ms)" if base_ms else "")
-                      + f", plain {plain_ms:.3f} ms; {share(ms, bound)}; card {card}")
+                      + f", through the wrapper {wrapped:.4f} ms, plain {plain_ms:.3f} ms; "
+                      f"{share(ms, bound)}; card {card}")
                 if not err <= REL_TOL:
                     fail(f"{fn.name} {label}: kernel disagrees with plain ({err:.3e})")
                 if route == "one-pass":
@@ -887,7 +945,7 @@ def phase_fold_kernels(card, base=None):
                     continue
                 rec = folded[fn.name]
                 rec["abs"] = max(rec["abs"], abs_err)
-                if not reverse:
+                if not reverse and ("Flocking" in label or "MixLDS" in label):
                     rec["ms"], rec["plain_ms"], rec["bound"] = ms, plain_ms, bound
     return folded, one_pass
 
@@ -1008,6 +1066,37 @@ def phase_mixlds_folded(card):
     if not dev <= REL_TOL:
         fail(f"MixLDS: the fold changes the ELBO trajectory by {dev:.3e}")
     return launches
+
+
+def phase_mixlds_turns(card, base, n=3, runs=5):
+    """MixLDS (phase 5's data and state) per sweep with our lane kernel and
+    the baseline's, in turns (baseline, ours, ours, baseline): each turn a
+    warm-up sweep, then ``runs`` updates of ``n`` sweeps; the median of
+    each turn's per-sweep times."""
+    from pyvbmp_tpu_torch.utils.convert import mixlds_from_state
+
+    y = torch.from_numpy(mixlds_data()).cuda()
+    state = mixlds_state0(MIX["seed"])
+
+    def turn(lib):
+        with library(lib):
+            model = mixlds_from_state(state, device="cuda", dtype=torch.float32)
+            model.update(y, iters=1)
+            times = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.update(y, iters=n)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / n * 1e3)
+        return float(np.median(times))
+
+    from pyvbmp_tpu_torch.ops import _cuda
+
+    ours = _cuda.load_library()
+    b1, o1, o2, b2 = turn(base), turn(ours), turn(ours), turn(base)
+    print(f"MixLDS in turns, ms per sweep (median of {runs} x {n} sweeps): baseline {b1:.3f}, "
+          f"ours {o1:.3f}, ours {o2:.3f}, baseline {b2:.3f}; card {card}")
 
 
 def hmm_data():
@@ -1169,7 +1258,8 @@ def trace_sweeps(card, label, model, y, fit, fold, n=3):
     kinds = {}
     for e in kernels:
         kind = next((k for k in ("kalman_plane_scan_kernel", "kalman_plane_fixup_kernel",
-                                 "logsemiring", "kalman_lane", "weighted_outer")
+                                 "logsemiring", "kalman_lane_scan_kernel",
+                                 "kalman_lane_fixup_kernel", "weighted_outer")
                      if k in e.name), "other")
         kinds[kind] = kinds.get(kind, 0.0) + (e.time_range.end - e.time_range.start)
     by_kind = ", ".join(f"{k} {v / n / 1e3:.3f}" for k, v in sorted(kinds.items()))
@@ -1181,7 +1271,7 @@ def trace_sweeps(card, label, model, y, fit, fold, n=3):
 
 
 def phase_trace(card):
-    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state, mixlds_from_state
 
     y = lorenz_data(torch.float32, "cuda")
     state = dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"])))
@@ -1192,6 +1282,11 @@ def phase_trace(card):
     for fold in ("0", "auto"):
         trace_sweeps(card, "DMBD-Flocking", dmbd_from_state(state, "cuda", torch.float32), y,
                      dict(latent_iters=1, lr=1.0), fold)
+    y = torch.from_numpy(mixlds_data()).cuda()
+    state = mixlds_state0(MIX["seed"])
+    for fold in ("0", "1"):
+        trace_sweeps(card, "MixLDS", mixlds_from_state(state, "cuda", torch.float32), y, {},
+                     fold)
 
 
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):
@@ -1235,6 +1330,8 @@ def main():
     run("18", phase_sequential, card)
     if args.trace:
         run("trace", phase_trace, card)
+    if base is not None:
+        run("turns", phase_mixlds_turns, card, base)
     from pyvbmp_tpu_torch.ops import scan, weighted_scatter as ws
 
     kernels = []

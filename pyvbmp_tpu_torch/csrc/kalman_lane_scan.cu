@@ -34,31 +34,48 @@
 // into its carry-in and combines it with each of its rows in place.  The
 // one-pass scan is C = 1, L = T.
 //
-// What bounds it on an H100: at the MixLDS bench shape (H=2, T=100,
-// N=4000) one scan reads each element once and writes each prefix once,
-// 15 floats * 4 B * 4000 * 100 = 24 MB each way, ~15 us at 3.35 TB/s.  The
-// bound is the serial walk of T-1 dependent combines per lane.  The carry
-// (15 floats at H=2, 28 at H=3) lives in registers, and the next element is
-// loaded while the current one is combined.  Blocks of one warp spread the
-// 4000 lanes over ~125 SMs.
+// What bounds it on an H100: at the MixLDS shape (H=2, T=100, N=4000) one
+// scan reads each element once and writes each prefix once, 15 floats * 4 B
+// * 4000 * 100 = 24 MB each way, ~14 us at 3.35 TB/s; the fold's fix-up reads
+// and writes every row of all but one chunk once more.  There are only N
+// lanes and each walks T - 1 dependent combines, so at N = 4000 each SM
+// holds one warp (a block of 32 lanes), and that warp must keep enough of
+// device memory's latency in flight by itself.  The design:
+//   - every kernel streams its elements through a per-thread ring of kRing
+//     slots in shared memory, (slot, component, lane): steps i + 2 ..
+//     i + kRing - 1 are in flight as 4-byte cp.async copies (coalesced into
+//     128-byte rows over the warp's lanes) and step i + 1 is read from
+//     shared memory while step i combines, ~24 KB a warp at every H.  A
+//     thread reads only its own lane's column, so a step takes no barrier:
+//     cp.async.wait_group alone says the slot has landed.  A ring deeper
+//     than the walk commits empty groups;
+//   - the stores go straight from registers, coalesced, and nothing waits
+//     on them; the pointers advance by a row a step;
+//   - the fix-up walks the carry-in's totals and then the chunk's rows
+//     through the same ring, so the totals are in flight together before
+//     the first combine and each row's load leaves kRing - 1 steps ahead of
+//     its store.  The rows are read from the arrays they are written back
+//     to (in place), so nothing here is __restrict__;
+//   - the combine is straight-line code on registers: the adjugate times
+//     one correctly rounded reciprocal of det M where the plain version
+//     divides every entry, and __logf (CUDA's bound: absolute error
+//     2^-21.41 on [0.5, 2], 3 ulp elsewhere) for log det M.  The carry (15
+//     floats at H=2, 28 at H=3) never leaves registers;
+//   - the direction is a template parameter, so each kernel's loop holds
+//     one combine order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kLanes = 32;  // lanes of a block: one warp, a thread per lane
 constexpr float kLog2Pi = 1.8378770664093453f;
-
-// Position of entry (i, j) (either triangle) of a packed symmetric matrix.
-__host__ __device__ constexpr int sym_pos(int h, int i, int j) {
-  return i <= j ? i * h - i * (i - 1) / 2 + (j - i)
-                : j * h - j * (j - 1) / 2 + (i - j);
-}
 
 template <int H>
 struct Potential {
   static constexpr int S = H * (H + 1) / 2;
+  static constexpr int F = 2 * S + H * H + 2 * H + 1;  // floats of an element
   float Jaa[S];
   float Jab[H * H];
   float Jbb[S];
@@ -67,83 +84,130 @@ struct Potential {
   float w;
 };
 
+// Ring slots per thread: the elements of kRing - 2 steps in flight, F * 128 B
+// a step for the warp (23 KB at H=1, 26 KB at H=2, 21 KB at H=3).  Deeper
+// rings were no faster on an H100.
+template <int H>
+constexpr int kRing = H == 1 ? 32 : H == 2 ? 16 : 8;
+
+// Leaves in the order Jaa, Jab, Jbb, ha, hb, logw.
 struct Leaves {
-  const float* Jaa;
-  const float* Jab;
-  const float* Jbb;
-  const float* ha;
-  const float* hb;
-  const float* w;
+  float* p[6];
 };
 
-struct OutLeaves {
-  float* Jaa;
-  float* Jab;
-  float* Jbb;
-  float* ha;
-  float* hb;
-  float* w;
-};
+// Position of entry (i, j) (either triangle) of a packed symmetric matrix.
+__host__ __device__ constexpr int sym_pos(int h, int i, int j) {
+  return i <= j ? i * h - i * (i - 1) / 2 + (j - i)
+                : j * h - j * (j - 1) / 2 + (i - j);
+}
 
-// Offset of component k of a (T, C, N) leaf at time t, lane n.
-__device__ __forceinline__ size_t at(int t, int C, int k, int N, int n) {
-  return (static_cast<size_t>(t) * C + k) * N + n;
+// Component count of leaf j (Jaa, Jab, Jbb, ha, hb, logw).
+template <int H>
+__device__ constexpr int width(int j) {
+  return j == 0 || j == 2 ? Potential<H>::S : j == 1 ? H * H : j == 5 ? 1 : H;
+}
+
+// fn(value, leaf, component within the leaf, flat component) for every
+// component of a potential, in leaf order (all indices compile-time
+// constants after unrolling).
+template <int H, typename P, typename Fn>
+__device__ __forceinline__ void each(P& p, Fn fn) {
+  constexpr int S = Potential<H>::S;
+#pragma unroll
+  for (int k = 0; k < S; ++k) fn(p.Jaa[k], 0, k, k);
+#pragma unroll
+  for (int k = 0; k < H * H; ++k) fn(p.Jab[k], 1, k, S + k);
+#pragma unroll
+  for (int k = 0; k < S; ++k) fn(p.Jbb[k], 2, k, S + H * H + k);
+#pragma unroll
+  for (int k = 0; k < H; ++k) fn(p.ha[k], 3, k, 2 * S + H * H + k);
+#pragma unroll
+  for (int k = 0; k < H; ++k) fn(p.hb[k], 4, k, 2 * S + H * H + H + k);
+  fn(p.w, 5, 0, Potential<H>::F - 1);
+}
+
+// A cursor: each leaf's pointer at one row, at this thread's lane.
+template <int H>
+__device__ __forceinline__ Leaves cursor(const Leaves& x, int t, int N, int n) {
+  Leaves c;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) c.p[j] = x.p[j] + static_cast<size_t>(t) * width<H>(j) * N + n;
+  return c;
+}
+
+// The cursor moved by `rows` rows (a compile-time constant).
+template <int H, int rows>
+__device__ __forceinline__ void advance(Leaves& c, int N) {
+#pragma unroll
+  for (int j = 0; j < 6; ++j) c.p[j] += static_cast<ptrdiff_t>(rows * width<H>(j)) * N;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `pending` of this thread's cp.async groups are in
+// flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// Slot of step i in a thread's ring of kRing slots: component k of lane l
+// at slot[k * kLanes + l].
+template <int H>
+__device__ __forceinline__ float* slot(float* ring, int i) {
+  static_assert((kRing<H> & (kRing<H> - 1)) == 0, "the ring depth is a power of two");
+  return ring + (i & (kRing<H> - 1)) * (Potential<H>::F * kLanes);
+}
+
+// The row under cursor c into a ring slot, by cp.async (committed by the
+// caller).
+template <int H>
+__device__ __forceinline__ void fetch(float* dst, const Leaves& c, int N, int l) {
+  Potential<H> shape;  // only its layout is used
+  each<H>(shape, [&](float&, int j, int k, int flat) {
+    cp_async4(dst + flat * kLanes + l, c.p[j] + static_cast<ptrdiff_t>(k) * N);
+  });
 }
 
 template <int H>
-__device__ __forceinline__ void load(Potential<H>& p, const Leaves& src, int t,
-                                     int N, int n) {
-  constexpr int S = Potential<H>::S;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    p.Jaa[k] = src.Jaa[at(t, S, k, N, n)];
-    p.Jbb[k] = src.Jbb[at(t, S, k, N, n)];
-  }
-#pragma unroll
-  for (int k = 0; k < H * H; ++k) p.Jab[k] = src.Jab[at(t, H * H, k, N, n)];
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    p.ha[k] = src.ha[at(t, H, k, N, n)];
-    p.hb[k] = src.hb[at(t, H, k, N, n)];
-  }
-  p.w = src.w[at(t, 1, 0, N, n)];
+__device__ __forceinline__ Potential<H> take(const float* src, int l) {
+  Potential<H> p;
+  each<H>(p, [&](float& v, int, int, int flat) { v = src[flat * kLanes + l]; });
+  return p;
 }
 
+// p to the row under cursor c.
 template <int H>
-__device__ __forceinline__ void store(const Potential<H>& p,
-                                      const OutLeaves& dst, int t, int N,
-                                      int n) {
-  constexpr int S = Potential<H>::S;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    dst.Jaa[at(t, S, k, N, n)] = p.Jaa[k];
-    dst.Jbb[at(t, S, k, N, n)] = p.Jbb[k];
-  }
-#pragma unroll
-  for (int k = 0; k < H * H; ++k) dst.Jab[at(t, H * H, k, N, n)] = p.Jab[k];
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    dst.ha[at(t, H, k, N, n)] = p.ha[k];
-    dst.hb[at(t, H, k, N, n)] = p.hb[k];
-  }
-  dst.w[at(t, 1, 0, N, n)] = p.w;
+__device__ __forceinline__ void put(const Potential<H>& p, const Leaves& c, int N) {
+  each<H>(p, [&](const float& v, int j, int k, int) {
+    c.p[j][static_cast<ptrdiff_t>(k) * N] = v;
+  });
 }
 
 // Inverse (packed upper triangle) and logdet of a packed symmetric PD
-// matrix: the adjugate of smallmat.sym_inv_and_logdet.
+// matrix: the adjugate of smallmat.sym_inv_and_logdet times one reciprocal
+// of the determinant.
 template <int H>
 __device__ __forceinline__ float sym_inv(const float* A, float* inv) {
   if constexpr (H == 1) {
     const float det = A[0];
-    inv[0] = 1.0f / det;
-    return logf(det);
+    inv[0] = __frcp_rn(det);
+    return __logf(det);
   } else if constexpr (H == 2) {
     const float a = A[0], b = A[1], d = A[2];
     const float det = a * d - b * b;
-    inv[0] = d / det;
-    inv[1] = -b / det;
-    inv[2] = a / det;
-    return logf(det);
+    const float r = __frcp_rn(det);
+    inv[0] = d * r;
+    inv[1] = -b * r;
+    inv[2] = a * r;
+    return __logf(det);
   } else {
     const float a = A[0], b = A[1], c = A[2], e = A[3], f = A[4], i = A[5];
     const float A11 = e * i - f * f;
@@ -153,13 +217,14 @@ __device__ __forceinline__ float sym_inv(const float* A, float* inv) {
     const float A23 = -(a * f - c * b);
     const float A33 = a * e - b * b;
     const float det = a * A11 + b * A12 + c * A13;
-    inv[0] = A11 / det;
-    inv[1] = A12 / det;
-    inv[2] = A13 / det;
-    inv[3] = A22 / det;
-    inv[4] = A23 / det;
-    inv[5] = A33 / det;
-    return logf(det);
+    const float r = __frcp_rn(det);
+    inv[0] = A11 * r;
+    inv[1] = A12 * r;
+    inv[2] = A13 * r;
+    inv[3] = A22 * r;
+    inv[4] = A23 * r;
+    inv[5] = A33 * r;
+    return __logf(det);
   }
 }
 
@@ -232,88 +297,140 @@ __device__ __forceinline__ Potential<H> combine(const Potential<H>& e1,
   return out;
 }
 
-// The rows [begin, end) of this block's chunk.
-__device__ __forceinline__ void chunk_rows(int T, int L, int offset,
-                                           int& begin, int& end) {
-  const int c = blockIdx.y;
+// carry o e in chain order: e o carry in reverse.
+template <int H, bool kReverse>
+__device__ __forceinline__ Potential<H> fold_in(const Potential<H>& carry,
+                                                const Potential<H>& e) {
+  return kReverse ? combine<H>(e, carry) : combine<H>(carry, e);
+}
+
+// The rows [begin, end) of chunk c.
+__device__ __forceinline__ void chunk_rows(int c, int T, int L, int offset, int& begin,
+                                           int& end) {
   begin = max(c * L + offset, 0);
   end = min((c + 1) * L + offset, T);
 }
 
-template <int H>
-__global__ void __launch_bounds__(kThreads)
-kalman_lane_scan_kernel(Leaves in, OutLeaves out, OutLeaves totals, int T,
-                        int N, int L, int offset, int reverse) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  int begin, end;
-  chunk_rows(T, L, offset, begin, end);
-  const int len = end - begin;
-  auto row = [&](int s) { return reverse ? end - 1 - s : begin + s; };
-  Potential<H> carry, next;
-  load<H>(carry, in, row(0), N, n);
-  store<H>(carry, out, row(0), N, n);
-  if (len > 1) load<H>(next, in, row(1), N, n);
-  for (int s = 1; s < len; ++s) {
-    const Potential<H> e = next;
-    if (s + 1 < len) load<H>(next, in, row(s + 1), N, n);
-    carry = reverse ? combine<H>(e, carry) : combine<H>(carry, e);
-    store<H>(carry, out, row(s), N, n);
+// A thread's walk of `steps` elements through its ring.  fill(i) starts
+// step i: its copies (none past the walk's end) and one commit group.  Steps
+// 0 .. D - 2 start before the walk, and step i + D - 1 at the end of step i,
+// into the slot of step i - 1, whose element has been used by then.  So "at
+// most D - 3 groups pending" at step i means that step i + 1 has landed, and
+// its element is read from shared memory while visit(i, e) combines step i.
+template <int H, typename Fill, typename Visit>
+__device__ __forceinline__ void walk(float* ring, int steps, int l, Fill fill, Visit visit) {
+  constexpr int D = kRing<H>;
+#pragma unroll 1
+  for (int i = 0; i < D - 1; ++i) fill(i);
+  cp_async_wait<D - 2>();
+  visit(0, take<H>(slot<H>(ring, 0), l));
+  fill(D - 1);
+  cp_async_wait<D - 2>();
+  Potential<H> e = take<H>(slot<H>(ring, 1), l);
+  for (int i = 1; i < steps; ++i) {
+    cp_async_wait<D - 3>();
+    const Potential<H> next = take<H>(slot<H>(ring, i + 1), l);
+    visit(i, e);
+    fill(i + D - 1);
+    e = next;
   }
-  if (totals.w != nullptr) store<H>(carry, totals, blockIdx.y, N, n);
 }
 
-template <int H>
-__global__ void __launch_bounds__(kThreads)
-kalman_lane_fixup_kernel(OutLeaves out, Leaves totals, int T, int N, int L,
-                         int offset, int C, int reverse) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+// grid (ceil(N / kLanes), C): phase 1, the scan of chunk blockIdx.y, and
+// the chunk's total into totals (unless totals is null).
+template <int H, bool kReverse>
+__global__ void __launch_bounds__(kLanes)
+kalman_lane_scan_kernel(Leaves in, Leaves out, Leaves totals, int T, int N, int L, int offset) {
+  constexpr int dir = kReverse ? -1 : 1;
+  __shared__ __align__(16) float ring[kRing<H> * Potential<H>::F * kLanes];
+  const int l = threadIdx.x, n = blockIdx.x * kLanes + l;
+  if (n >= N) return;  // no barriers: a thread reads only its own slots
+  int begin, end;
+  chunk_rows(blockIdx.y, T, L, offset, begin, end);
+  const int steps = end - begin, first = kReverse ? end - 1 : begin;
+  Leaves rd = cursor<H>(in, first, N, n), wr = cursor<H>(out, first, N, n);
+  Potential<H> carry;
+  walk<H>(
+      ring, steps, l,
+      [&](int i) {
+        if (i < steps) fetch<H>(slot<H>(ring, i), rd, N, l);
+        advance<H, dir>(rd, N);
+        cp_async_commit();
+      },
+      [&](int i, const Potential<H>& e) {
+        carry = i == 0 ? e : fold_in<H, kReverse>(carry, e);
+        put<H>(carry, wr, N);
+        advance<H, dir>(wr, N);
+      });
+  if (totals.p[5] != nullptr) put<H>(carry, cursor<H>(totals, blockIdx.y, N, n), N);
+}
+
+// grid (ceil(N / kLanes), C): phases 2-3 for chunk blockIdx.y.  One walk:
+// the totals of the chunks before it in chain order, folded into the
+// carry-in, then the chunk's rows, each combined with the carry-in and
+// written back in place.
+template <int H, bool kReverse>
+__global__ void __launch_bounds__(kLanes)
+kalman_lane_fixup_kernel(Leaves out, Leaves totals, int T, int N, int L, int offset, int C) {
+  __shared__ __align__(16) float ring[kRing<H> * Potential<H>::F * kLanes];
+  const int l = threadIdx.x, n = blockIdx.x * kLanes + l;
   const int c = blockIdx.y;
   // the first chunk in chain order has no carry-in
-  if (n >= N || c == (reverse ? C - 1 : 0)) return;
+  if (n >= N || c == (kReverse ? C - 1 : 0)) return;
   int begin, end;
-  chunk_rows(T, L, offset, begin, end);
-  // phase 2: acc = totals[0] o ... o totals[c-1], or in reverse
-  // totals[c+1] o ... o totals[C-1]
-  Potential<H> acc, e;
-  load<H>(acc, totals, reverse ? C - 1 : 0, N, n);
-  const int before = reverse ? C - 1 - c : c;
-  for (int s = 1; s < before; ++s) {
-    load<H>(e, totals, reverse ? C - 1 - s : s, N, n);
-    acc = reverse ? combine<H>(e, acc) : combine<H>(acc, e);
-  }
-  // phase 3: every row of the chunk takes the carry-in
-  const Leaves rows{out.Jaa, out.Jab, out.Jbb, out.ha, out.hb, out.w};
-  for (int t = begin; t < end; ++t) {
-    load<H>(e, rows, t, N, n);
-    store<H>(reverse ? combine<H>(e, acc) : combine<H>(acc, e), out, t, N, n);
-  }
+  chunk_rows(c, T, L, offset, begin, end);
+  const int before = kReverse ? C - 1 - c : c;  // totals in the carry-in
+  const int steps = before + end - begin;
+  Leaves tot = cursor<H>(totals, kReverse ? C - 1 : 0, N, n);
+  Leaves rd = cursor<H>(out, begin, N, n), wr = rd;
+  Potential<H> acc;
+  walk<H>(
+      ring, steps, l,
+      [&](int i) {
+        if (i < before) {
+          fetch<H>(slot<H>(ring, i), tot, N, l);
+          advance<H, kReverse ? -1 : 1>(tot, N);
+        } else if (i < steps) {
+          fetch<H>(slot<H>(ring, i), rd, N, l);
+          advance<H, 1>(rd, N);
+        }
+        cp_async_commit();
+      },
+      [&](int i, const Potential<H>& e) {
+        if (i < before) {
+          acc = i == 0 ? e : fold_in<H, kReverse>(acc, e);
+        } else {
+          put<H>(fold_in<H, kReverse>(acc, e), wr, N);
+          advance<H, 1>(wr, N);
+        }
+      });
 }
 
-OutLeaves out_leaves(void* const* p) {
-  return OutLeaves{static_cast<float*>(p[0]), static_cast<float*>(p[1]),
-                   static_cast<float*>(p[2]), static_cast<float*>(p[3]),
-                   static_cast<float*>(p[4]), static_cast<float*>(p[5])};
+Leaves leaves(const void* const* p) {
+  Leaves x;
+  for (int j = 0; j < 6; ++j) x.p[j] = static_cast<float*>(const_cast<void*>(p[j]));
+  return x;
+}
+
+template <int H, bool kReverse>
+int launch(const Leaves& in, const Leaves& out, const Leaves& totals, int T, int N, int C, int L,
+           int offset, cudaStream_t stream) {
+  const dim3 grid((N + kLanes - 1) / kLanes, C);
+  kalman_lane_scan_kernel<H, kReverse><<<grid, kLanes, 0, stream>>>(in, out, totals, T, N, L,
+                                                                    offset);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || C == 1) return static_cast<int>(err);
+  kalman_lane_fixup_kernel<H, kReverse><<<grid, kLanes, 0, stream>>>(out, totals, T, N, L,
+                                                                     offset, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int H>
-int launch(const void* const* in, void* const* out, void* const* totals,
-           int T, int N, int C, int L, int offset, int reverse,
-           cudaStream_t stream) {
-  Leaves src{static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
-             static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
-             static_cast<const float*>(in[4]), static_cast<const float*>(in[5])};
-  const OutLeaves dst = out_leaves(out);
-  const OutLeaves tot = out_leaves(totals);
-  const dim3 grid((N + kThreads - 1) / kThreads, C);
-  kalman_lane_scan_kernel<H><<<grid, kThreads, 0, stream>>>(
-      src, dst, tot, T, N, L, offset, reverse);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || C == 1) return static_cast<int>(err);
-  const Leaves tot_in{tot.Jaa, tot.Jab, tot.Jbb, tot.ha, tot.hb, tot.w};
-  kalman_lane_fixup_kernel<H><<<grid, kThreads, 0, stream>>>(
-      dst, tot_in, T, N, L, offset, C, reverse);
-  return static_cast<int>(cudaGetLastError());
+int launch(const void* const* in, void* const* out, void* const* totals, int T, int N, int C,
+           int L, int offset, int reverse, cudaStream_t stream) {
+  const Leaves src = leaves(in), dst = leaves(out), tot = leaves(totals);
+  return reverse ? launch<H, true>(src, dst, tot, T, N, C, L, offset, stream)
+                 : launch<H, false>(src, dst, tot, T, N, C, L, offset, stream);
 }
 
 }  // namespace

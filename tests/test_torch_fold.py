@@ -179,3 +179,23 @@ def test_fold_decisions_match_jax(switch, monkeypatch):
     monkeypatch.setattr(scan, "TIME_FOLD", "auto")
     assert scan.LOGSEMIRING.fold_plan(150, 240) == (8, 19)
     assert scan.KALMAN_PLANE.fold_plan(150, 20) == (8, 19)
+
+
+@pytest.mark.parametrize("T", [16, 37, 100, 150, 4096])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fold_launch_covers_every_row_once(T, reverse):
+    """The folded kernels' launch arguments (FoldedScan.chunks): chunk c
+    holds rows [c L + offset, (c + 1) L + offset) clipped to [0, T); the
+    chunks cover every row once, none is empty, and the one short chunk is
+    the last in chain order, whose total no other chunk needs."""
+    fold = scan.KALMAN_LANE.folded
+    leaves = tuple(torch.zeros(shape) for shape in scan.KALMAN_LANE.leaf_shapes(T, 2, 3))
+    a = fold.chunks(leaves, reverse)
+    C, L, offset = a["chunks"], a["L"], a["offset"]
+    assert (C, L) == scan.fold_shape(T, 3)
+    spans = [(max(c * L + offset, 0), min((c + 1) * L + offset, T)) for c in range(C)]
+    assert [t for b, e in spans for t in range(b, e)] == list(range(T))
+    sizes = [e - b for b, e in spans]
+    last = 0 if reverse else C - 1  # the last chunk in chain order
+    assert min(sizes) >= 1
+    assert all(n == L for c, n in enumerate(sizes) if c != last)

@@ -171,6 +171,38 @@ def test_logsemiring_k14_edges(cuda, T, C, N, reverse):
     assert rel_err(out[0], ref[0]) <= TOL
 
 
+# the lane kernels (H = 1, 2, 3), one pass and folded into Cp = 2, 4, 8
+# chunks (a short chunk wherever Cp does not divide T), forward and reverse:
+# lane counts of one lane, either side of a warp's 32, and the MixLDS 4000;
+# walks of one and two rows, one row either side of the ring depth, and 100
+# rows; each against the one-pass plain scan
+LANE_RING = {1: 32, 2: 16, 3: 8}  # csrc/kalman_lane_scan.cu:kRing
+
+
+def _folds(T):
+    """The chunk counts a T-row lane walk is cut into: 1, and each Cp in 2,
+    4, 8 whose chunks of L = ceil(T / Cp) rows are all non-empty."""
+    return [C for C in (1, 2, 4, 8) if C == 1 or (C <= T and C * -(-T // C) - T < -(-T // C))]
+
+
+LANE_EDGES = [(H, T, C, N) for H in (1, 2, 3) for N in (1, 31, 33, 4000)
+              for T in sorted({1, 2, LANE_RING[H] - 1, LANE_RING[H] + 1, 100})
+              for C in _folds(T)]
+
+
+@pytest.mark.parametrize("H,T,C,N", LANE_EDGES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lane_kalman_edges(cuda, H, T, C, N, reverse):
+    s = scan.KALMAN_LANE
+    leaves = lane(np.random.RandomState(H * 1000 + T * 10 + C), T, H, N, cuda)
+    L = -(-T // C)
+    out = s.launch(leaves, reverse, chunks=C, L=L, offset=T - C * L if reverse else 0)
+    torch.cuda.synchronize()
+    ref = s.plain(leaves, reverse)
+    for o, r in zip(out, ref):
+        assert rel_err(o, r) <= TOL
+
+
 def test_cuda_tensors_launch_the_kernel(cuda):
     M = semiring(np.random.RandomState(0), 9, 4, 5, cuda)[0]
     launches, plain = scan.LOGSEMIRING.launches, scan.LOGSEMIRING.plain_calls
