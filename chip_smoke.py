@@ -11,9 +11,10 @@ prints no result:
    source, all at once);
 2. each kernel against its plain PyTorch version, forward and reverse (max
    relative error <= 1e-4, logw relative to its scale, the -inf pattern
-   identical), with the kernel's time (launches into outputs allocated
-   once: the lane kernels replayed from a CUDA graph of 50 launches, the
-   others 20 launches in a row), the time through its wrapper (checks and
+   identical), with the kernel's time (scan_ms: a CUDA graph of 50
+   launches through the C entry point replayed, each launch on its own
+   copy of the inputs and outputs, rotated so that a launch finds its
+   bytes out of the L2), the time through its wrapper (checks and
    allocations included) and the plain version's (one call after a first
    call):
    the logsemiring kernel at K = 4 (DMBD-Lorenz) and every rung (K = 3, 6,
@@ -111,7 +112,7 @@ gitignored directory) beside ours, and times the two in turns (baseline,
 ours, ours, baseline) at the phase-7 scatter shapes and at the phase-2 and
 phase-11 scan shapes whose size the earlier kernels took (BASELINE_SIZES).
 With --baseline, MixLDS (phase 5's data and state) is also timed end to
-end with our lane kernel and the baseline's, in turns.  --trace profiles 3
+end with our lane kernel and the baseline's, in 12 alternating pairs.  --trace profiles 3
 sweeps of DMBD-Lorenz, of DMBD-Flocking on both routes and of MixLDS with
 the fold off and forced on (device busy time, kernel time by kind, wall
 clock).  Neither changes what the phases check.
@@ -123,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -176,6 +178,8 @@ WIDTHS = {
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (dense FP32 below)
 FP32_FLOP_PER_S = 67e12
+L2_BYTES = 50 * 2**20  # H100 L2 cache
+SCAN_REPS = 50  # launches a scan kernel is timed over (scan_ms)
 
 
 def bound_ms(nbytes, flops):
@@ -281,7 +285,7 @@ def graph_ms(fn, reps):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
     return time_ms(graph.replay, 3) / reps
@@ -295,42 +299,52 @@ def in_turns(ours, theirs, reps, clock=time_ms):
     return (o1 + o2) / 2, (b1 + b2) / 2
 
 
-def bare(fn, leaves, reverse):
-    """A call of ``fn``'s kernel (a scan or its folded route) into outputs
-    allocated once, through whichever library is loaded when it is called:
-    the kernel's own time, free of the wrapper's checks and allocations
-    (which take longer than the lane kernels)."""
-    _, run = fn.launcher(leaves, reverse)
-
-    def call():
-        rc = run()
-        if rc != 0:
-            fail(f"{fn.name}: launch failed, cudaError {rc}")
-
-    return call
-
-
-def timed(fn, reps, base=None, clock=time_ms):
-    """(our ms, baseline ms or None): with a baseline library, ``fn`` timed
-    in turns with its kernels taken from the baseline."""
-    if base is None:
-        return clock(fn, reps), None
-
-    def theirs():
-        with library(base):
-            return fn()
-
-    return in_turns(fn, theirs, reps, clock)
-
-
-def scan_clock(s):
-    """How a scan kernel is timed: the lane kernels (tens of microseconds)
-    from a CUDA graph of 50 launches, the others by 20 launches in a row."""
+def scan_launches(s, leaves, reverse, folded=False, reps=SCAN_REPS):
+    """lib -> a call that launches scan ``s``'s kernel (its time fold when
+    ``folded``: both CUDA kernels) through ``lib``'s C entry point with
+    Scan.launch's arguments.  Each call reads and writes its own copy of
+    the inputs and outputs, rotating over enough copies that those of a
+    call have left the L2 before they come round again (every shape whose
+    ``reps`` copies exceed 4 x L2_BYTES)."""
     from pyvbmp_tpu_torch.ops import scan
 
-    if s is scan.KALMAN_LANE:
-        return graph_ms, 50, "device, CUDA graph"
-    return time_ms, 20, "launches in a row"
+    T, size, N = s.check(leaves)
+    args = scan.fold_args(T, N, reverse) if folded else dict(chunks=1, L=T, offset=0)
+    C = args["chunks"]
+    nbytes = 2 * 4 * sum(x.numel() for x in leaves)
+    sets = min(reps, -(-4 * L2_BYTES // nbytes))
+    copies = [([x.clone() for x in leaves], [torch.empty_like(x) for x in leaves],
+               [x.new_empty((C,) + x.shape[1:]) if C > 1 else None for x in leaves])
+              for _ in range(sets)]
+
+    def launches(lib):
+        entry, turn = getattr(lib, s.symbol), itertools.count()
+
+        def call():
+            ins, outs, totals = copies[next(turn) % sets]
+            rc = entry(*(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
+                       *(None if t is None else t.data_ptr() for t in totals),
+                       T, size, N, C, args["L"], args["offset"], int(reverse),
+                       torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"{s.name}: launch failed, cudaError {rc}")
+
+        return call
+
+    return launches
+
+
+def scan_ms(s, leaves, reverse, folded=False, base=None, reps=SCAN_REPS):
+    """(our ms, baseline ms or None): one launch of scan ``s``'s kernel
+    (scan_launches) by graph_ms over ``reps`` launches, from our library
+    and, in turns, from a baseline library."""
+    from pyvbmp_tpu_torch.ops import _cuda
+
+    launches = scan_launches(s, leaves, reverse, folded, reps)
+    ours = launches(_cuda.load_library())
+    if base is None:
+        return graph_ms(ours, reps), None
+    return in_turns(ours, launches(base), reps, graph_ms)
 
 
 def baseline_scatter(lib, X, W):
@@ -495,12 +509,11 @@ def phase_kernels(card, base=None):
             errs = [rel_err(o, r) for o, r in zip(out, ref)]
             err = max(e[0] for e in errs)
             abs_err = max(e[1] for e in errs)
-            clock, reps, how = scan_clock(s)
-            ms, base_ms = timed(bare(s, leaves, reverse), reps,
-                                base if size in BASELINE_SIZES.get(s.name, ()) else None, clock)
+            ms, base_ms = scan_ms(s, leaves, reverse,
+                                  base=base if size in BASELINE_SIZES.get(s.name, ()) else None)
             wrapped = time_ms(lambda: s.kernel(leaves, reverse), 20)
             print(f"phase 2 {s.name} {label} {'reverse' if reverse else 'forward'}: "
-                  f"max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms ({how})"
+                  f"max rel err {err:.3e} (abs {abs_err:.3e}); kernel {ms:.4f} ms"
                   + (f" (baseline {base_ms:.4f} ms)" if base_ms else "")
                   + f", through the wrapper {wrapped:.4f} ms, plain {plain_ms:.3f} ms; "
                   f"{share(ms, bound)}; card {card}")
@@ -929,12 +942,11 @@ def phase_fold_kernels(card, base=None):
                 plain_ms = time_ms(lambda: fn.plain(leaves, reverse), 1, warm=False)
                 errs = [rel_err(o, r) for o, r in zip(out, ref)]
                 err, abs_err = max(e[0] for e in errs), max(e[1] for e in errs)
-                clock, reps, how = scan_clock(s)
-                ms, base_ms = timed(bare(fn, leaves, reverse), reps, base, clock)
+                ms, base_ms = scan_ms(s, leaves, reverse, route == "folded", base)
                 wrapped = time_ms(lambda: fn.kernel(leaves, reverse), 10)
                 print(f"phase 11 {fn.name} {label} {'reverse' if reverse else 'forward'}"
                       f"{f' (Cp={Cp}, L={L})' if route == 'folded' else ''}: max rel err "
-                      f"{err:.3e} (abs {abs_err:.3e}); {what} {ms:.4f} ms ({how})"
+                      f"{err:.3e} (abs {abs_err:.3e}); {what} {ms:.4f} ms"
                       + (f" (baseline {base_ms:.4f} ms)" if base_ms else "")
                       + f", through the wrapper {wrapped:.4f} ms, plain {plain_ms:.3f} ms; "
                       f"{share(ms, bound)}; card {card}")
@@ -1068,11 +1080,14 @@ def phase_mixlds_folded(card):
     return launches
 
 
-def phase_mixlds_turns(card, base, n=3, runs=5):
-    """MixLDS (phase 5's data and state) per sweep with our lane kernel and
-    the baseline's, in turns (baseline, ours, ours, baseline): each turn a
-    warm-up sweep, then ``runs`` updates of ``n`` sweeps; the median of
-    each turn's per-sweep times."""
+def phase_mixlds_turns(card, base, pairs=12, n=3, runs=3):
+    """MixLDS (phase 5's data and state) per sweep with the baseline's lane
+    kernel and ours, in ``pairs`` pairs of turns whose order alternates
+    (baseline first, then ours first): each turn a model from the state, a
+    warm-up sweep, then ``runs`` updates of ``n`` sweeps, and the median of
+    their per-sweep times.  Prints each side's median and quartiles over
+    its turns and the share of pairs that ours won."""
+    from pyvbmp_tpu_torch.ops import _cuda
     from pyvbmp_tpu_torch.utils.convert import mixlds_from_state
 
     y = torch.from_numpy(mixlds_data()).cuda()
@@ -1091,12 +1106,25 @@ def phase_mixlds_turns(card, base, n=3, runs=5):
                 times.append((time.perf_counter() - t0) / n * 1e3)
         return float(np.median(times))
 
-    from pyvbmp_tpu_torch.ops import _cuda
+    ours_lib = _cuda.load_library()
+    theirs, ours = [], []
+    for k in range(pairs):
+        if k % 2 == 0:
+            theirs.append(turn(base))
+            ours.append(turn(ours_lib))
+        else:
+            ours.append(turn(ours_lib))
+            theirs.append(turn(base))
+    won = sum(o < t for o, t in zip(ours, theirs)) / pairs
 
-    ours = _cuda.load_library()
-    b1, o1, o2, b2 = turn(base), turn(ours), turn(ours), turn(base)
-    print(f"MixLDS in turns, ms per sweep (median of {runs} x {n} sweeps): baseline {b1:.3f}, "
-          f"ours {o1:.3f}, ours {o2:.3f}, baseline {b2:.3f}; card {card}")
+    def quartiles(x):
+        return "/".join(f"{v:.3f}" for v in np.percentile(x, [25, 50, 75]))
+
+    print(f"MixLDS in turns, ms per sweep over {pairs} alternating pairs (each turn the median "
+          f"of {runs} x {n} sweeps), quartiles 25/50/75: baseline {quartiles(theirs)}, ours "
+          f"{quartiles(ours)}; ours faster in {won:.0%} of pairs; card {card}")
+    print("MixLDS in turns, each pair (baseline, ours): "
+          + ", ".join(f"({t:.3f}, {o:.3f})" for t, o in zip(theirs, ours)))
 
 
 def hmm_data():

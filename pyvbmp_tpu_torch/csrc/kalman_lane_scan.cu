@@ -41,14 +41,18 @@
 // lanes and each walks T - 1 dependent combines, so at N = 4000 each SM
 // holds one warp (a block of 32 lanes), and that warp must keep enough of
 // device memory's latency in flight by itself.  The design:
-//   - every kernel streams its elements through a per-thread ring of kRing
-//     slots in shared memory, (slot, component, lane): steps i + 2 ..
-//     i + kRing - 1 are in flight as 4-byte cp.async copies (coalesced into
-//     128-byte rows over the warp's lanes) and step i + 1 is read from
-//     shared memory while step i combines, ~24 KB a warp at every H.  A
-//     thread reads only its own lane's column, so a step takes no barrier:
-//     cp.async.wait_group alone says the slot has landed.  A ring deeper
-//     than the walk commits empty groups;
+//   - every kernel streams its elements through a ring of kRing slots in
+//     shared memory, (slot, component, lane): steps i + 2 .. i + kRing - 1
+//     are in flight as cp.async copies and step i + 1 is read from shared
+//     memory while step i combines, ~24 KB a warp at every H.  Where N is
+//     a multiple of 32 and the leaves are 16-byte aligned (RowCopy<H,
+//     true>), a step's F component rows of 128 bytes go as 16-byte chunks
+//     shared over the warp, a quarter of the copy instructions, issued
+//     before the step's combine, and __syncwarp after each
+//     cp.async.wait_group lets a thread read the chunks the others
+//     copied; otherwise each thread copies its own lane's components, 4
+//     bytes each, and no step takes a barrier.  A ring deeper than the
+//     walk commits empty groups;
 //   - the stores go straight from registers, coalesced, and nothing waits
 //     on them; the pointers advance by a row a step;
 //   - the fix-up walks the carry-in's totals and then the chunk's rows
@@ -63,9 +67,13 @@
 //     floats at H=2, 28 at H=3) never leaves registers;
 //   - the direction is a template parameter, so each kernel's loop holds
 //     one combine order.
+// Tried and not faster on an H100 at H = 1, 2, 3 (pyvbmp_tpu_torch/probes/
+// kalman_lane_designs.cu): a lane's combine split over a lead and a
+// follower warp, and the fold in one launch with a decoupled look-back.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -175,6 +183,71 @@ __device__ __forceinline__ void fetch(float* dst, const Leaves& c, int N, int l)
     cp_async4(dst + flat * kLanes + l, c.p[j] + static_cast<ptrdiff_t>(k) * N);
   });
 }
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// A thread's part of copying a block's rows of elements, one row a step,
+// into ring slots (committed by the caller).  RowCopy<H, false>: the thread
+// copies its own lane's F components, 4 bytes each.
+template <int H, bool kShared>
+struct RowCopy {
+  Leaves c;
+  int N, l;
+  // leaves x from row t on, for the block whose first lane is n0
+  __device__ __forceinline__ RowCopy(const Leaves& x, int t, int N_, int n0, int l_)
+      : c(cursor<H>(x, t, N_, n0 + l_)), N(N_), l(l_) {}
+  __device__ __forceinline__ void copy(float* slot) const { fetch<H>(slot, c, N, l); }
+  __device__ __forceinline__ void advance(int rows) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) c.p[j] += static_cast<ptrdiff_t>(rows) * width<H>(j) * N;
+  }
+};
+
+// RowCopy<H, true>: the block's F component rows of 32 lanes (128 bytes
+// each) as 8 F chunks of 16 bytes; thread l copies the chunks of rows
+// l / 8 + 4 m (those < F), lanes 4 (l % 8) .. 4 (l % 8) + 3.  Full blocks
+// (N % 32 == 0) and 16-byte-aligned leaves only.
+template <int H>
+struct RowCopy<H, true> {
+  static constexpr int kChunks = (Potential<H>::F + 3) / 4;
+  const float* src[kChunks];
+  ptrdiff_t stride[kChunks];  // floats from a row to the next
+  int dst;                    // chunk 0's offset in a slot
+  __device__ __forceinline__ RowCopy(const Leaves& x, int t, int N, int n0, int l) {
+    const int q = l % 8;
+    dst = (l / 8) * kLanes + 4 * q;
+#pragma unroll
+    for (int m = 0; m < kChunks; ++m) {
+      const int row = l / 8 + 4 * m;
+      int j = 0, k = row;  // leaf and component of the row
+#pragma unroll
+      for (int jj = 0; jj < 5; ++jj)
+        if (j == jj && k >= width<H>(jj)) {
+          k -= width<H>(jj);
+          j = jj + 1;
+        }
+      const float* base = x.p[0];
+#pragma unroll
+      for (int jj = 1; jj < 6; ++jj)
+        if (j == jj) base = x.p[jj];
+      src[m] = base + (static_cast<ptrdiff_t>(t) * width<H>(j) + k) * N + n0 + 4 * q;
+      stride[m] = static_cast<ptrdiff_t>(width<H>(j)) * N;
+    }
+  }
+  __device__ __forceinline__ void copy(float* slot) const {
+#pragma unroll
+    for (int m = 0; m < kChunks; ++m)
+      if (dst / kLanes + 4 * m < Potential<H>::F) cp_async16(slot + dst + m * 4 * kLanes, src[m]);
+  }
+  // rows is 1 or -1
+  __device__ __forceinline__ void advance(int rows) {
+#pragma unroll
+    for (int m = 0; m < kChunks; ++m) src[m] += rows == 1 ? stride[m] : -stride[m];
+  }
+};
 
 template <int H>
 __device__ __forceinline__ Potential<H> take(const float* src, int l) {
@@ -313,48 +386,63 @@ __device__ __forceinline__ void chunk_rows(int c, int T, int L, int offset, int&
 
 // A thread's walk of `steps` elements through its ring.  fill(i) starts
 // step i: its copies (none past the walk's end) and one commit group.  Steps
-// 0 .. D - 2 start before the walk, and step i + D - 1 at the end of step i,
-// into the slot of step i - 1, whose element has been used by then.  So "at
+// 0 .. D - 2 start before the walk, and step i + D - 1 during step i, into
+// the slot of step i - 1, whose element was read at step i - 2.  So "at
 // most D - 3 groups pending" at step i means that step i + 1 has landed, and
 // its element is read from shared memory while visit(i, e) combines step i.
-template <int H, typename Fill, typename Visit>
+// With kShared (RowCopy<H, true>) a thread reads other threads' copies, so
+// every wait is followed by __syncwarp, which also keeps the warp within a
+// step, so no thread refills a slot that another still reads.  Step i's
+// fill comes before its combine with kShared and after it otherwise: the
+// order that was faster on an H100 for each.
+template <int H, bool kShared, typename Fill, typename Visit>
 __device__ __forceinline__ void walk(float* ring, int steps, int l, Fill fill, Visit visit) {
   constexpr int D = kRing<H>;
 #pragma unroll 1
   for (int i = 0; i < D - 1; ++i) fill(i);
   cp_async_wait<D - 2>();
-  visit(0, take<H>(slot<H>(ring, 0), l));
+  if constexpr (kShared) __syncwarp();
+  const Potential<H> e0 = take<H>(slot<H>(ring, 0), l);
   fill(D - 1);
+  visit(0, e0);
   cp_async_wait<D - 2>();
+  if constexpr (kShared) __syncwarp();
   Potential<H> e = take<H>(slot<H>(ring, 1), l);
   for (int i = 1; i < steps; ++i) {
     cp_async_wait<D - 3>();
+    if constexpr (kShared) __syncwarp();
     const Potential<H> next = take<H>(slot<H>(ring, i + 1), l);
-    visit(i, e);
-    fill(i + D - 1);
+    if constexpr (kShared) {
+      fill(i + D - 1);
+      visit(i, e);
+    } else {
+      visit(i, e);
+      fill(i + D - 1);
+    }
     e = next;
   }
 }
 
 // grid (ceil(N / kLanes), C): phase 1, the scan of chunk blockIdx.y, and
 // the chunk's total into totals (unless totals is null).
-template <int H, bool kReverse>
+template <int H, bool kReverse, bool kShared>
 __global__ void __launch_bounds__(kLanes)
 kalman_lane_scan_kernel(Leaves in, Leaves out, Leaves totals, int T, int N, int L, int offset) {
   constexpr int dir = kReverse ? -1 : 1;
   __shared__ __align__(16) float ring[kRing<H> * Potential<H>::F * kLanes];
-  const int l = threadIdx.x, n = blockIdx.x * kLanes + l;
-  if (n >= N) return;  // no barriers: a thread reads only its own slots
+  const int l = threadIdx.x, n0 = blockIdx.x * kLanes, n = n0 + l;
+  if (!kShared && n >= N) return;  // (kShared: every block is full)
   int begin, end;
   chunk_rows(blockIdx.y, T, L, offset, begin, end);
   const int steps = end - begin, first = kReverse ? end - 1 : begin;
-  Leaves rd = cursor<H>(in, first, N, n), wr = cursor<H>(out, first, N, n);
+  RowCopy<H, kShared> rd(in, first, N, n0, l);
+  Leaves wr = cursor<H>(out, first, N, n);
   Potential<H> carry;
-  walk<H>(
+  walk<H, kShared>(
       ring, steps, l,
       [&](int i) {
-        if (i < steps) fetch<H>(slot<H>(ring, i), rd, N, l);
-        advance<H, dir>(rd, N);
+        if (i < steps) rd.copy(slot<H>(ring, i));
+        rd.advance(dir);
         cp_async_commit();
       },
       [&](int i, const Potential<H>& e) {
@@ -369,31 +457,29 @@ kalman_lane_scan_kernel(Leaves in, Leaves out, Leaves totals, int T, int N, int 
 // the totals of the chunks before it in chain order, folded into the
 // carry-in, then the chunk's rows, each combined with the carry-in and
 // written back in place.
-template <int H, bool kReverse>
+template <int H, bool kReverse, bool kShared>
 __global__ void __launch_bounds__(kLanes)
 kalman_lane_fixup_kernel(Leaves out, Leaves totals, int T, int N, int L, int offset, int C) {
   __shared__ __align__(16) float ring[kRing<H> * Potential<H>::F * kLanes];
-  const int l = threadIdx.x, n = blockIdx.x * kLanes + l;
+  const int l = threadIdx.x, n0 = blockIdx.x * kLanes, n = n0 + l;
   const int c = blockIdx.y;
   // the first chunk in chain order has no carry-in
-  if (n >= N || c == (kReverse ? C - 1 : 0)) return;
+  if ((!kShared && n >= N) || c == (kReverse ? C - 1 : 0)) return;
   int begin, end;
   chunk_rows(c, T, L, offset, begin, end);
   const int before = kReverse ? C - 1 - c : c;  // totals in the carry-in
   const int steps = before + end - begin;
-  Leaves tot = cursor<H>(totals, kReverse ? C - 1 : 0, N, n);
-  Leaves rd = cursor<H>(out, begin, N, n), wr = rd;
+  // the totals from the first in chain order on, then (from step before)
+  // the chunk's rows
+  RowCopy<H, kShared> rd(totals, kReverse ? C - 1 : 0, N, n0, l);
+  Leaves wr = cursor<H>(out, begin, N, n);
   Potential<H> acc;
-  walk<H>(
+  walk<H, kShared>(
       ring, steps, l,
       [&](int i) {
-        if (i < before) {
-          fetch<H>(slot<H>(ring, i), tot, N, l);
-          advance<H, kReverse ? -1 : 1>(tot, N);
-        } else if (i < steps) {
-          fetch<H>(slot<H>(ring, i), rd, N, l);
-          advance<H, 1>(rd, N);
-        }
+        if (i == before) rd = RowCopy<H, kShared>(out, begin, N, n0, l);
+        if (i < steps) rd.copy(slot<H>(ring, i));
+        rd.advance(i < before && kReverse ? -1 : 1);
         cp_async_commit();
       },
       [&](int i, const Potential<H>& e) {
@@ -412,25 +498,38 @@ Leaves leaves(const void* const* p) {
   return x;
 }
 
-template <int H, bool kReverse>
+template <int H, bool kReverse, bool kShared>
 int launch(const Leaves& in, const Leaves& out, const Leaves& totals, int T, int N, int C, int L,
            int offset, cudaStream_t stream) {
   const dim3 grid((N + kLanes - 1) / kLanes, C);
-  kalman_lane_scan_kernel<H, kReverse><<<grid, kLanes, 0, stream>>>(in, out, totals, T, N, L,
-                                                                    offset);
+  kalman_lane_scan_kernel<H, kReverse, kShared><<<grid, kLanes, 0, stream>>>(in, out, totals, T,
+                                                                             N, L, offset);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || C == 1) return static_cast<int>(err);
-  kalman_lane_fixup_kernel<H, kReverse><<<grid, kLanes, 0, stream>>>(out, totals, T, N, L,
-                                                                     offset, C);
+  kalman_lane_fixup_kernel<H, kReverse, kShared><<<grid, kLanes, 0, stream>>>(out, totals, T, N,
+                                                                              L, offset, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether every leaf of x (or x is null, as the totals of a one-pass scan)
+// is 16-byte aligned.
+bool aligned16(const Leaves& x) {
+  for (const float* p : x.p)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
 }
 
 template <int H>
 int launch(const void* const* in, void* const* out, void* const* totals, int T, int N, int C,
            int L, int offset, int reverse, cudaStream_t stream) {
   const Leaves src = leaves(in), dst = leaves(out), tot = leaves(totals);
-  return reverse ? launch<H, true>(src, dst, tot, T, N, C, L, offset, stream)
-                 : launch<H, false>(src, dst, tot, T, N, C, L, offset, stream);
+  // 16-byte row chunks where every block is full and every row of every
+  // leaf starts 16-byte aligned
+  if (N % kLanes == 0 && aligned16(src) && aligned16(dst) && aligned16(tot))
+    return reverse ? launch<H, true, true>(src, dst, tot, T, N, C, L, offset, stream)
+                   : launch<H, false, true>(src, dst, tot, T, N, C, L, offset, stream);
+  return reverse ? launch<H, true, false>(src, dst, tot, T, N, C, L, offset, stream)
+                 : launch<H, false, false>(src, dst, tot, T, N, C, L, offset, stream);
 }
 
 }  // namespace

@@ -90,6 +90,16 @@ def fold_shape(T, N):
     return Cp, L
 
 
+def fold_args(T, N, reverse):
+    """The folded kernels' launch arguments (``Scan.launch``): chunks, L and
+    offset, chunk c holding rows [c L + offset, (c + 1) L + offset) clipped
+    to [0, T).  In reverse the chunks sit C L - T rows to the left, so the
+    one short chunk is the last in chain order, whose total no other chunk
+    needs."""
+    Cp, L = fold_shape(T, N)
+    return dict(chunks=Cp, L=L, offset=T - Cp * L if reverse else 0)
+
+
 def _logmatmul_plane(a, b):
     from .parallel_hmm import _logmatmul_plane as combine
 
@@ -196,32 +206,23 @@ class Scan:
             raise ValueError(f"{self.name}: empty scan (T={T}, N={N})")
         return T, size, N
 
-    def launcher(self, leaves, reverse, chunks=1, L=None, offset=0):
-        """(outputs, run) for checked leaves: ``run()`` launches the kernel
-        into the outputs, one pass (chunks=1) or folded into ``chunks``
-        chunks of L rows whose first row is c L + offset, through the
-        library loaded when it is called, and returns the C entry's code."""
+    def launch(self, leaves, reverse, chunks=1, L=None, offset=0):
+        """Run the kernel over checked leaves: one pass (chunks=1) or folded
+        into ``chunks`` chunks of L rows whose first row is c L + offset."""
         T, size, N = self.check(leaves)
+        lib = load_library()
         out = [torch.empty_like(x) for x in leaves]
         totals = [x.new_empty((chunks,) + x.shape[1:]) if chunks > 1 else None
                   for x in leaves]
         device = leaves[0].device
-        args = (*(x.data_ptr() for x in leaves), *(o.data_ptr() for o in out),
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, self.symbol)(
+                *(x.data_ptr() for x in leaves), *(o.data_ptr() for o in out),
                 *(None if t is None else t.data_ptr() for t in totals),
-                T, size, N, chunks, T if L is None else L, offset, int(bool(reverse)))
-
-        def run():
-            with torch.cuda.device(device):
-                stream = torch.cuda.current_stream(device).cuda_stream
-                return getattr(load_library(), self.symbol)(*args, stream)
-
-        run.buffers = (out, totals)  # alive as long as a launch may write them
-        return out, run
-
-    def launch(self, leaves, reverse, chunks=1, L=None, offset=0):
-        """Run the kernel over checked leaves (see ``launcher``)."""
-        out, run = self.launcher(leaves, reverse, chunks, L, offset)
-        rc = run()
+                T, size, N, chunks, T if L is None else L, offset,
+                int(bool(reverse)), stream,
+            )
         if rc != 0:
             raise RuntimeError(f"{self.name}: launch failed, cudaError {rc}")
         return out
@@ -290,17 +291,10 @@ class FoldedScan:
         out = [x.transpose(0, 1).reshape((Cp * L,) + x.shape[2:]) for x in local]
         return [x[pad:] if reverse else x[:T] for x in out]
 
-    def chunks(self, leaves, reverse):
-        """The scan's launch arguments for the fold: chunks, L, offset."""
-        T = leaves[0].shape[0]
-        Cp, L = self.shape(leaves)
-        return dict(chunks=Cp, L=L, offset=T - Cp * L if reverse else 0)
-
-    def launcher(self, leaves, reverse=False):
-        return self.scan.launcher(leaves, reverse, **self.chunks(leaves, reverse))
-
     def kernel(self, leaves, reverse=False):
-        out = self.scan.launch(leaves, reverse, **self.chunks(leaves, reverse))
+        self.shape(leaves)  # raises where T cannot be folded
+        out = self.scan.launch(leaves, reverse,
+                               **fold_args(leaves[0].shape[0], leaves[0].shape[-1], reverse))
         self.launches += 1
         return out
 

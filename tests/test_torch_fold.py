@@ -184,13 +184,11 @@ def test_fold_decisions_match_jax(switch, monkeypatch):
 @pytest.mark.parametrize("T", [16, 37, 100, 150, 4096])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_fold_launch_covers_every_row_once(T, reverse):
-    """The folded kernels' launch arguments (FoldedScan.chunks): chunk c
+    """The folded kernels' launch arguments (scan.fold_args): chunk c
     holds rows [c L + offset, (c + 1) L + offset) clipped to [0, T); the
     chunks cover every row once, none is empty, and the one short chunk is
     the last in chain order, whose total no other chunk needs."""
-    fold = scan.KALMAN_LANE.folded
-    leaves = tuple(torch.zeros(shape) for shape in scan.KALMAN_LANE.leaf_shapes(T, 2, 3))
-    a = fold.chunks(leaves, reverse)
+    a = scan.fold_args(T, 3, reverse)
     C, L, offset = a["chunks"], a["L"], a["offset"]
     assert (C, L) == scan.fold_shape(T, 3)
     spans = [(max(c * L + offset, 0), min((c + 1) * L + offset, T)) for c in range(C)]

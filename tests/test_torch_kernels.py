@@ -173,9 +173,11 @@ def test_logsemiring_k14_edges(cuda, T, C, N, reverse):
 
 # the lane kernels (H = 1, 2, 3), one pass and folded into Cp = 2, 4, 8
 # chunks (a short chunk wherever Cp does not divide T), forward and reverse:
-# lane counts of one lane, either side of a warp's 32, and the MixLDS 4000;
-# walks of one and two rows, one row either side of the ring depth, and 100
-# rows; each against the one-pass plain scan
+# lane counts of one lane, a warp's 32 and either side of it, 36, and the
+# MixLDS 4000 (16-byte chunks shared over the warp at 32 and 4000, where
+# every block is full; per-lane copies otherwise); walks of one and two
+# rows, one row either side of the ring depth, and 100 rows; each against
+# the one-pass plain scan
 LANE_RING = {1: 32, 2: 16, 3: 8}  # csrc/kalman_lane_scan.cu:kRing
 
 
@@ -185,7 +187,7 @@ def _folds(T):
     return [C for C in (1, 2, 4, 8) if C == 1 or (C <= T and C * -(-T // C) - T < -(-T // C))]
 
 
-LANE_EDGES = [(H, T, C, N) for H in (1, 2, 3) for N in (1, 31, 33, 4000)
+LANE_EDGES = [(H, T, C, N) for H in (1, 2, 3) for N in (1, 31, 32, 33, 36, 4000)
               for T in sorted({1, 2, LANE_RING[H] - 1, LANE_RING[H] + 1, 100})
               for C in _folds(T)]
 
