@@ -22,9 +22,11 @@ prints no result:
    (T=40, N=8); the plane Kalman kernel at H = 6 (DMBD-Lorenz), 4, 8, 10,
    15, 16 and 32 (T=399, N=100); the lane kernel at H = 1, 2, 3 (T=100,
    N=4000) and at H = 2 on four times the lanes (N=16000); and the
-   scans of phases 15-17 at the shapes those paths give them (HMM-core
-   K=8 T=200 N=200; Cradle K=6 T=200 N=50 and H=6 N=10; Flame K=3 T=100
-   N=12 and H=4 N=1);
+   scans of phases 15-17 and 19-21 at the shapes those paths give them
+   (HMM-core K=8 T=200 N=200, and the same with a transition per step and
+   lane as dHMM builds them; ARHMM K=4 T=200 N=200; NLDS lane H=2 T=200
+   N=8; Cradle K=6 T=200 N=50 and H=6 N=10; Flame K=3 T=100 N=12 and H=4
+   N=1);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -99,7 +101,24 @@ prints no result:
    within relative 1e-4 of the CPU in float64;
 18. DMBD-Lorenz with parallel_scan=False (the JAX default), 3 sweeps: no
    kernel launched and no plain scan; the ELBO rises; card f32 within
-   relative 1e-4 of CPU f64; ELBO() is ELBO_last and KLqprior() is finite.
+   relative 1e-4 of CPU f64; ELBO() is ELBO_last and KLqprior() is finite;
+19. the recurrent switching LDS at the size of examples/nlds_example.py
+   (make_data(T=200, B=8): obs 3, two rotation regimes switching every 50
+   steps; NLDS((3,), hidden_dim=2, mixture_dim=2)), fit(iters=30,
+   restarts=6) in float32 on the card: sweeps/s, the segmentation accuracy
+   against the true regimes (max(acc, 1 - acc)), 2 lane Kalman launches a
+   sweep and no other kernel or plain version, the best restart's ELBO
+   rises; then 3 sweeps from one numpy state (q(s) included), card f32 vs
+   CPU f64 within relative 1e-4;
+20. dHMM with parallel_scan=True at the HMM-core widths (phase 15's data,
+   K=8, d=4, NormalInverseWishart observations) driven by inputs of width
+   2 (np.random.RandomState(1).randn): 10 sweeps after a warm-up, sweeps/s,
+   the ELBO trajectory (finite, ends above where it started), 2
+   logsemiring launches a sweep on the per-time elements and no other
+   kernel; then card f32 vs CPU f64 over 3 sweeps within relative 1e-4;
+21. ARHMM(4, 2, 2) with parallel_scan=True on two AR regimes switching
+   every 10 steps at T=200, batch 200 (logsemiring K=4 on 200 lanes): as
+   phase 20.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -115,7 +134,8 @@ With --baseline, MixLDS (phase 5's data and state) is also timed end to
 end with our lane kernel and the baseline's, in 12 alternating pairs.  --trace profiles 3
 sweeps of DMBD-Lorenz, of DMBD-Flocking on both routes and of MixLDS with
 the fold off and forced on (device busy time, kernel time by kind, wall
-clock).  Neither changes what the phases check.
+clock), and of NLDS, dHMM and ARHMM.  Neither changes what the phases
+check.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -166,6 +186,16 @@ BASELINE_SIZES = {"logsemiring_scan": (4, 7, 14), "kalman_plane_scan": (6, 10, 1
 # observations, data from its hmm_data recipe
 HMM_CORE = dict(T=200, batch=200, K=8, d=4, sweeps=10, compare_sweeps=3, data_seed=0,
                 seed=0)
+# examples/nlds_example.py at full size: make_data(T=200, B=8), NLDS((3,),
+# hidden_dim=2, mixture_dim=2), fit(iters=30, restarts=6)
+NLDS_EX = dict(T=200, B=8, hidden=2, mixture=2, iters=30, restarts=6, compare_sweeps=3,
+               data_seed=0, seed=0)
+# dHMM at the HMM-core widths (HMM_CORE's data), inputs of width 2 from
+# np.random.RandomState(1).randn as tests/test_models_hmm_lds.py makes them
+DHMM_CORE = dict(p=2, sweeps=10, compare_sweeps=3, input_seed=1, seed=0)
+# ARHMM(4, 2, 2) on tests/test_models_hmm_lds.py's two-regime AR recipe at
+# HMM_CORE's T and batch
+ARHMM_CFG = dict(dim=4, n=2, p=2, sweeps=10, compare_sweeps=3, data_seed=0, seed=0)
 # DMBD at the Newton's-cradle widths (benchmarks/cradle_bench.py:21: K = 6,
 # h = 6) and the Flame widths (examples/flame_example.py:16-26: K = 3, h = 4)
 # on smooth random walks from a numpy seed
@@ -427,13 +457,14 @@ def phase_guard(baseline=None):
     return card, base_lib
 
 
-def semiring_elems(rs, T, K, N):
+def semiring_elems(rs, T, K, N, per_time=False):
     """Log transition + observation logits with a masked transition, as the
-    role chain builds them."""
-    trans = np.log(rs.dirichlet(np.ones(K), K))
-    trans[0, K - 1] = trans[K - 1, 0] = -np.inf
+    role chain builds them; with ``per_time`` a transition for every step
+    and lane, as the dHMM builds them."""
+    trans = np.log(rs.dirichlet(np.ones(K), (T, N, K) if per_time else K))
+    trans[..., 0, K - 1] = trans[..., K - 1, 0] = -np.inf
     obs = rs.randn(T, N, K) * 2.0
-    M = trans[None, None] + obs[..., None, :]  # (T, N, K, K)
+    M = trans + obs[..., None, :]  # (T, N, K, K)
     return np.ascontiguousarray(M.transpose(0, 2, 3, 1))
 
 
@@ -488,6 +519,15 @@ def phase_kernels(card, base=None):
     hc = HMM_CORE
     cases.append((scan.LOGSEMIRING, f"K={hc['K']} T={hc['T']} N={hc['batch']} (HMM-core)",
                   (semiring_elems(rs, hc["T"], hc["K"], hc["batch"]),)))
+    # the dHMM's per-time elements at the HMM-core shape, ARHMM's K=4 on 200
+    # lanes and NLDS's lane scan (N=8: the per-lane copy path)
+    cases.append((scan.LOGSEMIRING, f"K={hc['K']} T={hc['T']} N={hc['batch']} per-time (dHMM)",
+                  (semiring_elems(rs, hc["T"], hc["K"], hc["batch"], per_time=True),)))
+    cases.append((scan.LOGSEMIRING, f"K={ARHMM_CFG['dim']} T={hc['T']} N={hc['batch']} (ARHMM)",
+                  (semiring_elems(rs, hc["T"], ARHMM_CFG["dim"], hc["batch"]),)))
+    cases.append((scan.KALMAN_LANE, f"H={NLDS_EX['hidden']} T={NLDS_EX['T']} "
+                  f"N={NLDS_EX['B']} (NLDS)",
+                  lane_elems(rs, NLDS_EX["T"], NLDS_EX["hidden"], NLDS_EX["B"])))
     for name, w in WIDTHS.items():
         K, H = sum(w["role_dims"]), sum(w["hidden_dims"])
         N = w["batch"] * w["obs_shape"][0]
@@ -609,20 +649,28 @@ def time_fold(switch):
         scan.TIME_FOLD = old
 
 
-def compare_card_cpu(label, from_state, state, y64, n, card, card_fold="0"):
+def to_card(data):
+    """Float64 CPU tensors (nested in tuples) as float32 on the card."""
+    if isinstance(data, tuple):
+        return tuple(to_card(x) for x in data)
+    return data.to(device="cuda", dtype=torch.float32)
+
+
+def compare_card_cpu(label, from_state, state, args, n, card, card_fold="0"):
     """``n`` sweeps from one numpy state on the card (float32, time fold
     ``card_fold``) and on the CPU (float64, fold off): the ELBO trajectories
-    agree within REL_TOL.  Returns the card's model and its run's launches
-    and plain calls."""
+    agree within REL_TOL.  ``args`` is the tuple of ``update``'s positional
+    arguments, in float64 on the CPU.  Returns the card's model and its
+    run's launches and plain calls."""
     gpu = from_state(state, device="cuda", dtype=torch.float32)
     cpu = from_state(state, device="cpu", dtype=torch.float64)
-    y32 = y64.to(device="cuda", dtype=torch.float32)
+    on_card = to_card(args)
     with time_fold(card_fold):
         reset_counts()
-        gpu.update(y32, iters=n)
+        gpu.update(*on_card, iters=n)
         torch.cuda.synchronize()
         launches, plain = read_counts()
-    cpu.update(y64, iters=n)
+    cpu.update(*args, iters=n)
     e_gpu = np.asarray(gpu.ELBO_save, np.float64)
     e_cpu = np.asarray(cpu.ELBO_save, np.float64)
     dev = np.abs(e_gpu - e_cpu) / np.abs(e_cpu)
@@ -638,7 +686,7 @@ def phase_compare(card):
 
     state = dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"] + 1)))
     compare_card_cpu("phase 4", dmbd_from_state, state,
-                     lorenz_data(torch.float64, "cpu"), CFG["compare_sweeps"], card)
+                     (lorenz_data(torch.float64, "cpu"),), CFG["compare_sweeps"], card)
 
 
 def mixlds_data():
@@ -716,7 +764,8 @@ def phase_mixlds_compare(card):
     from pyvbmp_tpu_torch.utils.convert import mixlds_from_state
 
     compare_card_cpu("phase 6 MixLDS", mixlds_from_state, mixlds_state0(MIX["seed"] + 1),
-                     torch.from_numpy(mixlds_data()).double(), MIX["compare_sweeps"], card)
+                     (torch.from_numpy(mixlds_data()).double(),), MIX["compare_sweeps"],
+                     card)
 
 
 def phase_scatter(card, base=None):
@@ -1044,7 +1093,7 @@ def phase_flocking_compare(card):
     from pyvbmp_tpu_torch.utils.convert import dmbd_from_state
 
     compare_card_cpu("phase 13 DMBD-Flocking (card: fold on)", dmbd_from_state,
-                     flocking_state(FLOCK["seed"] + 1), flocking_data(torch.float64, "cpu"),
+                     flocking_state(FLOCK["seed"] + 1), (flocking_data(torch.float64, "cpu"),),
                      FLOCK["compare_sweeps"], card, card_fold="auto")
 
 
@@ -1182,7 +1231,7 @@ def phase_hmm(card):
     if tuple(model.p.shape) != (HMM_CORE["T"], HMM_CORE["batch"], HMM_CORE["K"]):
         fail(f"HMM-core p has shape {tuple(model.p.shape)}")
     compare_card_cpu("phase 15 HMM-core", hmm_from_state, hmm_state0(HMM_CORE["seed"] + 1),
-                     y64, HMM_CORE["compare_sweeps"], card)
+                     (y64,), HMM_CORE["compare_sweeps"], card)
     return launches
 
 
@@ -1211,7 +1260,7 @@ def phase_widths(card):
             f"phase {phase} DMBD-{name} T={cfg['T']} batch={cfg['batch']} obs "
             f"{cfg['obs_shape']} roles {cfg['role_dims']} hidden {cfg['hidden_dims']} "
             f"(K={sum(cfg['role_dims'])}, h={sum(cfg['hidden_dims'])})",
-            dmbd_from_state, state, walk_data(cfg, phase), n, card)
+            dmbd_from_state, state, (walk_data(cfg, phase),), n, card)
         check_launches(f"DMBD-{name}", launches, plain, {
             "logsemiring_scan": 2 * n, "kalman_plane_scan": 2 * n, "kalman_lane_scan": 0,
             "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
@@ -1235,7 +1284,7 @@ def phase_sequential(card):
     t0 = time.perf_counter()
     gpu, launches, plain = compare_card_cpu(
         f"phase 18 DMBD-Lorenz parallel_scan=False T={CFG['T']} batch={CFG['batch']}",
-        dmbd_from_state, state, lorenz_data(torch.float64, "cpu"), n, card)
+        dmbd_from_state, state, (lorenz_data(torch.float64, "cpu"),), n, card)
     print(f"  card and CPU runs {time.perf_counter() - t0:.3f} s")
     check_launches("DMBD sequential", launches, plain, {k: 0 for k in launches})
     elbo = np.asarray(gpu.ELBO_save, np.float64)
@@ -1250,25 +1299,206 @@ def phase_sequential(card):
         fail("DMBD sequential: ELBO() is not ELBO_last, or KLqprior() is not finite")
 
 
-def trace_sweeps(card, label, model, y, fit, fold, n=3):
-    """Per sweep of ``model.update(y, iters=n, **fit)`` under the time fold
-    ``fold``: the untraced wall clock (median of 5 runs), then one traced
-    run: device busy time (the union of kernel intervals), kernel time by
-    kind, and host and device event counts."""
+def nlds_data():
+    """examples/nlds_example.py:make_data at NLDS_EX, in numpy: a 2-d latent
+    rotating slowly (0.08 rad a step) or fast (0.5), the regime flipping
+    every 50 steps, seen through a random 3 x 2 map with noise 0.1.
+    Returns y (T, B, 3) float64 and the true regimes (T, B)."""
+    def rot(th):
+        return np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+
+    rs = np.random.RandomState(NLDS_EX["data_seed"])
+    As = [0.98 * rot(0.08), 0.98 * rot(0.5)]
+    C = rs.randn(3, 2)
+    x = rs.randn(NLDS_EX["B"], 2)
+    ys, zs = [], []
+    z = np.zeros(NLDS_EX["B"], int)
+    for t in range(NLDS_EX["T"]):
+        if t % 50 == 0 and t > 0:
+            z = 1 - z
+        A = np.stack([As[zi] for zi in z])
+        x = np.einsum("bij,bj->bi", A, x) + 0.05 * rs.randn(NLDS_EX["B"], 2)
+        ys.append(x @ C.T + 0.1 * rs.randn(NLDS_EX["B"], 3))
+        zs.append(z.copy())
+    return torch.from_numpy(np.stack(ys)), np.stack(zs)
+
+
+def nlds_model(generator, dtype, device):
+    from pyvbmp_tpu_torch.models import NLDS
+
+    return NLDS((3,), hidden_dim=NLDS_EX["hidden"], mixture_dim=NLDS_EX["mixture"],
+                generator=generator, dtype=dtype, device=device)
+
+
+def phase_nlds(card):
+    """Phase 19: the recurrent switching LDS at the size of
+    examples/nlds_example.py: fit(iters=30, restarts=6) on the card in
+    float32 (sweeps/s, segmentation accuracy, lane Kalman launches a sweep,
+    the best restart's ELBO rising), then 3 sweeps from one numpy state on
+    the card and on the CPU in float64.  Returns the fit's launches."""
+    from pyvbmp_tpu_torch.utils.convert import nlds_from_state, nlds_state
+
+    y64, ztrue = nlds_data()
+    y = y64.to("cuda", torch.float32)
+    iters, restarts = NLDS_EX["iters"], NLDS_EX["restarts"]
+    model = nlds_model(torch.Generator().manual_seed(NLDS_EX["seed"]), torch.float32, "cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    model.fit(y, iters=iters, restarts=restarts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    sweeps = iters * restarts
+    hard = model.assignment().cpu().numpy()
+    acc = max((hard == ztrue).mean(), (hard == 1 - ztrue).mean())
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase 19 NLDS T={NLDS_EX['T']} batch={NLDS_EX['B']} obs 3 hidden "
+          f"{NLDS_EX['hidden']} mixture {NLDS_EX['mixture']}, fit(iters={iters}, "
+          f"restarts={restarts}): {sweeps / dt:.3f} sweeps/s ({dt:.3f} s); segmentation "
+          f"accuracy {acc:.4f}; card {card}")
+    print(f"  best restart's ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}")
+    if not np.isfinite(elbo).all():
+        fail("NLDS ELBO not finite")
+    if not elbo[-1] > elbo[0]:
+        fail("NLDS: the best restart's ELBO did not rise")
+    check_launches("NLDS", launches, plain, {
+        "logsemiring_scan": 0, "kalman_plane_scan": 0, "kalman_lane_scan": 2 * sweeps,
+        "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
+        "kalman_lane_scan_folded": 0, "weighted_outer": 0})
+    if hard.shape != ztrue.shape:
+        fail(f"NLDS assignment has shape {hard.shape}")
+    start = nlds_model(torch.Generator().manual_seed(NLDS_EX["seed"] + 1), torch.float64,
+                       "cpu")
+    start.p = start._initial_p(NLDS_EX["T"], NLDS_EX["B"], y64)
+    n = NLDS_EX["compare_sweeps"]
+    _, launches_cmp, plain_cmp = compare_card_cpu(
+        "phase 19 NLDS", nlds_from_state, nlds_state(start), (y64,), n, card)
+    check_launches("NLDS (card vs CPU)", launches_cmp, plain_cmp, {"kalman_lane_scan": 2 * n})
+    return launches
+
+
+def dhmm_inputs():
+    """Inputs of width DHMM_CORE['p'] as tests/test_models_hmm_lds.py makes
+    them (np.random.RandomState(1).randn), float64."""
+    rs = np.random.RandomState(DHMM_CORE["input_seed"])
+    return torch.from_numpy(rs.randn(HMM_CORE["T"], HMM_CORE["batch"], DHMM_CORE["p"]))
+
+
+def dhmm_state0(seed):
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.models import dHMM
+    from pyvbmp_tpu_torch.utils.convert import dhmm_state
+
+    g = torch.Generator().manual_seed(seed)
+    obs = NormalInverseWishart.create((HMM_CORE["d"],), (HMM_CORE["K"],), generator=g,
+                                      dtype=torch.float64)
+    return dhmm_state(dHMM(obs, DHMM_CORE["p"], parallel_scan=True, generator=g,
+                           dtype=torch.float64, device="cpu"))
+
+
+def ar_pairs(T, B, seed):
+    """tests/test_models_hmm_lds.py:test_arhmm_runs's recipe: two AR
+    regimes (0.9 I and a 0.9 rotation) switching every 10 steps; X (the
+    previous point) and Y (the next), each (T, B, 1, 2, 1) float64."""
+    rs = np.random.RandomState(seed)
+    A1 = np.eye(2) * 0.9
+    A2 = np.asarray([[0.0, -0.9], [0.9, 0.0]])
+    x = rs.randn(B, 2)
+    X, Y = [], []
+    for t in range(T):
+        y = x @ (A1 if (t // 10) % 2 == 0 else A2).T + 0.05 * rs.randn(B, 2)
+        X.append(x)
+        Y.append(y)
+        x = y
+    return tuple(torch.from_numpy(np.stack(a)[..., None, :, None]) for a in (X, Y))
+
+
+def arhmm_state0(seed):
+    from pyvbmp_tpu_torch.models import ARHMM
+    from pyvbmp_tpu_torch.utils.convert import arhmm_state
+
+    m = ARHMM(ARHMM_CFG["dim"], ARHMM_CFG["n"], ARHMM_CFG["p"],
+              generator=torch.Generator().manual_seed(seed), dtype=torch.float64,
+              device="cpu")
+    m.parallel_scan = True
+    return arhmm_state(m)
+
+
+def phase_chain(card, phase, label, from_state, state, data64, sweeps, n_cmp, want):
+    """A chain model's ``sweeps`` sweeps on the card in float32 after a
+    warm-up sweep (sweeps/s, the ELBO trajectory, launches: ``want`` a
+    sweep of the one-pass logsemiring scan, no other kernel, no plain
+    version), then ``n_cmp`` sweeps card f32 vs CPU f64 from the next
+    state.  ``data64`` is the tuple of ``update``'s positional arguments,
+    float64 on the CPU.  Returns the timed run's launches."""
+    data = to_card(data64)
+    from_state(state(0), "cuda", torch.float32).update(*data, iters=1)
+    model = from_state(state(0), "cuda", torch.float32)
+    dt, launches, plain = drive(model, sweeps, *data)
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase {phase} {label} {sweeps} sweeps: {sweeps / dt:.3f} sweeps/s ({dt:.3f} s); "
+          f"card {card}")
+    print(f"  ELBO trajectory {elbo.tolist()}")
+    if not np.isfinite(elbo).all():
+        fail(f"{label}: ELBO not finite")
+    if not elbo[-1] > elbo[0]:
+        fail(f"{label}: ELBO ended below where it started")
+    check_launches(label, launches, plain, {
+        "logsemiring_scan": want * sweeps, "kalman_plane_scan": 0, "kalman_lane_scan": 0,
+        "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
+        "kalman_lane_scan_folded": 0, "weighted_outer": 0})
+    if tuple(model.p.shape[:2]) != (HMM_CORE["T"], HMM_CORE["batch"]):
+        fail(f"{label}: p has shape {tuple(model.p.shape)}")
+    compare_card_cpu(f"phase {phase} {label}", from_state, state(1), data64, n_cmp, card)
+    return launches
+
+
+def phase_dhmm(card):
+    """Phase 20: dHMM with the scan smoother at the HMM-core widths (phase
+    15's data and NormalInverseWishart observations) driven by inputs of
+    width 2: 2 logsemiring launches a sweep on the per-time elements."""
+    from pyvbmp_tpu_torch.utils.convert import dhmm_from_state
+
+    return phase_chain(
+        card, 20, f"dHMM T={HMM_CORE['T']} batch={HMM_CORE['batch']} K={HMM_CORE['K']} "
+        f"d={HMM_CORE['d']} p={DHMM_CORE['p']} (NIW, parallel_scan=True)",
+        dhmm_from_state, lambda i: dhmm_state0(DHMM_CORE["seed"] + i),
+        (dhmm_inputs(), hmm_data()), DHMM_CORE["sweeps"], DHMM_CORE["compare_sweeps"], 2)
+
+
+def phase_arhmm(card):
+    """Phase 21: ARHMM(4, 2, 2) with the scan smoother on the two-regime AR
+    recipe at T=200, batch 200: logsemiring K=4 on 200 lanes."""
+    from pyvbmp_tpu_torch.utils.convert import arhmm_from_state
+
+    c = ARHMM_CFG
+    return phase_chain(
+        card, 21, f"ARHMM({c['dim']}, {c['n']}, {c['p']}) T={HMM_CORE['T']} "
+        f"batch={HMM_CORE['batch']} (parallel_scan=True)",
+        arhmm_from_state, lambda i: arhmm_state0(c["seed"] + i),
+        (ar_pairs(HMM_CORE["T"], HMM_CORE["batch"], c["data_seed"]),), c["sweeps"],
+        c["compare_sweeps"], 2)
+
+
+def trace_sweeps(card, label, model, args, fit, fold, n=3):
+    """Per sweep of ``model.update(*args, iters=n, **fit)`` under the time
+    fold ``fold``: the untraced wall clock (median of 5 runs), then one
+    traced run: device busy time (the union of kernel intervals), kernel
+    time by kind, and host and device event counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with time_fold(fold):
-        model.update(y, iters=1, **fit)
+        model.update(*args, iters=1, **fit)
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.update(y, iters=n, **fit)
+            model.update(*args, iters=n, **fit)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) / n * 1e3)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.update(y, iters=n, **fit)
+            model.update(*args, iters=n, **fit)
             torch.cuda.synchronize()
     events = list(prof.events())
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -1299,22 +1529,33 @@ def trace_sweeps(card, label, model, y, fit, fold, n=3):
 
 
 def phase_trace(card):
-    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state, mixlds_from_state
+    from pyvbmp_tpu_torch.utils.convert import (
+        arhmm_from_state, dhmm_from_state, dmbd_from_state, dmbd_state, mixlds_from_state,
+    )
 
-    y = lorenz_data(torch.float32, "cuda")
+    y = (lorenz_data(torch.float32, "cuda"),)
     state = dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"])))
     trace_sweeps(card, "DMBD-Lorenz", dmbd_from_state(state, "cuda", torch.float32), y, {},
                  "0")
-    y = flocking_data(torch.float32, "cuda")
+    y = (flocking_data(torch.float32, "cuda"),)
     state = flocking_state(FLOCK["seed"])
     for fold in ("0", "auto"):
         trace_sweeps(card, "DMBD-Flocking", dmbd_from_state(state, "cuda", torch.float32), y,
                      dict(latent_iters=1, lr=1.0), fold)
-    y = torch.from_numpy(mixlds_data()).cuda()
+    y = (torch.from_numpy(mixlds_data()).cuda(),)
     state = mixlds_state0(MIX["seed"])
     for fold in ("0", "1"):
         trace_sweeps(card, "MixLDS", mixlds_from_state(state, "cuda", torch.float32), y, {},
                      fold)
+    y = (nlds_data()[0].to("cuda", torch.float32),)
+    trace_sweeps(card, "NLDS", nlds_model(torch.Generator().manual_seed(NLDS_EX["seed"]),
+                                          torch.float32, "cuda"), y, {}, "0")
+    data = to_card((dhmm_inputs(), hmm_data()))
+    trace_sweeps(card, "dHMM", dhmm_from_state(dhmm_state0(DHMM_CORE["seed"]), "cuda",
+                                               torch.float32), data, {}, "0")
+    data = to_card((ar_pairs(HMM_CORE["T"], HMM_CORE["batch"], ARHMM_CFG["data_seed"]),))
+    trace_sweeps(card, "ARHMM", arhmm_from_state(arhmm_state0(ARHMM_CFG["seed"]), "cuda",
+                                                 torch.float32), data, {}, "0")
 
 
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):
@@ -1356,6 +1597,9 @@ def main():
     launches_hmm = run("15", phase_hmm, card)
     launches_widths = run("16-17", phase_widths, card)
     run("18", phase_sequential, card)
+    launches_nlds = run("19", phase_nlds, card)
+    launches_dhmm = run("20", phase_dhmm, card)
+    launches_arhmm = run("21", phase_arhmm, card)
     if args.trace:
         run("trace", phase_trace, card)
     if base is not None:
@@ -1367,7 +1611,8 @@ def main():
         kernels.append(record_line(
             s.name, s.source, s.replaces,
             launches_dmbd[s.name] + launches_mix[s.name] + launches_flock["0"][s.name]
-            + launches_hmm[s.name] + launches_widths[s.name],
+            + launches_hmm[s.name] + launches_widths[s.name] + launches_nlds[s.name]
+            + launches_dhmm[s.name] + launches_arhmm[s.name],
             max(record[s.name]["abs"], one_pass[s.name]), record[s.name]))
     for s in scan.FOLDED_SCANS:
         kernels.append(record_line(

@@ -1,15 +1,22 @@
-"""Models: DynamicMarkovBlanketDiscovery, the linear dynamical systems and
-the pieces they are built from."""
-from .arhmm import ARHMM_prXRY
+"""Models: DynamicMarkovBlanketDiscovery, the linear dynamical systems, the
+HMM family and the pieces they are built from."""
+from .arhmm import ARHMM, ARHMM_prXY, ARHMM_prXRY
+from .dhmm import dHMM
 from .dmbd import DynamicMarkovBlanketDiscovery
 from .hmm import HMM
 from .lds import LinearDynamicalSystems
 from .mix_lds import MixtureofLinearDynamicalSystems
+from .nlds import NLDS, NonLinearDynamicalSystems
 
 __all__ = [
+    "ARHMM",
+    "ARHMM_prXY",
     "ARHMM_prXRY",
     "DynamicMarkovBlanketDiscovery",
     "HMM",
     "LinearDynamicalSystems",
     "MixtureofLinearDynamicalSystems",
+    "NLDS",
+    "NonLinearDynamicalSystems",
+    "dHMM",
 ]

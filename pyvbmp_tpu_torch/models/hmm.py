@@ -11,8 +11,10 @@ Two smoothers, picked by ``smoother_dispatch`` from the model's
   scan of the (log,+) matrix semiring, the logsemiring CUDA kernel for
   tensors on the card.
 
-``time_mesh`` (the JAX package's time-sharded smoother) is not ported and
-raises, as does the driven (dHMM) smoother.
+With ``driven=True`` the dispatch gives the input-driven forms of the two
+(``models/dhmm.py:driven_forward_backward`` and
+``ops.parallel_hmm.driven_forward_backward_parallel``).  ``time_mesh`` (the
+JAX package's time-sharded smoother) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -74,18 +76,24 @@ def forward_backward(trans_logits, init_logits, obs_logits, ptemp=1.0):
 
 def smoother_dispatch(model, driven=False):
     """The forward-backward that ``model`` asks for: the scan-based smoother
-    when ``model.parallel_scan`` is set, the sequential one otherwise.
-    Returns ``fb(trans_logits, init_logits, obs_logits, ptemp)``.  The JAX
-    package's time-sharded tier (``model.time_mesh``) and the driven
-    smoother are not ported and raise."""
+    when ``model.parallel_scan`` is set, the sequential one otherwise; with
+    ``driven`` their input-driven forms (per-time transition logits, per-time
+    SEzz).  Returns ``fb(trans_logits, init_logits, obs_logits, ptemp)``.
+    The JAX package's time-sharded tier (``model.time_mesh``) is not ported
+    and raises."""
     if getattr(model, "time_mesh", None) is not None:
         raise NotImplementedError("time_mesh (the time-sharded smoother) is not ported")
-    if driven:
-        raise NotImplementedError("the driven (dHMM) forward-backward is not ported")
     if getattr(model, "parallel_scan", False):
-        from ..ops.parallel_hmm import forward_backward_parallel
+        from ..ops.parallel_hmm import (
+            driven_forward_backward_parallel,
+            forward_backward_parallel,
+        )
 
-        return forward_backward_parallel
+        return driven_forward_backward_parallel if driven else forward_backward_parallel
+    if driven:
+        from .dhmm import driven_forward_backward
+
+        return driven_forward_backward
     return forward_backward
 
 

@@ -5,7 +5,9 @@ The forward-backward is one prefix and one suffix scan of the (log,+) matrix
 semiring over the per-step elements M_t[i, j] = trans[i, j] + obs_t[j], laid
 out as (T, K, K, N) with the flattened batch N minor.  The scans go through
 ``ops.scan.logsemiring_scan``: the CUDA kernel for tensors on the card, the
-plain fold of ``_logmatmul_plane`` on the CPU.
+plain fold of ``_logmatmul_plane`` on the CPU.  The input-driven smoother
+(``driven_forward_backward_parallel``) runs the same core on per-time
+transition logits, M_t[i, j] = trans_t[i, j] + obs_t[j].
 """
 from __future__ import annotations
 
@@ -76,3 +78,19 @@ def forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0):
     M = trans_logits + obs_logits[..., None, :]
     p, xi, SEz0, logZ = _hmm_plane_core(M, init_logits, ptemp)
     return p, xi.sum(0), SEz0, logZ
+
+
+def driven_forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0):
+    """Same contract as
+    pyvbmp_tpu.ops.parallel_hmm.driven_forward_backward_parallel (plane form):
+    the input-driven smoother, with per-time transition logits.
+
+    trans_logits: (T,) + sample + batch + (K, K)
+    init_logits:  batch + (K,)
+    obs_logits:   (T,) + sample + batch + (K,)
+    Returns (p (T,)+sample+batch+(K,), SEzz (T,)+sample+batch+(K,K),
+    SEz0 sample+batch+(K,), logZ sample+batch).  The pairwise statistics
+    stay per time step: the MNLR transition's M-step needs SEzz[t].
+    """
+    M = trans_logits + obs_logits[..., None, :]
+    return _hmm_plane_core(M, init_logits, ptemp)

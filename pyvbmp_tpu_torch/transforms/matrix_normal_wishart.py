@@ -7,8 +7,9 @@ The port carries what DMBD's emission model (ARHMM_prXRY) uses: ``mask``
 likelihood messages ``Elog_like_given_pX_pY`` and ``Elog_like_X``; and what
 the mixture-of-experts classifiers use: ``pad_X`` (a bias column appended to
 X), ``raw_update``, ``Elog_like``, ``predict`` and the messages
-``forward`` and ``backward``.  DMBD builds every
-transform with ``pad_X=False``.
+``forward`` and ``backward``; and what the ARHMM family uses:
+``Elog_like_X_given_pY``.  DMBD builds every transform with
+``pad_X=False``.
 """
 from __future__ import annotations
 
@@ -355,14 +356,16 @@ class MatrixNormalWishart(Node):
             invSigmamu_x = self.EXTinvU() @ Y
         return invSigma_x_x, invSigmamu_x, Residual
 
-    def backward(self, pY, Res=0.0):
-        """The message to X given the message pY, and its residual."""
+    def _message_to_X(self, pY, bias_sign):
+        """(invSigma_x_x, invSigmamu_x, residual) of the message to X given
+        the message pY: Y integrated out of the joint, with the bias column
+        of a ``pad_X`` map entering Y's linear term with ``bias_sign``."""
         if self.pad_X:
             EinvUX = self.EinvUX()
             EXTinvUX = self.EXTinvUX()
             PJ_y_x = -EinvUX[..., :, :-1]
             PJ_x_x = EXTinvUX[..., :-1, :-1]
-            PmuJ_y = pY.EinvSigmamu() + EinvUX[..., :, -1:]
+            PmuJ_y = pY.EinvSigmamu() + bias_sign * EinvUX[..., :, -1:]
             PmuJ_x = -EXTinvUX[..., :-1, -1:]
             PJ11 = EXTinvUX[..., -1, -1]
         else:
@@ -376,17 +379,31 @@ class MatrixNormalWishart(Node):
         )
         invSigmamu_y = PmuJ_y + negBinvD @ PmuJ_x
         invSigmamu_x = PmuJ_x + negCinvA @ PmuJ_y
-        pX = MVN_vf(invSigma=invSigma_x_x, invSigmamu=invSigmamu_x)
         Res = (
-            Res
-            + pY.Res()
+            pY.Res()
             + 0.5 * (mT(invSigmamu_y) @ psd_solve(invSigma_y_y, invSigmamu_y))[..., 0, 0]
             - 0.5 * psd_logdet(invSigma_y_y)
             + 0.5 * pY.dim * um.LOG2PI
             + 0.5 * self.ElogdetinvSigma()
             - 0.5 * PJ11
         )
-        return pX, Res - pX.Res()
+        return invSigma_x_x, invSigmamu_x, Res
+
+    def Elog_like_X_given_pY(self, pY):
+        """The message to X given the message pY, with its moments, and its
+        residual.  With ``pad_X`` the bias enters with the opposite sign to
+        ``backward``'s: the JAX package's sign, kept for parity."""
+        invSigma_x_x, invSigmamu_x, Res = self._message_to_X(pY, -1.0)
+        Sigma_x_x = psd_inv(invSigma_x_x)
+        px = MVN_vf(invSigma=invSigma_x_x, invSigmamu=invSigmamu_x,
+                    mu=Sigma_x_x @ invSigmamu_x, Sigma=Sigma_x_x)
+        return px, Res - px.Res()
+
+    def backward(self, pY, Res=0.0):
+        """The message to X given the message pY, and its residual."""
+        invSigma_x_x, invSigmamu_x, Res_x = self._message_to_X(pY, 1.0)
+        pX = MVN_vf(invSigma=invSigma_x_x, invSigmamu=invSigmamu_x)
+        return pX, Res + Res_x - pX.Res()
 
     def forward(self, pX):
         """Collapsed-VB forward message to Y given the message pX, with its

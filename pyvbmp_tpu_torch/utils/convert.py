@@ -11,6 +11,12 @@ numpy arrays.
   (``torchutils.default_device``: with no card and no device they raise
   before building anything).
 
+The chain models have the same pair of functions: ``arhmm_state`` (an
+ARHMM, ARHMM_prXY or ARHMM_prXRY, its class under ``kind``), ``dhmm_state``
+(NormalInverseWishart observations) and ``nlds_state``, each with its
+``..._from_state``; they carry ``parallel_scan``, ``ptemp`` and ``pad_X``
+where the model has them, and p (an NLDS's q(s)) when it is set.
+
 The classifiers have the same pair of functions: ``mvn_ard_state`` (an
 MVN_ard node with its Gamma, and its shapes), ``mnlr_state``,
 ``bouchard_state``, ``dmixlt_state`` and ``nlrm_state``, each with its
@@ -134,6 +140,12 @@ def load_state(n, d):
     return dataclasses.replace(n, **changes)
 
 
+def _load_p(model, state):
+    """Set ``model.p``, the last assignments, when the state holds them."""
+    if "p" in state:
+        model.p = torch.tensor(np.asarray(state["p"], np.float64))
+
+
 def dmbd_from_state(state, device=None, dtype=None):
     """This package's DMBD holding ``state``, on ``device`` in ``dtype``."""
     device = default_device(device)
@@ -160,8 +172,7 @@ def dmbd_from_state(state, device=None, dtype=None):
             **{k: torch.tensor(np.asarray(state["px"][k], np.float64))
                for k in _PX_FIELDS}
         )
-    if "p" in state:
-        om.p = torch.tensor(np.asarray(state["p"], np.float64))
+    _load_p(om, state)
     return model.to(device, dtype)
 
 
@@ -207,8 +218,7 @@ def hmm_from_state(state, device=None, dtype=None):
     )
     model.transition = load_state(model.transition, state["transition"])
     model.initial = load_state(model.initial, state["initial"])
-    if "p" in state:
-        model.p = torch.tensor(np.asarray(state["p"], np.float64))
+    _load_p(model, state)
     return model.to(device, dtype)
 
 
@@ -305,8 +315,7 @@ def mixlds_from_state(state, device=None, dtype=None):
     )
     _load_lds_nodes(model.lds, state["lds"])
     model.pi = load_state(model.pi, state["pi"])
-    if "p" in state:
-        model.p = torch.tensor(np.asarray(state["p"], np.float64))
+    _load_p(model, state)
     return model.to(device, dtype)
 
 
@@ -426,4 +435,128 @@ def nlrm_from_state(state, device=None, dtype=None):
     )
     model.A = load_state(model.A, state["A"])
     model.Z.beta = load_state(model.Z.beta, state["Z"])
+    return model.to(device, dtype)
+
+
+# -- the ARHMM family, dHMM and NLDS -------------------------------------------
+def arhmm_state(model):
+    """Nested dict of numpy arrays holding an ARHMM, ARHMM_prXY or
+    ARHMM_prXRY: its class and configuration (ptemp, parallel_scan and
+    pad_X among them), its Dirichlets, transition_mask, the MNW emission
+    (masks included) and p when the model has run."""
+    obs = model.obs_dist
+    kind = type(model).__name__
+    config = dict(dim=obs.batch_shape[-1], n=obs.n,
+                  batch_shape=tuple(obs.batch_shape[:-1]), pad_X=bool(obs.pad_X))
+    if kind == "ARHMM_prXRY":
+        config.update(p1=model.p1, p2=model.p2)
+    else:
+        config.update(p=obs.p - int(obs.pad_X))
+    mask = model.transition_mask
+    state = {
+        "kind": kind,
+        "config": config,
+        "ptemp": float(model.ptemp),
+        "parallel_scan": bool(model.parallel_scan),
+        "transition": node_state(model.transition),
+        "initial": node_state(model.initial),
+        "transition_mask": None if mask is None else _array(mask),
+        "obs_dist": node_state(obs),
+    }
+    if model.p is not None:
+        state["p"] = _array(model.p)
+    return state
+
+
+def arhmm_from_state(state, device=None, dtype=None):
+    """This package's ARHMM, ARHMM_prXY or ARHMM_prXRY holding ``state``, on
+    ``device`` in ``dtype``."""
+    device = default_device(device)
+    from .. import models
+
+    mask = state["transition_mask"]
+    model = getattr(models, state["kind"])(
+        **state["config"],
+        transition_mask=None if mask is None else torch.tensor(np.asarray(mask)),
+        generator=torch.Generator().manual_seed(0), dtype=torch.float64, device="cpu",
+    )
+    model.ptemp = state["ptemp"]
+    model.parallel_scan = state["parallel_scan"]
+    model.transition = load_state(model.transition, state["transition"])
+    model.initial = load_state(model.initial, state["initial"])
+    model.obs_dist = load_state(model.obs_dist, state["obs_dist"])
+    _load_p(model, state)
+    return model.to(device, dtype)
+
+
+def dhmm_state(model):
+    """Nested dict of numpy arrays holding a dHMM with NormalInverseWishart
+    observations: its configuration (ptemp, parallel_scan), the MNLR
+    transition's weights, the initial Dirichlet, the observation model and p
+    when the model has run."""
+    obs = model.obs_dist
+    state = {
+        "config": dict(event_shape=tuple(obs.event_shape),
+                       batch_shape=tuple(obs.batch_shape),
+                       p=model.transition.p - 1,
+                       ptemp=float(model.ptemp),
+                       parallel_scan=bool(model.parallel_scan)),
+        "transition": node_state(model.transition.beta),
+        "initial": node_state(model.initial),
+        "obs_dist": node_state(obs),
+    }
+    if model.p is not None:
+        state["p"] = _array(model.p)
+    return state
+
+
+def dhmm_from_state(state, device=None, dtype=None):
+    """This package's dHMM (NormalInverseWishart observations) holding
+    ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
+    from ..dists import NormalInverseWishart
+    from ..models import dHMM
+
+    cfg = state["config"]
+    g = torch.Generator().manual_seed(0)
+    obs = NormalInverseWishart.create(cfg["event_shape"], cfg["batch_shape"], generator=g,
+                                      dtype=torch.float64, device="cpu")
+    model = dHMM(load_state(obs, state["obs_dist"]), cfg["p"], ptemp=cfg["ptemp"],
+                 parallel_scan=cfg["parallel_scan"], generator=g, dtype=torch.float64,
+                 device="cpu")
+    model.transition.beta = load_state(model.transition.beta, state["transition"])
+    model.initial = load_state(model.initial, state["initial"])
+    _load_p(model, state)
+    return model.to(device, dtype)
+
+
+_NLDS_NODES = ("x0", "A", "B", "pi0")
+
+
+def nlds_state(model):
+    """Nested dict of numpy arrays holding an NLDS: its configuration, the
+    nodes x0 (NormalInverseWishart), A and B (MatrixNormalWishart), pi0
+    (Dirichlet), the transition MNLR's weights T, and p (q(s)) when set."""
+    state = {
+        "config": dict(obs_shape=tuple(model.obs_shape), hidden_dim=model.hidden_dim,
+                       mixture_dim=model.mixture_dim),
+        **{k: node_state(getattr(model, k)) for k in _NLDS_NODES},
+        "T": node_state(model.T.beta),
+    }
+    if model.p is not None:
+        state["p"] = _array(model.p)
+    return state
+
+
+def nlds_from_state(state, device=None, dtype=None):
+    """This package's NLDS holding ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
+    from ..models import NLDS
+
+    model = NLDS(**state["config"], generator=torch.Generator().manual_seed(0),
+                 dtype=torch.float64, device="cpu")
+    for k in _NLDS_NODES:
+        setattr(model, k, load_state(getattr(model, k), state[k]))
+    model.T.beta = load_state(model.T.beta, state["T"])
+    _load_p(model, state)
     return model.to(device, dtype)

@@ -14,6 +14,7 @@ from pyvbmp_tpu_torch.transforms import MatrixNormalWishart
 from pyvbmp_tpu_torch.utils import convert
 from pyvbmp_tpu_torch.utils.torchutils import NoCardError, default_device
 
+DHMM_OBS = NormalInverseWishart.create((2,), (3,), generator=torch.Generator().manual_seed(0))
 CONSTRUCTORS = {
     "DMBD": lambda **k: tm.DynamicMarkovBlanketDiscovery((3, 2), (1, 2, 1), (2, 2, 2), **k),
     "DMBD 3 objects": lambda **k: tm.DynamicMarkovBlanketDiscovery(
@@ -21,6 +22,11 @@ CONSTRUCTORS = {
     "LDS": lambda **k: tm.LinearDynamicalSystems((3,), 2, **k),
     "MixLDS": lambda **k: tm.MixtureofLinearDynamicalSystems(2, (3,), 2, 0, 0, **k),
     "ARHMM_prXRY": lambda **k: tm.ARHMM_prXRY(3, 2, 4, 1, **k),
+    "ARHMM": lambda **k: tm.ARHMM(3, 2, 2, **k),
+    "ARHMM_prXY": lambda **k: tm.ARHMM_prXY(3, 2, 2, **k),
+    # the observation model is built before the call, as for an HMM
+    "dHMM": lambda **k: tm.dHMM(DHMM_OBS, 2, **k),
+    "NLDS": lambda **k: tm.NLDS((3,), 2, 2, **k),
     "MNLR": lambda **k: tt.MultiNomialLogisticRegression(3, 4, **k),
     "MNLR (Bouchard)": lambda **k: tt.MultiNomialLogisticRegression_Bouchard(3, 4, **k),
     "dMixLT": lambda **k: tt.dMixtureofLinearTransforms(3, 4, 2, **k),
@@ -35,6 +41,9 @@ CONVERTERS = {
         device="cpu")),
     "lds": lambda: convert.lds_state(CONSTRUCTORS["LDS"](device="cpu")),
     "mixlds": lambda: convert.mixlds_state(CONSTRUCTORS["MixLDS"](device="cpu")),
+    "arhmm": lambda: convert.arhmm_state(CONSTRUCTORS["ARHMM"](device="cpu")),
+    "dhmm": lambda: convert.dhmm_state(CONSTRUCTORS["dHMM"](device="cpu")),
+    "nlds": lambda: convert.nlds_state(CONSTRUCTORS["NLDS"](device="cpu")),
     "mvn_ard": lambda: convert.mvn_ard_state(
         MVN_ard.create(event_shape=(2, 3, 1), generator=torch.Generator().manual_seed(0))),
     "mnlr": lambda: convert.mnlr_state(CONSTRUCTORS["MNLR"](device="cpu")),

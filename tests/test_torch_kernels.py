@@ -91,10 +91,12 @@ def test_kernel_matches_plain(cuda, which, size, reverse):
         assert rel_err(o, r) <= TOL
 
 
-# the scans of the HMM-core, Cradle and Flame paths at the shapes those paths
-# give them (size, T, lanes): ragged lane blocks at every one
+# the scans of the HMM-core (and dHMM), Cradle, Flame, ARHMM and NLDS paths
+# at the shapes those paths give them (size, T, lanes): ragged lane blocks at
+# every one, and the lane kernel's per-lane copy path (N = 8, below a warp)
 MAIN_PATH = [("logsemiring", 8, 200, 200), ("logsemiring", 6, 200, 50),
-             ("logsemiring", 3, 100, 12), ("kalman", 6, 200, 10), ("kalman", 4, 100, 1)]
+             ("logsemiring", 3, 100, 12), ("kalman", 6, 200, 10), ("kalman", 4, 100, 1),
+             ("logsemiring", 4, 200, 200), ("lane", 2, 200, 8)]
 
 
 @pytest.mark.parametrize("which,size,T,N", MAIN_PATH)
@@ -458,3 +460,70 @@ def test_mnlr_fit_runs_the_scatter_kernel(cuda):
     assert ws.WEIGHTED_OUTER.plain_calls == plain
     acc = (m.predict(X).argmax(-1).cpu().numpy() == y).mean()
     assert acc > 0.9
+
+
+def ar_pairs(rs, T, B):
+    """Two AR regimes switching every 10 steps: X and Y (T, B, 1, 2, 1)."""
+    rot = np.asarray([[0.0, -0.9], [0.9, 0.0]])
+    x = rs.randn(B, 2)
+    X, Y = [], []
+    for t in range(T):
+        y = x @ (0.9 * np.eye(2) if (t // 10) % 2 == 0 else rot).T + 0.05 * rs.randn(B, 2)
+        X.append(x)
+        Y.append(y)
+        x = y
+    return tuple(torch.tensor(np.stack(a)[..., None, :, None]) for a in (X, Y))
+
+
+def chain_models():
+    """name -> (state, convert.*_from_state, update arguments on the CPU in
+    float64, want launches a sweep of the scans (one pass))."""
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.models import ARHMM, NLDS, dHMM
+    from pyvbmp_tpu_torch.utils import convert
+
+    g = torch.Generator().manual_seed(0)
+    kw = dict(generator=g, dtype=torch.float64, device="cpu")
+    rs = np.random.RandomState(9)
+    arhmm = ARHMM(4, 2, 2, **kw)
+    arhmm.parallel_scan = True
+    dhmm = dHMM(NormalInverseWishart.create((2,), (3,), generator=g), 2,
+                parallel_scan=True, **kw)
+    nlds = NLDS((3,), 2, 2, **kw)
+    nlds.p = torch.tensor(rs.dirichlet(np.ones(2), (60, 4)))
+    y = np.cumsum(rs.randn(60, 4, 3) * 0.3, 0)
+    return {
+        "ARHMM": (convert.arhmm_state(arhmm), convert.arhmm_from_state,
+                  (ar_pairs(rs, 60, 4),), [2, 0, 0]),
+        "dHMM": (convert.dhmm_state(dhmm), convert.dhmm_from_state,
+                 (torch.tensor(rs.randn(60, 4, 2)), torch.tensor(rs.randn(60, 4, 2))),
+                 [2, 0, 0]),
+        "NLDS": (convert.nlds_state(nlds), convert.nlds_from_state,
+                 (torch.tensor(y),), [0, 0, 2]),
+    }
+
+
+def to_each(fn, tree):
+    """``fn`` on every tensor of nested tuples."""
+    if isinstance(tree, tuple):
+        return tuple(to_each(fn, t) for t in tree)
+    return fn(tree)
+
+
+@pytest.mark.parametrize("name", ["ARHMM", "dHMM", "NLDS"])
+def test_chain_model_fit_on_the_card_follows_the_cpu(cuda, name):
+    """3 sweeps from one state: the card in float32 (the scan kernels a sweep
+    as the model's path gives them, no plain scan) within relative 1e-4 of
+    the CPU in float64 (the plain scans)."""
+    state, from_state, args, want = chain_models()[name]
+    gpu = from_state(state, device=cuda, dtype=torch.float32)
+    cpu = from_state(state, device="cpu", dtype=torch.float64)
+    on_card = to_each(lambda a: a.to(cuda, torch.float32), args)
+    before = [s.launches for s in scan.SCANS]
+    plain = [s.plain_calls for s in scan.SCANS]
+    gpu.update(*on_card, iters=3)
+    assert [s.launches - b for s, b in zip(scan.SCANS, before)] == [3 * w for w in want]
+    assert [s.plain_calls for s in scan.SCANS] == plain
+    cpu.update(*args, iters=3)
+    e_gpu, e_cpu = np.asarray(gpu.ELBO_save), np.asarray(cpu.ELBO_save)
+    assert (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max() <= TOL
