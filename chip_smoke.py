@@ -26,7 +26,7 @@ prints no result:
    (HMM-core K=8 T=200 N=200, and the same with a transition per step and
    lane as dHMM builds them; ARHMM K=4 T=200 N=200; NLDS lane H=2 T=200
    N=8; Cradle K=6 T=200 N=50 and H=6 N=10; Flame K=3 T=100 N=12 and H=4
-   N=1);
+   N=1; life K=12 T=128 N=384; artificial life K=10 T=199 N=16);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -93,12 +93,18 @@ prints no result:
    kernel ran 2 x sweeps times, every other kernel 0 times, no plain
    version; then card f32 vs CPU f64 from one numpy state, 3 sweeps, within
    relative 1e-4;
-16-17. DMBD at the Cradle widths (obs (5,2), role_dims and hidden_dims
-   (2,2,2): K = 6, h = 6; T=200, batch=10) and the Flame widths (obs
-   (12,1), role_dims (1,1,1), hidden_dims (2,1,1): K = 3, h = 4; T=100,
-   batch=1), smooth random walks from a numpy seed, parallel_scan=True, 3
-   sweeps: 2 launches a sweep of each scan kernel, no plain version, ELBO
-   within relative 1e-4 of the CPU in float64;
+16. DMBD on the ported NewtonsCradle's data (benchmarks/cradle_bench.py:
+   5 balls, ball size 0.2, g=1, leak 0.01, dt 0.05, "1 ball object", T=200,
+   batch 10; role_dims and hidden_dims (2,2,2): K = 6, h = 6),
+   parallel_scan=True: the simulator on the card within relative 1e-6 of
+   the CPU's, sweeps/s over 5 sweeps after a warm-up, 2 launches a sweep of
+   each scan kernel and no plain version, then card f32 vs CPU f64 over 3
+   sweeps within relative 1e-4;
+17. DMBD on the ported FlameSimulator's data at examples/flame_example.py's
+   full size (500 steps, every fifth: T=100, batch 1, obs (12,1); role_dims
+   (1,1,1), hidden_dims (2,1,1): K = 3, h = 4), lr=0.5: the simulator on the
+   card vs the CPU as in 16, then 3 sweeps card f32 vs CPU f64 within
+   relative 1e-4 with 2 launches a sweep of each scan kernel;
 18. DMBD-Lorenz with parallel_scan=False (the JAX default), 3 sweeps: no
    kernel launched and no plain scan; the ELBO rises; card f32 within
    relative 1e-4 of CPU f64; ELBO() is ELBO_last and KLqprior() is finite;
@@ -118,7 +124,29 @@ prints no result:
    kernel; then card f32 vs CPU f64 over 3 sweeps within relative 1e-4;
 21. ARHMM(4, 2, 2) with parallel_scan=True on two AR regimes switching
    every 10 steps at T=200, batch 200 (logsemiring K=4 on 200 lanes): as
-   phase 20.
+   phase 20;
+22. examples/life_as_we_know_it_example.py at full size: its synthetic
+   particle soup (T=770, 64 particles, 6 clusters, seed 0: data (128, 6,
+   64, 4)), role_dims (0,1,1), hidden_dims (12,4,4), 6 objects (K = 12, H =
+   60: the dense Kalman form), parallel_scan=True, lr=0.5, float32: 5
+   sweeps after a warm-up, sweeps/s; the ELBO finite and ending above where
+   it started; 2 logsemiring launches a sweep, no Kalman kernel and no
+   plain scan; card f32 vs CPU f64 over 3 sweeps from one numpy state, and
+   Elog_like card vs CPU, within relative 1e-4;
+23. examples/artificial_life_example.py at full size: synthetic rotors
+   (T_synth=400, 16 particles: data (199, 1, 16, 4)), role_dims (0,1,0),
+   hidden_dims (8,4,2), 10 objects, regression_dim=-1 (K = 10, H = 68),
+   ptemp annealed 5 -> 1 over 3 + 3 sweeps: as phase 22 (the comparison
+   over 1 sweep at ptemp 5 and 2 at ptemp 1);
+24. DMBD-Lorenz (phase 3's data and widths) with unique_obs=True: one role
+   model per observable, no role transition mask; 3 sweeps card f32 vs CPU
+   f64 with 2 launches a sweep of each scan kernel, and Elog_like card vs
+   CPU, within relative 1e-4;
+25. GMM-core (benchmarks/core_models_bench.py:19-28: gmm_data with
+   n=200000, nc=16, d=8, seed 0): GaussianMixtureModel(16, 8) in float32 on
+   the card, initialize, then 10 iterations after a warm-up, iterations/s;
+   the ELBO finite and ending above where it started; no kernel and no
+   plain scan; card f32 vs CPU f64 over 3 iterations within relative 1e-4.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -134,8 +162,8 @@ With --baseline, MixLDS (phase 5's data and state) is also timed end to
 end with our lane kernel and the baseline's, in 12 alternating pairs.  --trace profiles 3
 sweeps of DMBD-Lorenz, of DMBD-Flocking on both routes and of MixLDS with
 the fold off and forced on (device busy time, kernel time by kind, wall
-clock), and of NLDS, dHMM and ARHMM.  Neither changes what the phases
-check.
+clock), of NLDS, dHMM and ARHMM, and of DMBD-life, DMBD-artificial-life and
+GMM-core (3 iterations).  Neither changes what the phases check.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -196,15 +224,37 @@ DHMM_CORE = dict(p=2, sweeps=10, compare_sweeps=3, input_seed=1, seed=0)
 # ARHMM(4, 2, 2) on tests/test_models_hmm_lds.py's two-regime AR recipe at
 # HMM_CORE's T and batch
 ARHMM_CFG = dict(dim=4, n=2, p=2, sweeps=10, compare_sweeps=3, data_seed=0, seed=0)
-# DMBD at the Newton's-cradle widths (benchmarks/cradle_bench.py:21: K = 6,
-# h = 6) and the Flame widths (examples/flame_example.py:16-26: K = 3, h = 4)
-# on smooth random walks from a numpy seed
+# DMBD at the Newton's-cradle widths (benchmarks/cradle_bench.py:21-33: K = 6,
+# h = 6) and the Flame widths (examples/flame_example.py:16-27: K = 3, h = 4)
+# on the ported simulators' data: the cradle's 5 balls, "1 ball object",
+# T=200, batch 10; the flame's 500 steps, every fifth kept (T=100), batch 1
 WIDTHS = {
     "Cradle": dict(obs_shape=(5, 2), role_dims=(2, 2, 2), hidden_dims=(2, 2, 2), T=200,
                    batch=10),
     "Flame": dict(obs_shape=(12, 1), role_dims=(1, 1, 1), hidden_dims=(2, 1, 1), T=100,
                   batch=1),
 }
+CRADLE = dict(n_balls=5, ball_size=0.2, g=1, leak=0.01, dt=0.05, init_type="1 ball object",
+              sweeps=5, compare_sweeps=3, data_seed=3, seed=0)
+FLAME = dict(num_steps=500, delta_t=0.02, thermal_diffusivity=0.5, temperature_threshold=0.45,
+             num_sources=12, stride=5, lr=0.5, compare_sweeps=3, data_seed=0, seed=0)
+# examples/life_as_we_know_it_example.py at full size: its synthetic soup
+# (load_life(T=770, n=64, k=6), seed 0: data (128, 6, 64, 4)), role_dims (0,
+# 1, 1), hidden_dims (12, 4, 4), 6 objects: K = 12, H = 60 (the dense Kalman
+# form); examples/artificial_life_example.py at full size: synthetic rotors
+# (T_synth=400, 16 particles: data (199, 1, 16, 4)), role_dims (0, 1, 0),
+# hidden_dims (8, 4, 2), 10 objects, regression_dim=-1: K = 10, H = 68, its
+# ptemp annealed 5 -> 1 (3 + 3 sweeps here).  ``scan`` is the logsemiring
+# scan's (T, K, lanes) on each path.  Both run at the examples' lr=0.5.
+LIFE = dict(T=770, n=64, k=6, role_dims=(0, 1, 1), hidden_dims=(12, 4, 4),
+            number_of_objects=6, regression_dim=0, schedule=((1.0, 5),),
+            compare=((1.0, 3),), lr=0.5, scan=(128, 12, 384), seed=0)
+ALIFE = dict(T_synth=400, n=16, role_dims=(0, 1, 0), hidden_dims=(8, 4, 2),
+             number_of_objects=10, regression_dim=-1, schedule=((5.0, 3), (1.0, 3)),
+             compare=((5.0, 1), (1.0, 2)), lr=0.5, scan=(199, 10, 16), seed=0)
+# benchmarks/core_models_bench.py:19-28 (GMM_CFG) with its gmm_data recipe
+GMM_CORE = dict(n=200000, nc=16, d=8, iters=10, compare_iters=3, data_seed=0, seed=0)
+SIM_TOL = 1e-6  # a simulator on the card against the same simulator on the CPU
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (dense FP32 below)
 FP32_FLOP_PER_S = 67e12
@@ -535,6 +585,11 @@ def phase_kernels(card, base=None):
                       (semiring_elems(rs, w["T"], K, N),)))
         cases.append((scan.KALMAN_PLANE, f"H={H} T={w['T']} N={w['batch']} ({name})",
                       kalman_elems(rs, w["T"], H, w["batch"])))
+    # the role scans of phases 22-23 (their Kalman legs take the dense form)
+    for name, c in (("life", LIFE), ("artificial life", ALIFE)):
+        T, K, N = c["scan"]
+        cases.append((scan.LOGSEMIRING, f"K={K} T={T} N={N} ({name})",
+                      (semiring_elems(rs, T, K, N),)))
     record = {s.name: dict(abs=0.0, ms=None, plain_ms=None, bound=None) for s in scan.SCANS}
     for s, label, arrays in cases:
         leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
@@ -572,7 +627,8 @@ def lorenz_data(dtype, device):
     sim = Lorenz()
     sim.num_steps = CFG["T"] * 5 + 6
     g = torch.Generator().manual_seed(CFG["seed"])
-    data = sim.simulate(CFG["batch"], generator=g)[: CFG["T"]]
+    # integrated on the CPU, so every phase fits the same data
+    data = sim.simulate(CFG["batch"], generator=g, device="cpu")[: CFG["T"]]
     return data.to(device=device, dtype=dtype)
 
 
@@ -656,21 +712,23 @@ def to_card(data):
     return data.to(device="cuda", dtype=torch.float32)
 
 
-def compare_card_cpu(label, from_state, state, args, n, card, card_fold="0"):
-    """``n`` sweeps from one numpy state on the card (float32, time fold
-    ``card_fold``) and on the CPU (float64, fold off): the ELBO trajectories
-    agree within REL_TOL.  ``args`` is the tuple of ``update``'s positional
-    arguments, in float64 on the CPU.  Returns the card's model and its
-    run's launches and plain calls."""
+def compare_card_cpu(label, from_state, state, args, n, card, card_fold="0", fit=None):
+    """``n`` sweeps (``update(*args, iters=n, **fit)``) from one numpy state
+    on the card (float32, time fold ``card_fold``) and on the CPU (float64,
+    fold off): the ELBO trajectories agree within REL_TOL.  ``args`` is the
+    tuple of ``update``'s positional arguments, in float64 on the CPU.
+    Returns the card's model, its run's launches and plain calls, and the
+    CPU's model."""
+    fit = fit or {}
     gpu = from_state(state, device="cuda", dtype=torch.float32)
     cpu = from_state(state, device="cpu", dtype=torch.float64)
     on_card = to_card(args)
     with time_fold(card_fold):
         reset_counts()
-        gpu.update(*on_card, iters=n)
+        gpu.update(*on_card, iters=n, **fit)
         torch.cuda.synchronize()
         launches, plain = read_counts()
-    cpu.update(*args, iters=n)
+    cpu.update(*args, iters=n, **fit)
     e_gpu = np.asarray(gpu.ELBO_save, np.float64)
     e_cpu = np.asarray(cpu.ELBO_save, np.float64)
     dev = np.abs(e_gpu - e_cpu) / np.abs(e_cpu)
@@ -678,7 +736,7 @@ def compare_card_cpu(label, from_state, state, args, n, card, card_fold="0"):
           f"cpu {e_cpu.tolist()}; max rel dev {dev.max():.3e}; card {card}")
     if not dev.max() <= REL_TOL:
         fail(f"{label}: card and CPU ELBO trajectories differ by {dev.max():.3e}")
-    return gpu, launches, plain
+    return gpu, launches, plain, cpu
 
 
 def phase_compare(card):
@@ -1015,7 +1073,7 @@ def flocking_data(dtype, device):
     from pyvbmp_tpu_torch.simulations import Flocking
 
     sim = Flocking(n_birds=FLOCK["n_birds"], Tmax=FLOCK["T"], batch_size=FLOCK["batch"])
-    y = sim.simulate(torch.Generator().manual_seed(FLOCK["seed"]))
+    y = sim.simulate(torch.Generator().manual_seed(FLOCK["seed"]), device="cpu")
     return y.to(device=device, dtype=dtype)
 
 
@@ -1235,41 +1293,122 @@ def phase_hmm(card):
     return launches
 
 
-def walk_data(cfg, seed):
-    """Smooth, standardized random walks (T, batch) + obs_shape, float64."""
-    rs = np.random.RandomState(seed)
-    y = np.cumsum(rs.randn(cfg["T"], cfg["batch"], *cfg["obs_shape"]) * 0.3, 0)
-    return torch.from_numpy((y - y.mean()) / y.std())
+def cradle_sim():
+    from pyvbmp_tpu_torch.simulations import NewtonsCradle
+
+    w, c = WIDTHS["Cradle"], CRADLE
+    return NewtonsCradle(n_balls=c["n_balls"], ball_size=c["ball_size"], Tmax=w["T"],
+                         batch_size=w["batch"], g=c["g"], leak=c["leak"], dt=c["dt"])
 
 
-def phase_widths(card):
-    """Phases 16-17: DMBD at the Cradle and Flame widths with the scan
-    smoothers, 3 sweeps on the card against the CPU in float64.  Returns the
-    launches of both card runs, summed."""
+def flame_sim(device):
+    from pyvbmp_tpu_torch.simulations import FlameSimulator
+
+    c = FLAME
+    return FlameSimulator(c["num_steps"], c["delta_t"], c["thermal_diffusivity"],
+                          c["temperature_threshold"], c["num_sources"],
+                          generator=torch.Generator().manual_seed(c["data_seed"]),
+                          device=device)
+
+
+def flame_data(temperature):
+    """examples/flame_example.py's data: every fifth step, (T, 1, sources, 1)."""
+    return temperature[:: FLAME["stride"]][:, None, :, None]
+
+
+def check_simulator(label, on_card, on_cpu, card):
+    """The card's simulation agrees with the CPU's (both float64)."""
+    err = rel_err(on_card.cpu(), on_cpu)[0]
+    print(f"  {label} simulated on the card vs the CPU: max rel dev {err:.3e}; card {card}")
+    if not err <= SIM_TOL:
+        fail(f"{label}: the simulator on the card and on the CPU differ by {err:.3e}")
+
+
+def widths_state(name, seed):
     from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
-    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+    from pyvbmp_tpu_torch.utils.convert import dmbd_state
 
-    total = {}
-    for phase, (name, cfg) in zip((16, 17), WIDTHS.items()):
-        dims = {k: cfg[k] for k in ("obs_shape", "role_dims", "hidden_dims")}
-        state = dmbd_state(DynamicMarkovBlanketDiscovery(
-            **dims, parallel_scan=True, generator=torch.Generator().manual_seed(CFG["seed"]),
-            dtype=torch.float64, device="cpu"))
-        n = CFG["compare_sweeps"]
-        gpu, launches, plain = compare_card_cpu(
-            f"phase {phase} DMBD-{name} T={cfg['T']} batch={cfg['batch']} obs "
-            f"{cfg['obs_shape']} roles {cfg['role_dims']} hidden {cfg['hidden_dims']} "
-            f"(K={sum(cfg['role_dims'])}, h={sum(cfg['hidden_dims'])})",
-            dmbd_from_state, state, (walk_data(cfg, phase),), n, card)
-        check_launches(f"DMBD-{name}", launches, plain, {
-            "logsemiring_scan": 2 * n, "kalman_plane_scan": 2 * n, "kalman_lane_scan": 0,
-            "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
-            "weighted_outer": 0})
-        if not np.isfinite(gpu.ELBO_save).all():
-            fail(f"DMBD-{name}: ELBO not finite")
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
-    return total
+    dims = {k: WIDTHS[name][k] for k in ("obs_shape", "role_dims", "hidden_dims")}
+    return dmbd_state(DynamicMarkovBlanketDiscovery(
+        **dims, parallel_scan=True, generator=torch.Generator().manual_seed(seed),
+        dtype=torch.float64, device="cpu"))
+
+
+SCAN_PAIR_WANT = {"logsemiring_scan": 2, "kalman_plane_scan": 2, "kalman_lane_scan": 0,
+                  "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
+                  "kalman_lane_scan_folded": 0, "weighted_outer": 0}
+
+
+def per_sweep(want, sweeps):
+    return {k: v * sweeps for k, v in want.items()}
+
+
+def phase_cradle(card):
+    """Phase 16: DMBD with the scan smoothers on the ported NewtonsCradle's
+    data (benchmarks/cradle_bench.py: 5 balls, "1 ball object", T=200,
+    batch 10): sweeps/s over 5 sweeps after a warm-up, 2 launches a sweep of
+    each scan kernel, then card f32 vs CPU f64 over 3 sweeps.  Returns the
+    timed run's launches."""
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state
+
+    w, c = WIDTHS["Cradle"], CRADLE
+    sim = cradle_sim()
+    y64, _ = sim.generate_data(c["init_type"], torch.Generator().manual_seed(c["data_seed"]),
+                               device="cpu")
+    if tuple(y64.shape) != (w["T"], w["batch"]) + w["obs_shape"]:
+        fail(f"Cradle data has shape {tuple(y64.shape)}")
+    on_card, _ = sim.generate_data(
+        c["init_type"], torch.Generator().manual_seed(c["data_seed"]), device="cuda")
+    check_simulator("NewtonsCradle", on_card, y64, card)
+    y = y64.to("cuda", torch.float32)
+    state = widths_state("Cradle", c["seed"])
+    dmbd_from_state(state, "cuda", torch.float32).update(y, iters=1)
+    model = dmbd_from_state(state, "cuda", torch.float32)
+    dt, launches, plain = drive(model, c["sweeps"], y)
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase 16 DMBD-Cradle (NewtonsCradle data) T={w['T']} batch={w['batch']} obs "
+          f"{w['obs_shape']} (K={sum(w['role_dims'])}, h={sum(w['hidden_dims'])}) "
+          f"{c['sweeps']} sweeps: {c['sweeps'] / dt:.3f} sweeps/s ({dt:.3f} s); card {card}")
+    print(f"  ELBO trajectory {elbo.tolist()}")
+    if not np.isfinite(elbo).all():
+        fail("DMBD-Cradle: ELBO not finite")
+    check_launches("DMBD-Cradle", launches, plain, per_sweep(SCAN_PAIR_WANT, c["sweeps"]))
+    n = c["compare_sweeps"]
+    _, launches_cmp, plain_cmp, _ = compare_card_cpu(
+        "phase 16 DMBD-Cradle", dmbd_from_state, widths_state("Cradle", c["seed"] + 1),
+        (y64,), n, card)
+    check_launches("DMBD-Cradle (card vs CPU)", launches_cmp, plain_cmp,
+                   per_sweep(SCAN_PAIR_WANT, n))
+    return launches
+
+
+def phase_flame(card):
+    """Phase 17: DMBD with the scan smoothers on the ported FlameSimulator's
+    data at examples/flame_example.py's full size (500 steps, every fifth:
+    T=100, batch 1, obs (12, 1)), lr=0.5: card f32 vs CPU f64 over 3
+    sweeps, 2 launches a sweep of each scan kernel.  Returns the card run's
+    launches."""
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state
+
+    w, c = WIDTHS["Flame"], FLAME
+    temperature, ign, _ = flame_sim("cpu").simulate()
+    y64 = flame_data(temperature)
+    if tuple(y64.shape) != (w["T"], w["batch"]) + w["obs_shape"]:
+        fail(f"Flame data has shape {tuple(y64.shape)}")
+    check_simulator("FlameSimulator", flame_sim("cuda").simulate()[0], temperature, card)
+    print(f"  sources ignited: {int(torch.isfinite(ign).sum())} of {c['num_sources']}")
+    n = c["compare_sweeps"]
+    t0 = time.perf_counter()
+    gpu, launches, plain, _ = compare_card_cpu(
+        f"phase 17 DMBD-Flame (FlameSimulator data) T={w['T']} batch={w['batch']} obs "
+        f"{w['obs_shape']} (K={sum(w['role_dims'])}, h={sum(w['hidden_dims'])}) lr={c['lr']}",
+        dmbd_from_state, widths_state("Flame", c["seed"]), (y64,), n, card,
+        fit=dict(lr=c["lr"]))
+    print(f"  card and CPU runs {time.perf_counter() - t0:.3f} s")
+    check_launches("DMBD-Flame", launches, plain, per_sweep(SCAN_PAIR_WANT, n))
+    if not np.isfinite(gpu.ELBO_save).all():
+        fail("DMBD-Flame: ELBO not finite")
+    return launches
 
 
 def phase_sequential(card):
@@ -1282,7 +1421,7 @@ def phase_sequential(card):
                                    parallel_scan=False))
     n = CFG["compare_sweeps"]
     t0 = time.perf_counter()
-    gpu, launches, plain = compare_card_cpu(
+    gpu, launches, plain, _ = compare_card_cpu(
         f"phase 18 DMBD-Lorenz parallel_scan=False T={CFG['T']} batch={CFG['batch']}",
         dmbd_from_state, state, (lorenz_data(torch.float64, "cpu"),), n, card)
     print(f"  card and CPU runs {time.perf_counter() - t0:.3f} s")
@@ -1371,7 +1510,7 @@ def phase_nlds(card):
                        "cpu")
     start.p = start._initial_p(NLDS_EX["T"], NLDS_EX["B"], y64)
     n = NLDS_EX["compare_sweeps"]
-    _, launches_cmp, plain_cmp = compare_card_cpu(
+    _, launches_cmp, plain_cmp, _ = compare_card_cpu(
         "phase 19 NLDS", nlds_from_state, nlds_state(start), (y64,), n, card)
     check_launches("NLDS (card vs CPU)", launches_cmp, plain_cmp, {"kalman_lane_scan": 2 * n})
     return launches
@@ -1480,11 +1619,235 @@ def phase_arhmm(card):
         c["compare_sweeps"], 2)
 
 
+def life_data():
+    """examples/life_as_we_know_it_example.py:load_life's synthetic particle
+    soup at LIFE's size: (T' / 6, 6, n, 4) positions and velocities, float64."""
+    c = LIFE
+    rs = np.random.RandomState(0)
+    member = rs.randint(0, c["k"], c["n"])
+    centers = np.cumsum(0.02 * rs.randn(c["T"], c["k"], 2), axis=0)
+    jitter = 0.15 * rs.randn(c["T"], c["n"], 2)
+    for t in range(1, c["T"]):
+        jitter[t] = 0.95 * jitter[t - 1] + 0.05 * rs.randn(c["n"], 2)
+    data = centers[:, member] + jitter
+    data = data / data.std()
+    v = np.diff(data, axis=0)
+    data = np.concatenate((data[1:], v / v.std()), -1)
+    T6 = (data.shape[0] // 6) * 6
+    data = data[:T6].reshape(6, T6 // 6, c["n"], 4).swapaxes(0, 1)
+    return torch.from_numpy(data.astype(np.float32).astype(np.float64))
+
+
+def rotor_data():
+    """examples/artificial_life_example.py:load_rotor_story's synthetic rotors
+    at ALIFE's size: (T, 1, n, 4), float64."""
+    c = ALIFE
+    rs = np.random.RandomState(0)
+    t = np.arange(c["T_synth"])[:, None]
+    centers = 0.5 * np.stack([np.cos(2 * np.pi * t / 300.0), np.sin(2 * np.pi * t / 300.0)], -1)
+    phase = rs.rand(c["n"]) * 2 * np.pi
+    omega = 2 * np.pi / (20.0 + 10.0 * rs.rand(c["n"]))
+    radius = 0.3 + 0.4 * rs.rand(c["n"])
+    ang = phase[None, :] + omega[None, :] * t
+    data = centers + radius[None, :, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+    data = data + 0.02 * rs.randn(*data.shape)
+    data = data / data.std()
+    v = np.diff(data, axis=0)
+    data = np.concatenate((data[1:], v / v.std()), -1)
+    data = data[: data.shape[0] // 2][:, None]
+    return torch.from_numpy(data.astype(np.float32).astype(np.float64))
+
+
+ROLE_SCAN_WANT = {"logsemiring_scan": 2, "kalman_plane_scan": 0, "kalman_lane_scan": 0,
+                  "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
+                  "kalman_lane_scan_folded": 0, "weighted_outer": 0}
+
+
+def run_schedule(model, y, schedule, lr):
+    """``update`` at each (ptemp, sweeps) of ``schedule`` in turn."""
+    for ptemp, n in schedule:
+        model.obs_model.ptemp = ptemp
+        model.update(y, iters=n, lr=lr)
+
+
+def compare_elog_like(label, state, y64, card):
+    """Elog_like from one numpy state on the card (float32) and on the CPU
+    (float64): within REL_TOL of the largest CPU value."""
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state
+
+    gpu = dmbd_from_state(state, "cuda", torch.float32).Elog_like(y64.to("cuda", torch.float32))
+    cpu = dmbd_from_state(state, "cpu", torch.float64).Elog_like(y64)
+    err = rel_err(gpu.double().cpu(), cpu)[0]
+    print(f"  {label} Elog_like card f32 vs CPU f64: shape {tuple(cpu.shape)}, max rel dev "
+          f"{err:.3e}; card {card}")
+    if not (torch.isfinite(gpu).all() and err <= REL_TOL):
+        fail(f"{label}: Elog_like on the card and the CPU differ by {err:.3e}")
+
+
+def phase_example(card, phase, name, cfg, y64):
+    """Phases 22-23: an example's DMBD at full size with the scan smoothers
+    (its Kalman leg in the dense form, h > 32): ``cfg['schedule']`` sweeps
+    after a warm-up sweep (sweeps/s; the ELBO finite, ending above where it
+    started; 2 logsemiring launches a sweep, no Kalman kernel, no plain
+    scan), then card f32 vs CPU f64 over ``cfg['compare']`` from one numpy
+    state, and Elog_like card vs CPU.  Returns the timed run's launches."""
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    def state(seed):
+        return dmbd_state(DynamicMarkovBlanketDiscovery(
+            tuple(y64.shape[-2:]), cfg["role_dims"], cfg["hidden_dims"],
+            regression_dim=cfg["regression_dim"], number_of_objects=cfg["number_of_objects"],
+            parallel_scan=True, generator=torch.Generator().manual_seed(seed),
+            dtype=torch.float64, device="cpu"))
+
+    lr = cfg["lr"]
+    y = y64.to("cuda", torch.float32)
+    state0 = state(cfg["seed"])
+    model = dmbd_from_state(state0, "cuda", torch.float32)
+    K, H = model.role_dim, model.hidden_dim
+    shape = (y64.shape[0], K, y64.shape[1] * y64.shape[2])
+    if shape != cfg["scan"]:
+        fail(f"{name}: the role scan's (T, K, lanes) is {shape}, not {cfg['scan']}")
+    run_schedule(model, y, [(cfg["schedule"][0][0], 1)], lr)  # warm-up sweep
+    model = dmbd_from_state(state0, "cuda", torch.float32)
+    sweeps = sum(n for _, n in cfg["schedule"])
+    reset_counts()
+    t0 = time.perf_counter()
+    run_schedule(model, y, cfg["schedule"], lr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase {phase} DMBD-{name} data {tuple(y64.shape)} roles {cfg['role_dims']} hidden "
+          f"{cfg['hidden_dims']} x {cfg['number_of_objects']} objects (K={K}, H={H}, dense "
+          f"Kalman form) (ptemp, sweeps) {cfg['schedule']} lr={lr}: {sweeps / dt:.3f} sweeps/s "
+          f"({dt:.3f} s); card {card}")
+    print(f"  ELBO trajectory {elbo.tolist()}")
+    if not np.isfinite(elbo).all():
+        fail(f"DMBD-{name}: ELBO not finite")
+    if not elbo[-1] > elbo[0]:
+        fail(f"DMBD-{name}: ELBO ended below where it started")
+    check_launches(f"DMBD-{name}", launches, plain, per_sweep(ROLE_SCAN_WANT, sweeps))
+
+    t0 = time.perf_counter()
+    st = state(cfg["seed"] + 1)
+    gpu = dmbd_from_state(st, "cuda", torch.float32)
+    cpu = dmbd_from_state(st, "cpu", torch.float64)
+    reset_counts()
+    run_schedule(gpu, y, cfg["compare"], lr)
+    torch.cuda.synchronize()
+    launches_cmp, plain_cmp = read_counts()
+    run_schedule(cpu, y64, cfg["compare"], lr)
+    e_gpu = np.asarray(gpu.ELBO_save, np.float64)
+    e_cpu = np.asarray(cpu.ELBO_save, np.float64)
+    dev = np.abs(e_gpu - e_cpu) / np.abs(e_cpu)
+    print(f"phase {phase} DMBD-{name} card f32 vs CPU f64, (ptemp, sweeps) {cfg['compare']}: "
+          f"ELBO card {e_gpu.tolist()} cpu {e_cpu.tolist()}; max rel dev {dev.max():.3e}; "
+          f"{time.perf_counter() - t0:.3f} s; card {card}")
+    if not dev.max() <= REL_TOL:
+        fail(f"DMBD-{name}: card and CPU ELBO trajectories differ by {dev.max():.3e}")
+    check_launches(f"DMBD-{name} (card vs CPU)", launches_cmp, plain_cmp,
+                   per_sweep(ROLE_SCAN_WANT, sum(n for _, n in cfg["compare"])))
+    compare_elog_like(f"phase {phase} DMBD-{name}", dmbd_state(cpu), y64, card)
+    return launches
+
+
+def phase_life(card):
+    return phase_example(card, 22, "life", LIFE, life_data())
+
+
+def phase_alife(card):
+    return phase_example(card, 23, "artificial-life", ALIFE, rotor_data())
+
+
+def phase_unique_obs(card):
+    """Phase 24: DMBD-Lorenz with unique_obs=True (one role model per
+    observable, no role transition mask) on phase 3's data and widths: card
+    f32 vs CPU f64 over 3 sweeps, 2 launches a sweep of each scan kernel,
+    then Elog_like card vs CPU.  Returns the card run's launches."""
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    state = dmbd_state(DynamicMarkovBlanketDiscovery(
+        obs_shape=CFG["obs_shape"], role_dims=CFG["role_dims"],
+        hidden_dims=CFG["hidden_dims"], unique_obs=True, parallel_scan=True,
+        generator=torch.Generator().manual_seed(CFG["seed"]), dtype=torch.float64,
+        device="cpu"))
+    y64 = lorenz_data(torch.float64, "cpu")
+    n = CFG["compare_sweeps"]
+    t0 = time.perf_counter()
+    gpu, launches, plain, cpu = compare_card_cpu(
+        f"phase 24 DMBD-Lorenz unique_obs=True T={CFG['T']} batch={CFG['batch']}",
+        dmbd_from_state, state, (y64,), n, card)
+    print(f"  card and CPU runs {time.perf_counter() - t0:.3f} s")
+    check_launches("DMBD unique_obs", launches, plain, per_sweep(SCAN_PAIR_WANT, n))
+    if gpu.obs_model.batch_shape != (CFG["obs_shape"][0],) or \
+            gpu.obs_model.transition_mask is not None:
+        fail("DMBD unique_obs: the role model is not one per observable without a mask")
+    compare_elog_like("phase 24 DMBD unique_obs", dmbd_state(cpu), y64, card)
+    return launches
+
+
+def gmm_data():
+    """benchmarks/core_models_bench.py:gmm_data at GMM_CORE: well separated
+    Gaussian clusters, (n, d) float32 values held in float64."""
+    c = GMM_CORE
+    rs = np.random.RandomState(c["data_seed"])
+    mus = rs.randn(c["nc"], c["d"]) * 4
+    z = rs.randint(0, c["nc"], c["n"])
+    X = (mus[z] + rs.randn(c["n"], c["d"])).astype(np.float32)
+    return torch.from_numpy(X.astype(np.float64))
+
+
+def gmm_state0(seed, X64):
+    from pyvbmp_tpu_torch.models import GaussianMixtureModel
+    from pyvbmp_tpu_torch.utils.convert import gmm_state
+
+    g = torch.Generator().manual_seed(seed)
+    m = GaussianMixtureModel(GMM_CORE["nc"], GMM_CORE["d"], generator=g, dtype=torch.float64,
+                             device="cpu")
+    m.initialize(X64, generator=g)
+    return gmm_state(m)
+
+
+def phase_gmm(card):
+    """Phase 25: GMM-core, GaussianMixtureModel(16, 8) on n=200000 points
+    in float32 on the card: initialize, then 10 iterations after a warm-up
+    (iterations/s; the ELBO finite, ending above where it started; no
+    kernel and no plain scan), then card f32 vs CPU f64 over 3 iterations
+    from one numpy state.  Returns the timed run's launches."""
+    from pyvbmp_tpu_torch.utils.convert import gmm_from_state
+
+    c = GMM_CORE
+    X64 = gmm_data()
+    X = X64.to("cuda", torch.float32)
+    state = gmm_state0(c["seed"], X64)
+    gmm_from_state(state, "cuda", torch.float32).update(X, iters=1)
+    model = gmm_from_state(state, "cuda", torch.float32)
+    dt, launches, plain = drive(model, c["iters"], X)
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase 25 GMM-core n={c['n']} nc={c['nc']} d={c['d']} (NIW components) "
+          f"{c['iters']} iterations: {c['iters'] / dt:.3f} it/s ({dt:.3f} s); card {card}")
+    print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
+    if not np.isfinite(elbo).all():
+        fail("GMM-core: ELBO not finite")
+    if not elbo[-1] > elbo[0]:
+        fail("GMM-core: ELBO ended below where it started")
+    check_launches("GMM-core", launches, plain, {k: 0 for k in launches})
+    if tuple(model.p.shape) != (c["n"], c["nc"]):
+        fail(f"GMM-core: p has shape {tuple(model.p.shape)}")
+    compare_card_cpu("phase 25 GMM-core", gmm_from_state, gmm_state0(c["seed"] + 1, X64),
+                     (X64,), c["compare_iters"], card)
+    return launches
+
+
 def trace_sweeps(card, label, model, args, fit, fold, n=3):
     """Per sweep of ``model.update(*args, iters=n, **fit)`` under the time
     fold ``fold``: the untraced wall clock (median of 5 runs), then one
     traced run: device busy time (the union of kernel intervals), kernel
-    time by kind, and host and device event counts."""
+    time by kind and the three largest other kernels by name, and host and
+    device event counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1513,14 +1876,19 @@ def trace_sweeps(card, label, model, args, fit, fold, n=3):
         else:
             hi = max(hi, b)
     busy += hi - lo
-    kinds = {}
+    kinds, others = {}, {}
     for e in kernels:
         kind = next((k for k in ("kalman_plane_scan_kernel", "kalman_plane_fixup_kernel",
                                  "logsemiring", "kalman_lane_scan_kernel",
                                  "kalman_lane_fixup_kernel", "weighted_outer")
                      if k in e.name), "other")
-        kinds[kind] = kinds.get(kind, 0.0) + (e.time_range.end - e.time_range.start)
+        span = e.time_range.end - e.time_range.start
+        kinds[kind] = kinds.get(kind, 0.0) + span
+        if kind == "other":
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + span
     by_kind = ", ".join(f"{k} {v / n / 1e3:.3f}" for k, v in sorted(kinds.items()))
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:3]
+    by_kind += "; largest other: " + ", ".join(f"{k} {v / n / 1e3:.3f}" for k, v in top)
     print(f"trace {label}, time fold {fold}, per sweep: wall {np.median(walls):.3f} ms "
           f"(median of 5 x {n} sweeps, range {min(walls):.3f}-{max(walls):.3f}); device "
           f"busy {busy / n / 1e3:.3f} ms; kernels ms: {by_kind}; device events "
@@ -1556,6 +1924,23 @@ def phase_trace(card):
     data = to_card((ar_pairs(HMM_CORE["T"], HMM_CORE["batch"], ARHMM_CFG["data_seed"]),))
     trace_sweeps(card, "ARHMM", arhmm_from_state(arhmm_state0(ARHMM_CFG["seed"]), "cuda",
                                                  torch.float32), data, {}, "0")
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.utils.convert import gmm_from_state
+
+    for name, cfg, y64 in (("life", LIFE, life_data()), ("artificial-life", ALIFE,
+                                                          rotor_data())):
+        model = DynamicMarkovBlanketDiscovery(
+            tuple(y64.shape[-2:]), cfg["role_dims"], cfg["hidden_dims"],
+            regression_dim=cfg["regression_dim"], number_of_objects=cfg["number_of_objects"],
+            parallel_scan=True, generator=torch.Generator().manual_seed(cfg["seed"]),
+            dtype=torch.float32, device="cuda")
+        model.obs_model.ptemp = cfg["schedule"][-1][0]
+        trace_sweeps(card, f"DMBD-{name}", model, (y64.to("cuda", torch.float32),),
+                     dict(lr=cfg["lr"]), "0")
+    X64 = gmm_data()
+    trace_sweeps(card, "GMM-core", gmm_from_state(gmm_state0(GMM_CORE["seed"], X64), "cuda",
+                                                  torch.float32),
+                 (X64.to("cuda", torch.float32),), {}, "0")
 
 
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):
@@ -1595,11 +1980,16 @@ def main():
     run("13", phase_flocking_compare, card)
     launches_mix_folded = run("14", phase_mixlds_folded, card)
     launches_hmm = run("15", phase_hmm, card)
-    launches_widths = run("16-17", phase_widths, card)
+    launches_cradle = run("16", phase_cradle, card)
+    launches_flame = run("17", phase_flame, card)
     run("18", phase_sequential, card)
     launches_nlds = run("19", phase_nlds, card)
     launches_dhmm = run("20", phase_dhmm, card)
     launches_arhmm = run("21", phase_arhmm, card)
+    launches_life = run("22", phase_life, card)
+    launches_alife = run("23", phase_alife, card)
+    launches_unique = run("24", phase_unique_obs, card)
+    run("25", phase_gmm, card)
     if args.trace:
         run("trace", phase_trace, card)
     if base is not None:
@@ -1611,8 +2001,9 @@ def main():
         kernels.append(record_line(
             s.name, s.source, s.replaces,
             launches_dmbd[s.name] + launches_mix[s.name] + launches_flock["0"][s.name]
-            + launches_hmm[s.name] + launches_widths[s.name] + launches_nlds[s.name]
-            + launches_dhmm[s.name] + launches_arhmm[s.name],
+            + launches_hmm[s.name] + launches_cradle[s.name] + launches_flame[s.name]
+            + launches_nlds[s.name] + launches_dhmm[s.name] + launches_arhmm[s.name]
+            + launches_life[s.name] + launches_alife[s.name] + launches_unique[s.name],
             max(record[s.name]["abs"], one_pass[s.name]), record[s.name]))
     for s in scan.FOLDED_SCANS:
         kernels.append(record_line(

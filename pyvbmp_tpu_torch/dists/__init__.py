@@ -3,9 +3,11 @@ from .delta import Delta
 from .diagonal_wishart import DiagonalWishart
 from .dirichlet import Dirichlet
 from .gamma import Gamma
+from .mixture import Mixture
 from .mvn_ard import MVN_ard
 from .mvn_vector_format import MultivariateNormal_vector_format
 from .niw import NormalInverseWishart
+from .normal_gamma import NormalGamma
 from .wishart import Wishart
 
 __all__ = [
@@ -13,8 +15,10 @@ __all__ = [
     "DiagonalWishart",
     "Dirichlet",
     "Gamma",
+    "Mixture",
     "MVN_ard",
     "MultivariateNormal_vector_format",
+    "NormalGamma",
     "NormalInverseWishart",
     "Wishart",
 ]

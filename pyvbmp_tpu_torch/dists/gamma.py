@@ -1,5 +1,6 @@
-"""Gamma conjugate node: the per-row precisions of MatrixNormalGamma
-(counterpart of pyvbmp_tpu/dists/gamma.py)."""
+"""Gamma conjugate node: the per-row precisions of MatrixNormalGamma and
+NormalGamma, and the Poisson rates of PoissonMixtureModel (counterpart of
+pyvbmp_tpu/dists/gamma.py)."""
 from __future__ import annotations
 
 import torch
@@ -42,6 +43,19 @@ class Gamma(Node):
     def event_dim(self):
         return len(self.event_shape)
 
+    @property
+    def batch_dim(self):
+        return len(self.batch_shape)
+
+    def to_event(self, n):
+        if n == 0:
+            return self
+        return replace(
+            self,
+            event_shape=self.batch_shape[-n:] + self.event_shape,
+            batch_shape=self.batch_shape[:-n],
+        )
+
     def ss_update(self, SElogx, SEx, lr=1.0, beta=None):
         """alpha <- alpha_0 + SElogx ; beta <- beta_0 + SEx (with lr damping);
         the first statistic feeds alpha, the second beta."""
@@ -54,6 +68,29 @@ class Gamma(Node):
         beta_p = (self.beta_0 + SEx) * lr + self.beta * (1 - lr)
         return replace(self, alpha=alpha, beta=beta_p, SEx=store_SEx,
                        SElogx=store_SElogx)
+
+    def raw_update(self, X, p=None, lr=1.0, beta=None):
+        """Poisson-rate update from counts X (sample + batch + event),
+        weighted by the assignments p (sample + batch) when given."""
+        nd = self.event_dim + self.batch_dim
+        sdims = tuple(range(X.ndim - nd))
+        shape = self.batch_shape + self.event_shape
+        if p is None:
+            nsamp = 1
+            for d in sdims:
+                nsamp *= X.shape[d]
+            N = X.new_full(shape, float(nsamp))
+            SEx = X.sum(sdims)
+        else:
+            pv = p.reshape(p.shape + (1,) * self.event_dim)
+            SEx = (X * pv).sum(sdims)
+            N = pv.sum(sdims).expand(shape)
+        return self.ss_update(SEx, N, lr=lr, beta=beta)
+
+    def Elog_like(self, X):
+        """Poisson observation model."""
+        out = X * self.loggeomean() - torch.lgamma(X + 1) - self.mean()
+        return out.sum(tuple(range(-self.event_dim, 0))) if self.event_dim else out
 
     def mean(self):
         return self.alpha / self.beta

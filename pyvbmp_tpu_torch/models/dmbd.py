@@ -12,9 +12,17 @@ JAX package's default, both are the sequential smoothers (the HMM's
 reference's cross-covariance line, ``cross_cov_compat=True``), which run no
 kernel.
 
-Not ported yet: ``unique_obs=True``, ``time_mesh``, a non-empty
-``batch_shape`` (each raises ``NotImplementedError``), ``Elog_like`` and the
-plotting methods.
+With ``unique_obs=True`` each observable gets its own role model: the
+role HMM is batched over the ``n_obs`` observables and, as in the JAX
+package, has no role ``transition_mask``.  ``Elog_like`` is the data bound
+from fresh role and latent E-steps; ``plot_observation`` and
+``plot_transition`` draw the labelled emission and transition heatmaps
+(matplotlib is imported only inside them).
+
+``time_mesh`` (the time-sharded smoothers) and a non-empty ``batch_shape``
+raise ``NotImplementedError``; the JAX package's own update fails on a
+non-empty ``batch_shape`` (a broadcasting error in its role E-step), so
+there is nothing to port against.
 """
 from __future__ import annotations
 
@@ -24,11 +32,34 @@ import torch
 from ..dists import NormalInverseWishart
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..transforms import MatrixNormalGamma
+from ..utils import math as um
 from ..utils.linalg import mT, psd_inv_and_logdet
 from ..utils.torchutils import brole_avg, default_device, replace, sum_leading
 from .arhmm import ARHMM_prXRY
 from .hmm import smoother_dispatch
 from .lds import LinearDynamicalSystems
+
+
+def _agg_if_no_backend():
+    """Select the Agg backend for headless figure saves without replacing a
+    backend the caller already has loaded."""
+    import sys
+
+    if "matplotlib.pyplot" in sys.modules:
+        return  # a backend is already live; fig.savefig works on any backend
+    import matplotlib
+
+    try:
+        matplotlib.use("Agg", force=False)
+    except Exception:
+        pass
+
+
+def _host(x):
+    """A tensor (on any device) or array as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def _block(A, B, C, D):
@@ -172,10 +203,14 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         """The JAX package's signature and defaults; ``generator``, ``dtype``
         and ``device`` (the card unless the caller asks for another) are
         keyword-only."""
-        if unique_obs:
-            raise NotImplementedError("unique_obs=True is not ported yet")
         if tuple(batch_shape):
-            raise NotImplementedError("a non-empty DMBD batch_shape is not ported yet")
+            raise NotImplementedError(
+                "a non-empty DMBD batch_shape is not ported: the JAX package's own "
+                "update fails on it in its role E-step (DMBD((4, 2), (1, 1, 1), (2, 1, 1), "
+                "batch_shape=(2,)) raises 'ValueError: Incompatible shapes for "
+                "broadcasting: shapes=[(15, 2, 2, 4, 1, 2, 2), (2, 3, 2, 2)]'), so "
+                "there is no reference to hold the port to"
+            )
         if time_mesh is not None:
             raise NotImplementedError("time_mesh (the time-sharded smoothers) is not ported")
         device = default_device(device)
@@ -201,6 +236,7 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
             )
 
         self.number_of_objects = number_of_objects
+        self.unique_obs = unique_obs
         self.obs_shape = tuple(obs_shape)
         self.obs_dim = obs_dim
         self.event_dim = len(obs_shape)
@@ -243,18 +279,33 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
             device=device,
         )
 
-        self.obs_model = ARHMM_prXRY(
-            role_dim,
-            obs_dim,
-            hidden_dim,
-            regression_dim,
-            batch_shape=self.batch_shape,
-            X_mask=B_mask.sum(-2, keepdims=True) > 0,
-            transition_mask=torch.as_tensor(role_mask > 0, device=device),
-            generator=generator,
-            dtype=dtype,
-            device=device,
-        )
+        if unique_obs:
+            # one role model per observable, with no role transition_mask (as
+            # in the JAX package)
+            self.obs_model = ARHMM_prXRY(
+                role_dim,
+                obs_dim,
+                hidden_dim,
+                regression_dim,
+                batch_shape=self.batch_shape + (self.n_obs,),
+                X_mask=B_mask[None].sum(-2, keepdims=True) > 0,
+                generator=generator,
+                dtype=dtype,
+                device=device,
+            )
+        else:
+            self.obs_model = ARHMM_prXRY(
+                role_dim,
+                obs_dim,
+                hidden_dim,
+                regression_dim,
+                batch_shape=self.batch_shape,
+                X_mask=B_mask.sum(-2, keepdims=True) > 0,
+                transition_mask=torch.as_tensor(role_mask > 0, device=device),
+                generator=generator,
+                dtype=dtype,
+                device=device,
+            )
 
         # B-prior tweak: scale invU_0 down by role_dim^2 (reference DMBD:81-84)
         B = self.obs_model.obs_dist
@@ -416,6 +467,21 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
             self.ELBO_last = float(e)
             self.ELBO_save.append(float(e))
 
+    def Elog_like(self, y, u=None, r=None, latent_iters=1, lr=1.0):
+        """Data likelihood bound: ``latent_iters`` role and latent E-steps
+        from a fresh px, returning logZ minus the role-assignment entropy
+        (sample-shaped).  ``lr`` is unused, as in the JAX package."""
+        y, u, r = self.reshape_inputs(y, u, r)
+        om = self.obs_model
+        transition, initial, B = om.transition, om.initial, om.obs_dist
+        px = self._init_px(r)
+        for _ in range(latent_iters):
+            p, _, _ = self._role_estep(transition, initial, B, px, y, r)
+            px, ss = self._latents_given_p(self.x0, self.A, B, p, y, u, r)
+        safe_p = torch.where(p > 1e-8, p, torch.ones_like(p))
+        ent = torch.where(p > 1e-8, p * torch.log(safe_p), torch.zeros_like(p))
+        return ss["logZ"] - ent.sum(0).sum((-1, -2))
+
     # KLqprior is the LDS's: x0's, A's and the role HMM's KLqprior()
 
     def ELBO(self):
@@ -452,18 +518,116 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
     def assignment(self):
         return self.assignment_pr().argmax(-1)
 
+    # ---------------------------------------------------------- introspection
+    def _sbz_labels(self):
+        labels = ["S "] + ["B ", "Z "] * self.number_of_objects
+        if self.number_of_objects > 1:
+            labels = [
+                lab if i == 0 else lab + str((i + 1) // 2)
+                for i, lab in enumerate(labels)
+            ]
+        return labels
+
+    def _annotate_sbz(self, ax, dims, axis="x"):
+        """Coloured S/B/Z block labels at the block centres."""
+        for i, label in enumerate(self._sbz_labels()):
+            c = "red" if i == 0 else ("green" if i % 2 == 1 else "blue")
+            pos = dims[0] / 2.0 + i * (dims[1] + dims[2]) / 2.0
+            if i > 0:
+                pos = pos - 0.5
+            if axis == "x":
+                ax.text(pos, -1.5, label, color=c, ha="center", va="center",
+                        fontsize=10, weight="bold")
+            else:
+                ax.text(-1.5, pos, label, color=c, ha="center", va="center",
+                        fontsize=10, weight="bold", rotation=90)
+
+    def plot_observation(self, path=None):
+        """Labelled |<B>| heatmap (roles x latent blocks), summed over the
+        observables.  Headless-safe; saves to ``path`` if given and returns
+        the figure."""
+        if path is not None:
+            _agg_if_no_backend()
+        from matplotlib import pyplot as plt
+
+        B = np.abs(_host(self.obs_model.obs_dist.mean())).sum(-2)
+        B = B.reshape(-1, B.shape[-1])
+        fig, ax = plt.subplots()
+        ax.imshow(B)
+        self._annotate_sbz(ax, self.hidden_dims, "x")
+        self._annotate_sbz(ax, self.role_dims, "y")
+        ax.axis("off")
+        if path is not None:
+            fig.savefig(path, bbox_inches="tight")
+            plt.close(fig)
+        return fig
+
+    def plot_transition(self, type="obs", use_mask=False, path=None):
+        """Labelled heatmap of the role transition posterior (``type='obs'``)
+        or of the latent dynamics |<A>| (``type='latent'``); ``use_mask``
+        shows the structural mask instead.  Headless-safe; saves to ``path``
+        if given and returns the figure."""
+        if path is not None:
+            _agg_if_no_backend()
+        from matplotlib import pyplot as plt
+
+        if type == "obs":
+            M = (
+                self.obs_model.transition_mask
+                if use_mask
+                else self.obs_model.transition.mean()
+            )
+            dims = self.role_dims
+        else:
+            M = self.A.mask if use_mask else self.A.mean().abs()
+            dims = self.hidden_dims
+        M = np.squeeze(_host(M))
+        if M.ndim != 2:
+            raise ValueError(
+                "plot_transition needs a single matrix; got shape "
+                f"{M.shape} after squeezing: select one batch entry first"
+            )
+        if type != "obs":
+            # drop the control/bias columns so the S/B/Z x-axis labels line up
+            M = M[:, : M.shape[0]]
+        fig, ax = plt.subplots()
+        ax.imshow(M)
+        self._annotate_sbz(ax, dims, "x")
+        self._annotate_sbz(ax, dims, "y")
+        ax.axis("off")
+        if path is not None:
+            fig.savefig(path, bbox_inches="tight")
+            plt.close(fig)
+        return fig
+
+
+# The latent messages in centred form.  With a regressor (the bias column)
+# the observations' mean is carried by the emission's last columns, and the
+# expanded quadratics y'<S^-1>y, y'<S^-1>b and b'<S^-1>b are each far
+# larger than their sum when a channel's spread is small against its mean
+# (the Newton's-cradle balls at rest: means ~1, spreads ~1e-4).  In float32
+# their sum keeps ~3 digits of the Kalman messages there; the residual
+# d = y - <b>r formed first keeps float32 close to float64.  The two forms
+# are equal in exact arithmetic (float64 agrees with the JAX package's
+# expanded form to ~1e-11).
+
 
 def _arhmm_elog_like_X(om, B, YR, p):
-    """ARHMM_prXRY.Elog_like_X with explicit obs_dist B and assignments p."""
+    """ARHMM_prXRY.Elog_like_X with explicit obs_dist B (no pad_X) and
+    assignments p, in centred form: the likelihood of the x block in
+    natural parameters with the regressors R conditioned out."""
     Y, R = YR
-    invSigma_xr_xr, invSigmamu_xr, Residual = B.Elog_like_X(Y)
     p1 = om.p1
-    invSigma_x_x = invSigma_xr_xr[..., :p1, :p1]
-    invSigmamu_x = invSigmamu_xr[..., :p1, :] - invSigma_xr_xr[..., :p1, p1:] @ R
-    Residual = Residual - 0.5 * (
-        invSigma_xr_xr[..., p1:, p1:] * (R * mT(R))
-    ).sum((-1, -2))
-    Residual = Residual + (invSigmamu_xr[..., p1:, :] * R).sum((-1, -2))
+    d = Y - B.mu[..., p1:] @ R
+    Wd = B.EinvSigma() @ d
+    invSigma_x_x = B.EXTinvUX()[..., :p1, :p1]
+    invSigmamu_x = mT(B.mu[..., :p1]) @ Wd - B.n * B.V[..., :p1, p1:] @ R
+    Residual = (
+        -0.5 * (d * Wd).sum((-1, -2))
+        - 0.5 * B.n * (mT(R) @ B.V[..., p1:, p1:] @ R)[..., 0, 0]
+        - 0.5 * B.n * um.LOG2PI
+        + 0.5 * B.ElogdetinvSigma()
+    )
     invSigma_x_x = brole_avg(invSigma_x_x, p)
     invSigmamu_x = brole_avg(invSigmamu_x, p)
     Residual = (Residual * p).sum(-1)

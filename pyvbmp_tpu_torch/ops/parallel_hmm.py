@@ -27,33 +27,63 @@ def _logmatmul_plane(a, b):
     return m + torch.log(s)
 
 
-def _hmm_plane_core(M, init_logits, ptemp):
+def _finite_max(x, dim):
+    """x's max over ``dim`` (kept), 0 where it is not finite."""
+    m = x.amax(dim, keepdim=True)
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+
+def _shift_obs(obs_logits):
+    """The observation logits shifted by each step's largest (per lane), and
+    the shifts summed over time in float64 (logZ's offset).  Logits of a
+    sharp emission run to -1e4 a step: unshifted, float32 rounds the
+    transition logits added to them at ~1e-3, and the scanned products grow
+    like the log-likelihood, where float32 keeps no O(1) differences (the
+    posteriors).  The posteriors do not change."""
+    c = _finite_max(obs_logits, -1)
+    return obs_logits - c, c[..., 0].sum(0, dtype=torch.float64)
+
+
+def _hmm_plane_core(M, init_logits, ptemp, offset):
     """Returns (p, xi (T,)+b+(K,K), SEz0, logZ) given the semiring elements
-    M (T,)+bshape+(K,K)."""
+    M (T,)+bshape+(K,K); ``offset`` (bshape, float64) is added to logZ."""
     T, K = M.shape[0], M.shape[-1]
     bshape = M.shape[1:-2]
 
-    Mp = M.reshape(T, -1, K, K).permute(0, 2, 3, 1).contiguous()  # (T, K, K, N)
+    Mp = M.reshape(T, -1, K, K).permute(0, 2, 3, 1)  # (T, K, K, N)
     N = Mp.shape[-1]
     ivec = init_logits.expand(bshape + (K,)).reshape(N, K).T  # (K, N)
+    # each step's element shifted by its largest entry c_t (per lane): the
+    # scanned products then grow like log K a step, not like the
+    # transitions' logits; logZ gets sum_t c_t back, in float64
+    c = _finite_max(Mp.reshape(T, K * K, N), -2)  # (T, 1, N)
+    Mp = (Mp - c[:, None]).contiguous()
 
     prefix = scan.logsemiring_scan(Mp)
     suffix = scan.logsemiring_scan(Mp, reverse=True)
 
     alpha = um.stable_logsumexp(ivec[None, :, None, :] + prefix, -3)  # (T, K, N)
     logZ = um.stable_logsumexp(alpha[-1], 0)  # (N,)
-    alpha = alpha - logZ
+    offset = c[:, 0].sum(0, dtype=torch.float64) + offset.reshape(-1)
+    logZ = (logZ.double() + offset).to(logZ.dtype)
 
     beta = um.stable_logsumexp(suffix, -2)  # (T, K, N)
     beta_t = torch.cat([beta[1:], torch.zeros_like(beta[:1])], 0)
 
+    # The messages grow like the log-likelihood of the steps behind or
+    # ahead; each step's is shifted to a maximum of 0 over the states (the
+    # posteriors below are normalized per step and lane, so they do not
+    # change), which keeps their O(1) differences in float32, and xi is
+    # normalized by its sum rather than by a log-sum rounded at that size.
+    alpha = alpha - _finite_max(alpha, -2)
+    beta_t = beta_t - _finite_max(beta_t, -2)
     smoothed = alpha + beta_t
     smoothed = smoothed - um.stable_logsumexp(smoothed, -2, keepdim=True)
 
     alpha_prev = torch.cat([ivec[None], alpha[:-1]], 0)
     xi = alpha_prev[..., :, None, :] + Mp + beta_t[..., None, :, :]
-    xin = um.stable_logsumexp(xi.reshape(T, K * K, N), -2)  # (T, N)
-    xi = torch.exp(xi - xin[..., None, None, :])
+    xi = torch.exp(xi - _finite_max(xi.reshape(T, K * K, N), -2)[:, None])
+    xi = xi / xi.sum((-3, -2), keepdim=True)
 
     mx = smoothed.amax(-2, keepdim=True)
     p = torch.exp((smoothed - mx) / ptemp)
@@ -75,8 +105,9 @@ def forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0):
     Returns (p (T,)+sample+batch+(K,), SEzz sample+batch+(K,K),
     SEz0 sample+batch+(K,), logZ sample+batch).
     """
+    obs_logits, offset = _shift_obs(obs_logits)
     M = trans_logits + obs_logits[..., None, :]
-    p, xi, SEz0, logZ = _hmm_plane_core(M, init_logits, ptemp)
+    p, xi, SEz0, logZ = _hmm_plane_core(M, init_logits, ptemp, offset.expand(M.shape[1:-2]))
     return p, xi.sum(0), SEz0, logZ
 
 
@@ -92,5 +123,6 @@ def driven_forward_backward_parallel(trans_logits, init_logits, obs_logits, ptem
     SEz0 sample+batch+(K,), logZ sample+batch).  The pairwise statistics
     stay per time step: the MNLR transition's M-step needs SEzz[t].
     """
+    obs_logits, offset = _shift_obs(obs_logits)
     M = trans_logits + obs_logits[..., None, :]
-    return _hmm_plane_core(M, init_logits, ptemp)
+    return _hmm_plane_core(M, init_logits, ptemp, offset.expand(M.shape[1:-2]))

@@ -1,5 +1,5 @@
 """Scan-based Kalman filter + RTS smoother (counterpart of
-pyvbmp_tpu/ops/parallel_kalman.py, lane and plane forms).
+pyvbmp_tpu/ops/parallel_kalman.py: the lane, plane and dense forms).
 
 Elements are unnormalized Gaussian pairwise potentials over (x_left, x_right):
 
@@ -11,31 +11,38 @@ marginals, cross-covariances and logZ come out in closed form.  The
 cross-covariances are the corrected ones (the JAX package's
 ``cross_cov_compat=False``).
 
-Two layouts, chosen by the hidden dim h as in the JAX package:
+Three layouts, chosen by the hidden dim h as in the JAX package:
 
 - **lane form** (h <= LANE_KALMAN_MAX_H = 3): every matrix is packed by
   components (``ops/smallmat.py``), the combine ``_combine_lane`` is
   straight-line code with closed-form adjugate inverses, and the scans go
   through ``ops.scan.kalman_lane_scan``;
-- **plane form** (larger h): ``(T, h, w, N)`` planes (``ops/planemat.py``),
-  the combine ``_combine_plane``, scans through ``ops.scan.kalman_plane_scan``.
+- **plane form** (3 < h <= PLANE_KALMAN_MAX_H = 32): ``(T, h, w, N)``
+  planes (``ops/planemat.py``), the combine ``_combine_plane``, scans
+  through ``ops.scan.kalman_plane_scan``;
+- **dense form** (h > 32): batched ``(..., h, h)`` matrices, the combine
+  ``_combine`` (one Cholesky solve against the stacked right-hand sides),
+  scans by ``associative_scan``: 2 ceil(log2 T) levels of batched
+  ``torch.linalg``, the same code on the CPU and on the card.
 
-Each scan is the CUDA kernel for tensors on the card and the plain fold of
-the combine on the CPU.  The JAX package's dense form (h > 32) is not
-ported: the plane form serves every h > 3.
+The lane and plane scans are the CUDA kernels for tensors on the card and
+the plain fold of the combine on the CPU.  The dense form reaches no kernel
+in the JAX package either (its Pallas scan refuses (..., h, h) leaves).
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils import math as um
-from ..utils.linalg import mT
+from ..utils.linalg import mT, psd_inv, psd_solve_and_logdet
 from . import planemat as pm
 from . import scan
 from . import smallmat as sm
 
-# h <= LANE_KALMAN_MAX_H takes the lane form (the JAX package's default gate)
+# h <= LANE_KALMAN_MAX_H takes the lane form, h <= PLANE_KALMAN_MAX_H the
+# plane form and any larger h the dense form (the JAX package's default gates)
 LANE_KALMAN_MAX_H = 3
+PLANE_KALMAN_MAX_H = scan.PLANE_MAX_H
 
 
 def element_batch_shape(parms, like):
@@ -147,6 +154,133 @@ def _shift(a, up):
     zero head."""
     z = torch.zeros_like(a[:1])
     return torch.cat([a[1:], z], 0) if up else torch.cat([z, a[:-1]], 0)
+
+
+# =========================================================== dense layout path
+def associative_scan(combine, elems, reverse=False):
+    """Inclusive scan of the tuple of tensors ``elems`` over axis 0 in chain
+    order (``out[t] = e[0] o ... o e[t]``; reversed, ``e[t] o ... o e[T-1]``),
+    by the odd-even recursion of ``jax.lax.associative_scan``: two batched
+    ``combine`` calls a level, 2 ceil(log2 T) calls in all."""
+    if reverse:
+        flip = lambda t: tuple(x.flip(0) for x in t)
+        return flip(associative_scan(lambda a, b: combine(b, a), flip(elems)))
+    T = elems[0].shape[0]
+    if T < 2:
+        return elems
+    pairs = combine(tuple(x[0:-1:2] for x in elems), tuple(x[1::2] for x in elems))
+    odd = associative_scan(combine, pairs)  # prefixes at t = 1, 3, 5, ...
+    rest = tuple(x[2::2] for x in elems)
+    if rest[0].shape[0]:
+        lead = odd if T % 2 else tuple(x[:-1] for x in odd)
+        even = combine(lead, rest)
+        even = tuple(torch.cat([x[:1], e], 0) for x, e in zip(elems, even))
+    else:
+        even = tuple(x[:1] for x in elems)
+    out = []
+    for e, o in zip(even, odd):
+        y = e.new_empty((T,) + tuple(e.shape[1:]))
+        y[0::2] = e
+        y[1::2] = o
+        out.append(y)
+    return tuple(out)
+
+
+def _combine(e1, e2):
+    """Marginalize the middle variable of two adjacent dense potentials."""
+    J1aa, J1ab, J1bb, h1a, h1b, w1 = e1
+    J2aa, J2ab, J2bb, h2a, h2b, w2 = e2
+    h = J1bb.shape[-1]
+    hmid = h1b + h2a
+    # one Cholesky solve against the stacked right-hand sides
+    rhs = torch.cat([mT(J1ab), J2ab, hmid], -1)
+    sol, logdetM = psd_solve_and_logdet(J1bb + J2aa, rhs)
+    Minv_J1abT = sol[..., :h]
+    Minv_J2ab = sol[..., h: 2 * h]
+    Minv_h = sol[..., 2 * h:]
+    Jaa = J1aa - J1ab @ Minv_J1abT
+    Jbb = J2bb - mT(J2ab) @ Minv_J2ab
+    Jab = -J1ab @ Minv_J2ab
+    ha = h1a - J1ab @ Minv_h
+    hb = h2b - mT(J2ab) @ Minv_h
+    w = (
+        w1
+        + w2
+        + 0.5 * (hmid * Minv_h).sum((-1, -2))
+        - 0.5 * logdetM
+        + 0.5 * h * um.LOG2PI
+    )
+    return (Jaa, Jab, Jbb, ha, hb, w)
+
+
+def _marginalize_left(Jaa, Jab, Jbb, ha, hb, w):
+    """Integrate out the a-side: a potential over b."""
+    h = Jaa.shape[-1]
+    sol, logdetA = psd_solve_and_logdet(Jaa, torch.cat([Jab, ha], -1))
+    Ainv_Jab = sol[..., :h]
+    Ainv_ha = sol[..., h:]
+    J = Jbb - mT(Jab) @ Ainv_Jab
+    hv = hb - mT(Jab) @ Ainv_ha
+    logc = w + 0.5 * (ha * Ainv_ha).sum((-1, -2)) - 0.5 * logdetA + 0.5 * h * um.LOG2PI
+    return J, hv, logc
+
+
+def _marginalize_right(Jaa, Jab, Jbb, ha, hb, w):
+    """Integrate out the b-side: a potential over a."""
+    h = Jbb.shape[-1]
+    sol, logdetD = psd_solve_and_logdet(Jbb, torch.cat([mT(Jab), hb], -1))
+    Dinv_JabT = sol[..., :h]
+    Dinv_hb = sol[..., h:]
+    J = Jaa - Jab @ Dinv_JabT
+    hv = ha - Jab @ Dinv_hb
+    logc = w + 0.5 * (hb * Dinv_hb).sum((-1, -2)) - 0.5 * logdetD + 0.5 * h * um.LOG2PI
+    return J, hv, logc
+
+
+def _dense_smoother(elems, bshape, T, hdim):
+    Jaa, Jab, Jbb, ha, hb, logw = elems
+    prefix = associative_scan(_combine, elems)
+    suffix = associative_scan(_combine, elems, reverse=True)
+
+    # filtered potentials over x_t; backward messages on x_{t-1} from S_t
+    Ja, hva, logca = _marginalize_left(*prefix)
+    Jb_all, hvb_all, _ = _marginalize_right(*suffix)
+    Jbeta = _shift(Jb_all, up=True)
+    hbeta = _shift(hvb_all, up=True)
+
+    # smoothed marginals
+    Js = Ja + Jbeta
+    hs = hva + hbeta
+    Sigma = psd_inv(Js)
+    mu = Sigma @ hs
+
+    # prior-side marginal q(x_{-1})
+    Sigma_x0_x0 = psd_inv(Jb_all[0])
+    mu_x0 = Sigma_x0_x0 @ hvb_all[0]
+
+    # pairwise cross-covariances Sigma_{t-1,t}
+    A = _shift(Ja, up=False) + Jaa
+    D = Jbb + Jbeta
+    Ainv_B = psd_inv(A) @ Jab
+    Sbb = psd_inv(D - mT(Jab) @ Ainv_B)
+    Sigma_cross_all = -Ainv_B @ Sbb
+
+    # total logZ from the last filtered potential
+    sol, logdetJ = psd_solve_and_logdet(Ja[-1], hva[-1])
+    logZ_total = (
+        logca[-1]
+        + 0.5 * (hva[-1] * sol).sum((-1, -2))
+        - 0.5 * logdetJ
+        + 0.5 * hdim * um.LOG2PI
+    )
+    return (
+        (Sigma, mu, Js, hs),
+        Sigma_cross_all[1:],
+        Sigma_cross_all[0],
+        Sigma_x0_x0,
+        mu_x0,
+        logZ_total,
+    )
 
 
 # ============================================================ lane layout path
@@ -336,18 +470,19 @@ def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None
     like:  (invSigma_like, invSigmamu_like, Residual_like), each (T,)+...
     u:     (T,)+...+(control,1)
     lane_form: force the component layout on/off (default: h <= 3).
-    plane_form: force the plane layout on/off (default: whenever the lane
-        form is not taken; the dense form is not ported, so turning both
-        off raises).
+    plane_form: force the plane layout on/off (default: 3 < h <= 32 when
+        the lane form is not taken); with both off, the dense form.
     """
     hdim = parms["invQ"].shape[-1]
     if lane_form is None:
         lane_form = hdim <= LANE_KALMAN_MAX_H and plane_form is not True
     if lane_form and hdim > LANE_KALMAN_MAX_H:
         raise ValueError(f"the lane form serves h <= {LANE_KALMAN_MAX_H}, got h={hdim}")
-    if not lane_form and plane_form is False:
-        raise NotImplementedError("the dense Kalman smoother form is not ported")
+    if not lane_form and plane_form is None:
+        plane_form = hdim <= PLANE_KALMAN_MAX_H
     elems, bshape, T, hdim = _build_elements(parms, x0, like, u)
     if lane_form:
         return _lane_smoother(elems, bshape, T, hdim)
-    return _plane_smoother(elems, bshape, T, hdim)
+    if plane_form:
+        return _plane_smoother(elems, bshape, T, hdim)
+    return _dense_smoother(elems, bshape, T, hdim)

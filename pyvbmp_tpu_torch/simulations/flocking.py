@@ -5,10 +5,14 @@ pull to the origin, a speed limit and std-normalization.
 
 Random draws come from a ``torch.Generator``, so a seed does not give the
 JAX package's numbers; ``integrate`` takes the draws themselves, so the two
-packages can be run on the same ones."""
+packages can be run on the same ones.  ``simulate`` makes its draws on the
+CPU, so a seed gives the same draws on every device, and integrates on
+``device``, the card unless the caller asks for another."""
 from __future__ import annotations
 
 import torch
+
+from ..utils.torchutils import default_device
 
 
 class Flocking:
@@ -28,12 +32,16 @@ class Flocking:
         self.noise = noise
         self.speed = speed
 
-    def simulate(self, generator=None, dtype=torch.float64):
-        """(Tmax, batch_size, n_birds, 4) trajectories on the CPU, from
+    def simulate(self, generator=None, dtype=torch.float64, device=None):
+        """(Tmax, batch_size, n_birds, 4) trajectories on ``device``, from
         initial positions ~ N(0, 2^2), velocities ~ N(0, 0.5^2) and
         standard normal acceleration noise drawn from ``generator``."""
+        device = default_device(device)
         B, N = self.batch_size, self.n_birds
-        draw = lambda *shape: torch.randn(shape, generator=generator, dtype=dtype)
+
+        def draw(*shape):
+            return torch.randn(shape, generator=generator, dtype=dtype).to(device)
+
         pos0 = draw(B, N, 2) * 2.0
         vel0 = draw(B, N, 2) * 0.5
         noise = draw(self.Tmax, B, N, 2)

@@ -1,10 +1,15 @@
 """Batched Lorenz-63 simulator with per-trajectory parameter jitter, velocity
 channels, smoothing + decimation and std-normalization (counterpart of
 pyvbmp_tpu/simulations/lorenz.py; random draws come from a
-``torch.Generator``, so a seed does not give the JAX package's numbers)."""
+``torch.Generator``, so a seed does not give the JAX package's numbers).
+The draws are made on the CPU, so a seed gives the same draws on every
+device; the integration runs on ``device``, the card unless the caller asks
+for another."""
 from __future__ import annotations
 
 import torch
+
+from ..utils.torchutils import default_device
 
 
 class Lorenz:
@@ -15,18 +20,19 @@ class Lorenz:
         self.dt = 0.01
         self.num_steps = 2000
 
-    def simulate(self, batch_num, generator=None):
-        """(T, batch, 3, 2) float64 on the CPU: positions and velocities,
+    def simulate(self, batch_num, generator=None, device=None):
+        """(T, batch, 3, 2) float64 on ``device``: positions and velocities,
         T = (num_steps - 1) // 5 after smoothing and decimation."""
+        device = default_device(device)
         f64 = torch.float64
         jitter = 0.02
 
         def jittered(value):
-            u = torch.rand(batch_num, generator=generator, dtype=f64)
+            u = torch.rand(batch_num, generator=generator, dtype=f64).to(device)
             return value * (1 + 2 * (u - 0.5) * jitter)
 
         sigma, rho, beta = jittered(self.sigma), jittered(self.rho), jittered(self.beta)
-        x, y, z = torch.randn(3, batch_num, generator=generator, dtype=f64)
+        x, y, z = torch.randn(3, batch_num, generator=generator, dtype=f64).to(device)
         traj = []
         for _ in range(self.num_steps):
             dx = sigma * (y - x)

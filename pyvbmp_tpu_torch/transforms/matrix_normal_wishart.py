@@ -27,7 +27,9 @@ from ..utils.linalg import (
     psd_logdet,
     psd_solve,
 )
-from ..utils.torchutils import Node, as_tensor, bcontract_pp, node, normal, replace
+from ..utils.torchutils import (
+    Node, as_tensor, bcontract_pp, bweighted_sum, node, normal, replace,
+)
 
 
 def _constrain_to_mask(mu, invV, EinvSigma, mask):
@@ -226,9 +228,10 @@ class MatrixNormalWishart(Node):
         else:
             pv = p.reshape(p.shape + self.event_dim * (1,))
             N = p.sum(sdims)
-            SExx = (pX.EXXT() * pv).sum(sdims)
-            SEyy = (pY.EXXT() * pv).sum(sdims)
-            SEyx = ((pY.EX() @ mT(pX.EX())) * pv).sum(sdims)
+            ns = len(sdims)
+            SExx = bweighted_sum(pX.EXXT(), pv, ns)
+            SEyy = bweighted_sum(pY.EXXT(), pv, ns)
+            SEyx = bweighted_sum(pY.EX() @ mT(pX.EX()), pv, ns)
         if self.pad_X:
             if p is None:
                 SEx = pX.EX().sum(sdims)

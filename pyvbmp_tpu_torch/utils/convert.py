@@ -17,6 +17,10 @@ ARHMM, ARHMM_prXY or ARHMM_prXRY, its class under ``kind``), ``dhmm_state``
 ``..._from_state``; they carry ``parallel_scan``, ``ptemp`` and ``pad_X``
 where the model has them, and p (an NLDS's q(s)) when it is set.
 
+The mixtures have ``gmm_state`` (a GaussianMixtureModel, NIW or
+isotropic, or a PoissonMixtureModel; the component node's class under
+``kind``) and ``gmm_from_state``.
+
 The classifiers have the same pair of functions: ``mvn_ard_state`` (an
 MVN_ard node with its Gamma, and its shapes), ``mnlr_state``,
 ``bouchard_state``, ``dmixlt_state`` and ``nlrm_state``, each with its
@@ -34,7 +38,7 @@ and ``torch.Generator`` draw different numbers), so parity runs go JAX model
     A                       MatrixNormalGamma (with mask and its Gamma rows)
     obs_model.transition    Dirichlet (masked entries have alpha_0 == 0)
     obs_model.initial       Dirichlet
-    obs_model.transition_mask
+    obs_model.transition_mask (None with unique_obs)
     obs_model.obs_dist      MatrixNormalWishart (with X_mask)
     px, p                   the last posteriors, when the model has run
 
@@ -84,8 +88,6 @@ def dmbd_state(model):
     """Nested dict of numpy arrays holding a DMBD's configuration and state."""
     if getattr(model.obs_model.obs_dist, "pad_X", False):
         raise ValueError("DMBD emission with pad_X=True is not supported")
-    if getattr(model, "unique_obs", False):
-        raise ValueError("unique_obs=True is not ported")
     om = model.obs_model
     state = {
         "config": dict(
@@ -96,6 +98,7 @@ def dmbd_state(model):
             regression_dim=model.regression_dim - 1,
             batch_shape=tuple(model.batch_shape),
             number_of_objects=model.number_of_objects,
+            unique_obs=bool(model.unique_obs),
             parallel_scan=bool(model.parallel_scan),
         ),
         "x0": node_state(model.x0),
@@ -103,7 +106,8 @@ def dmbd_state(model):
         "obs_model": {
             "transition": node_state(om.transition),
             "initial": node_state(om.initial),
-            "transition_mask": _array(om.transition_mask),
+            "transition_mask": (None if om.transition_mask is None
+                                else _array(om.transition_mask)),
             "obs_dist": node_state(om.obs_dist),
         },
     }
@@ -161,9 +165,8 @@ def dmbd_from_state(state, device=None, dtype=None):
     model.A = load_state(model.A, state["A"])
     om.transition = load_state(om.transition, state["obs_model"]["transition"])
     om.initial = load_state(om.initial, state["obs_model"]["initial"])
-    om.transition_mask = torch.tensor(
-        np.asarray(state["obs_model"]["transition_mask"], bool)
-    )
+    mask = state["obs_model"]["transition_mask"]
+    om.transition_mask = None if mask is None else torch.tensor(np.asarray(mask, bool))
     om.obs_dist = load_state(om.obs_dist, state["obs_model"]["obs_dist"])
     if "px" in state:
         from ..dists.mvn_vector_format import MultivariateNormal_vector_format
@@ -559,4 +562,39 @@ def nlds_from_state(state, device=None, dtype=None):
         setattr(model, k, load_state(getattr(model, k), state[k]))
     model.T.beta = load_state(model.T.beta, state["T"])
     _load_p(model, state)
+    return model.to(device, dtype)
+
+
+# -- mixtures ------------------------------------------------------------------
+def gmm_state(model):
+    """Nested dict of numpy arrays holding a GaussianMixtureModel (NIW or,
+    isotropic, NormalGamma components) or a PoissonMixtureModel: its
+    configuration (``kind`` names the component node), pi (Dirichlet) and
+    the component node ``dist``."""
+    kind = type(model.dist).__name__
+    if kind not in ("NormalInverseWishart", "NormalGamma", "Gamma"):
+        raise ValueError(f"no mixture model has {kind} components")
+    return {
+        "config": dict(kind=kind, nc=model.event_shape[0], dim=model.dist.event_shape[-1]),
+        "pi": node_state(model.pi),
+        "dist": node_state(model.dist),
+    }
+
+
+def gmm_from_state(state, device=None, dtype=None):
+    """This package's mixture model holding ``state``, on ``device`` in
+    ``dtype``."""
+    device = default_device(device)
+    from ..models import GaussianMixtureModel, PoissonMixtureModel
+
+    c = state["config"]
+    g = torch.Generator().manual_seed(0)
+    if c["kind"] == "Gamma":
+        model = PoissonMixtureModel(c["nc"], c["dim"], generator=g, dtype=torch.float64,
+                                    device="cpu")
+    else:
+        model = GaussianMixtureModel(c["nc"], c["dim"], isotropic=c["kind"] == "NormalGamma",
+                                     generator=g, dtype=torch.float64, device="cpu")
+    model.pi = load_state(model.pi, state["pi"])
+    model.dist = load_state(model.dist, state["dist"])
     return model.to(device, dtype)

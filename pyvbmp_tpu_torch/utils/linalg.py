@@ -44,6 +44,13 @@ def psd_solve(A, B):
     return torch.cholesky_solve(B, chol(A))
 
 
+def psd_solve_and_logdet(A, B):
+    """Solve A X = B and logdet A off one Cholesky factor."""
+    A, B = _bcast(A, B)
+    L = chol(A)
+    return torch.cholesky_solve(B, L), _logdet_from_chol(L)
+
+
 def psd_inv(A):
     return torch.cholesky_inverse(chol(A))
 

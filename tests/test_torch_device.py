@@ -19,6 +19,8 @@ CONSTRUCTORS = {
     "DMBD": lambda **k: tm.DynamicMarkovBlanketDiscovery((3, 2), (1, 2, 1), (2, 2, 2), **k),
     "DMBD 3 objects": lambda **k: tm.DynamicMarkovBlanketDiscovery(
         (5, 4), (2, 2, 2), (2, 2, 2), number_of_objects=3, **k),
+    "DMBD unique_obs": lambda **k: tm.DynamicMarkovBlanketDiscovery(
+        (3, 2), (1, 2, 1), (2, 2, 2), unique_obs=True, **k),
     "LDS": lambda **k: tm.LinearDynamicalSystems((3,), 2, **k),
     "MixLDS": lambda **k: tm.MixtureofLinearDynamicalSystems(2, (3,), 2, 0, 0, **k),
     "ARHMM_prXRY": lambda **k: tm.ARHMM_prXRY(3, 2, 4, 1, **k),
@@ -27,6 +29,9 @@ CONSTRUCTORS = {
     # the observation model is built before the call, as for an HMM
     "dHMM": lambda **k: tm.dHMM(DHMM_OBS, 2, **k),
     "NLDS": lambda **k: tm.NLDS((3,), 2, 2, **k),
+    "GMM": lambda **k: tm.GaussianMixtureModel(4, 3, **k),
+    "GMM isotropic": lambda **k: tm.GaussianMixtureModel(4, 3, isotropic=True, **k),
+    "PoissonMixture": lambda **k: tm.PoissonMixtureModel(4, 3, **k),
     "MNLR": lambda **k: tt.MultiNomialLogisticRegression(3, 4, **k),
     "MNLR (Bouchard)": lambda **k: tt.MultiNomialLogisticRegression_Bouchard(3, 4, **k),
     "dMixLT": lambda **k: tt.dMixtureofLinearTransforms(3, 4, 2, **k),
@@ -44,6 +49,7 @@ CONVERTERS = {
     "arhmm": lambda: convert.arhmm_state(CONSTRUCTORS["ARHMM"](device="cpu")),
     "dhmm": lambda: convert.dhmm_state(CONSTRUCTORS["dHMM"](device="cpu")),
     "nlds": lambda: convert.nlds_state(CONSTRUCTORS["NLDS"](device="cpu")),
+    "gmm": lambda: convert.gmm_state(CONSTRUCTORS["GMM"](device="cpu")),
     "mvn_ard": lambda: convert.mvn_ard_state(
         MVN_ard.create(event_shape=(2, 3, 1), generator=torch.Generator().manual_seed(0))),
     "mnlr": lambda: convert.mnlr_state(CONSTRUCTORS["MNLR"](device="cpu")),

@@ -67,9 +67,9 @@ def test_simulator_matches_jax_on_the_same_draws():
 
 def test_simulate_draws_from_the_generator():
     sim = Flocking(n_birds=6, Tmax=30, batch_size=2)
-    a = sim.simulate(torch.Generator().manual_seed(0))
-    b = sim.simulate(torch.Generator().manual_seed(0))
-    c = sim.simulate(torch.Generator().manual_seed(1), dtype=torch.float32)
+    a = sim.simulate(torch.Generator().manual_seed(0), device="cpu")
+    b = sim.simulate(torch.Generator().manual_seed(0), device="cpu")
+    c = sim.simulate(torch.Generator().manual_seed(1), dtype=torch.float32, device="cpu")
     assert a.shape == (30, 2, 6, 4) and torch.equal(a, b)
     assert c.dtype == torch.float32 and not torch.allclose(a.float(), c)
     assert torch.allclose(a.std(dim=(0, 1, 2), correction=0), torch.ones(4, dtype=a.dtype))
@@ -173,7 +173,7 @@ def test_flocking_imports_without_jax():
         "from pyvbmp_tpu_torch.simulations import Flocking\n"
         "import torch\n"
         "print(Flocking(n_birds=3, Tmax=4, batch_size=2)"
-        ".simulate(torch.Generator().manual_seed(0)).shape)\n"
+        ".simulate(torch.Generator().manual_seed(0), device='cpu').shape)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -91,12 +91,14 @@ def test_kernel_matches_plain(cuda, which, size, reverse):
         assert rel_err(o, r) <= TOL
 
 
-# the scans of the HMM-core (and dHMM), Cradle, Flame, ARHMM and NLDS paths
-# at the shapes those paths give them (size, T, lanes): ragged lane blocks at
-# every one, and the lane kernel's per-lane copy path (N = 8, below a warp)
+# the scans of the HMM-core (and dHMM), Cradle, Flame, ARHMM, NLDS, life and
+# artificial-life paths at the shapes those paths give them (size, T,
+# lanes): ragged lane blocks at every one, and the lane kernel's per-lane
+# copy path (N = 8, below a warp)
 MAIN_PATH = [("logsemiring", 8, 200, 200), ("logsemiring", 6, 200, 50),
              ("logsemiring", 3, 100, 12), ("kalman", 6, 200, 10), ("kalman", 4, 100, 1),
-             ("logsemiring", 4, 200, 200), ("lane", 2, 200, 8)]
+             ("logsemiring", 4, 200, 200), ("lane", 2, 200, 8),
+             ("logsemiring", 12, 128, 384), ("logsemiring", 10, 199, 16)]
 
 
 @pytest.mark.parametrize("which,size,T,N", MAIN_PATH)
@@ -251,7 +253,7 @@ def test_dmbd_flocking_sweep_launches_per_route(cuda, fold, monkeypatch):
     monkeypatch.setattr(scan, "TIME_FOLD", fold)
     monkeypatch.setattr(scan, "TIME_FOLD_MIN_T", 8)
     g = torch.Generator().manual_seed(0)
-    y = Flocking(n_birds=5, Tmax=40, batch_size=3).simulate(g, torch.float32).to(cuda)
+    y = Flocking(n_birds=5, Tmax=40, batch_size=3).simulate(g, torch.float32, device=cuda)
     m = DynamicMarkovBlanketDiscovery(
         (5, 4), (2, 2, 2), (2, 2, 2), number_of_objects=3, parallel_scan=True,
         generator=g, dtype=torch.float32, device=cuda,
@@ -300,6 +302,86 @@ def test_dmbd_fit_on_the_card_follows_the_cpu(cuda, name):
     cpu.update(y, iters=3)
     e_gpu, e_cpu = np.asarray(gpu.ELBO_save), np.asarray(cpu.ELBO_save)
     assert (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max() <= TOL
+
+
+def test_dense_kalman_dmbd_on_the_card_follows_the_cpu(cuda):
+    """H = 33 (hidden_dims (11, 11, 11)): the Kalman leg takes the dense
+    form on both devices (two logsemiring launches a sweep, no Kalman
+    kernel, no plain scan); 3 sweeps card f32 within relative 1e-4 of the
+    CPU in float64."""
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    rs = np.random.RandomState(8)
+    y = np.cumsum(rs.randn(40, 3, 3, 2) * 0.3, 0)
+    y = torch.tensor((y - y.mean()) / y.std())
+    state = dmbd_state(DynamicMarkovBlanketDiscovery(
+        (3, 2), (1, 1, 1), (11, 11, 11), parallel_scan=True,
+        generator=torch.Generator().manual_seed(0), dtype=torch.float64, device="cpu"))
+    gpu = dmbd_from_state(state, device=cuda, dtype=torch.float32)
+    cpu = dmbd_from_state(state, device="cpu", dtype=torch.float64)
+    counters = [*scan.SCANS, *scan.FOLDED_SCANS]
+    before = [(c.launches, c.plain_calls) for c in counters]
+    gpu.update(y.to(cuda, torch.float32), iters=3)
+    launched = [c.launches - b[0] for c, b in zip(counters, before)]
+    assert launched == [6, 0, 0, 0, 0, 0]
+    assert [c.plain_calls for c in counters] == [b[1] for b in before]
+    cpu.update(y, iters=3)
+    e_gpu, e_cpu = np.asarray(gpu.ELBO_save), np.asarray(cpu.ELBO_save)
+    assert (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max() <= TOL
+
+
+def test_gmm_on_the_card_follows_the_cpu(cuda):
+    """GaussianMixtureModel(8, 3) on 5000 points: no kernel, and 3 iterations
+    card f32 within relative 1e-4 of the CPU in float64."""
+    from pyvbmp_tpu_torch.models import GaussianMixtureModel
+    from pyvbmp_tpu_torch.utils.convert import gmm_from_state, gmm_state
+
+    rs = np.random.RandomState(9)
+    X = torch.tensor((rs.randn(8, 3) * 4)[rs.randint(0, 8, 5000)] + rs.randn(5000, 3))
+    m = GaussianMixtureModel(8, 3, generator=torch.Generator().manual_seed(0),
+                             dtype=torch.float64, device="cpu")
+    m.initialize(X, generator=torch.Generator().manual_seed(1))
+    state = gmm_state(m)
+    counters = [*scan.SCANS, *scan.FOLDED_SCANS, ws.WEIGHTED_OUTER]
+    before = [c.launches for c in counters]
+    gpu = gmm_from_state(state, device=cuda, dtype=torch.float32)
+    gpu.update(X.to(cuda, torch.float32), iters=3)
+    assert [c.launches for c in counters] == before
+    cpu = gmm_from_state(state, device="cpu", dtype=torch.float64)
+    cpu.update(X, iters=3)
+    e_gpu, e_cpu = np.asarray(gpu.ELBO_save), np.asarray(cpu.ELBO_save)
+    assert (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max() <= TOL
+
+
+@pytest.mark.parametrize("name", ["Lorenz", "Flocking", "NewtonsCradle", "Flame",
+                                  "cartthingy", "Forager"])
+def test_simulators_on_the_card_follow_the_cpu(cuda, name):
+    """The same seed gives the same data on the card as on the CPU (the
+    draws are made on the CPU; float64 integration on each device)."""
+    from pyvbmp_tpu_torch import simulations as S
+
+    def run(device):
+        g = torch.Generator().manual_seed(0)
+        if name == "Lorenz":
+            sim = S.Lorenz()
+            sim.num_steps = 200
+            return sim.simulate(3, generator=g, device=device)
+        if name == "Flocking":
+            return S.Flocking(n_birds=5, Tmax=30, batch_size=2).simulate(g, device=device)
+        if name == "NewtonsCradle":
+            sim = S.NewtonsCradle(5, 0.2, 100, 3, 1, 0.01, 0.05, include_string=2)
+            return sim.generate_data("1 + 1", g, device=device)[0]
+        if name == "Flame":
+            return S.FlameSimulator(100, 0.02, 0.5, 0.45, 12, generator=g,
+                                    device=device).simulate()[0]
+        if name == "cartthingy":
+            return S.cartthingy.simulate(3, g, device=device)
+        return S.Forager().simulate_batches(2, seed=0, device=device)[0]
+
+    out, ref = run(cuda), run("cpu")
+    assert out.device.type == "cuda" and out.dtype == ref.dtype
+    assert ((out.cpu() - ref).abs().max() / ref.abs().max()).item() <= 1e-9
 
 
 def test_sequential_dmbd_and_hmm_launch_no_kernel(cuda):

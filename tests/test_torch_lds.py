@@ -120,9 +120,15 @@ def test_lane_form_matches_plane_form(smoother_case):
 
 
 def test_smoother_form_gates(smoother_case):
-    _, _, port_in = smoother_case
-    with pytest.raises(NotImplementedError, match="dense"):
-        port_kalman(*port_in, lane_form=False, plane_form=False)
+    """Both layouts off takes the dense form (no lane or plane scan), which
+    matches the JAX lane-form outputs."""
+    h, ref, port_in = smoother_case
+    calls = (scan.KALMAN_LANE.plain_calls, scan.KALMAN_PLANE.plain_calls)
+    out = port_kalman(*port_in, lane_form=False, plane_form=False)
+    assert (scan.KALMAN_LANE.plain_calls, scan.KALMAN_PLANE.plain_calls) == calls
+    for name, o, r in zip(SMOOTHER_NAMES, list(out[0]) + list(out[1:]),
+                          list(ref[0]) + list(ref[1:])):
+        assert rel_dev(o, r, name) <= TOL, name
 
 
 # -------------------------------------------------------------------- MixLDS

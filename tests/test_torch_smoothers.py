@@ -93,3 +93,24 @@ def test_hmm_smoother_matches_jax_with_masked_transitions(K):
         assert_rel(o, r, name)
     # the masked transitions carry exactly no pairwise mass
     assert out[1][..., 0, K - 1].abs().max() == 0.0
+
+
+def test_hmm_smoother_float32_keeps_the_posteriors_at_large_logits():
+    """Observation logits of order -1e4 a step (a sharp emission): the
+    scanned products would grow to ~-1e6, where float32 keeps no O(1)
+    differences; each step's element is shifted by its largest entry, so
+    the float32 posteriors follow float64 and xi stays normalized."""
+    K = 6
+    rs = np.random.RandomState(0)
+    trans = np.log(rs.dirichlet(np.ones(K) * 5, K))
+    init = np.log(rs.dirichlet(np.ones(K)))
+    obs = rs.randn(T_LEN * 8, BATCH, 3, K) * 3.0 - 1e4
+    # the same float32 inputs on both sides, float64 arithmetic for ref
+    ins = [T(x).float() for x in (trans, init, obs)]
+    ref = port_fb(*(x.double() for x in ins))
+    out = port_fb(*ins)
+    assert (out[0].double() - ref[0]).abs().max() <= 1e-5
+    assert (out[2].double() - ref[2]).abs().max() <= 1e-5
+    assert abs(out[1].sum().item() - ref[1].sum().item()) <= 1e-6 * ref[1].sum().item()
+    assert abs(out[2].sum().item() - BATCH * 3) <= 1e-5
+    assert ((out[3].double() - ref[3]).abs().max() / ref[3].abs().max()).item() <= 1e-6
