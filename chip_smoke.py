@@ -26,7 +26,8 @@ prints no result:
    (HMM-core K=8 T=200 N=200, and the same with a transition per step and
    lane as dHMM builds them; ARHMM K=4 T=200 N=200; NLDS lane H=2 T=200
    N=8; Cradle K=6 T=200 N=50 and H=6 N=10; Flame K=3 T=100 N=12 and H=4
-   N=1; life K=12 T=128 N=384; artificial life K=10 T=199 N=16);
+   N=1; life K=12 T=128 N=384; artificial life K=10 T=199 N=16; LDS-core
+   lane H=2 T=200 N=100);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -146,7 +147,37 @@ prints no result:
    n=200000, nc=16, d=8, seed 0): GaussianMixtureModel(16, 8) in float32 on
    the card, initialize, then 10 iterations after a warm-up, iterations/s;
    the ELBO finite and ending above where it started; no kernel and no
-   plain scan; card f32 vs CPU f64 over 3 iterations within relative 1e-4.
+   plain scan; card f32 vs CPU f64 over 3 iterations within relative 1e-4;
+26. the tensor-state HMMs on the HMM-core data (phase 15's): Tensor_HMM
+   (NormalInverseWishart (4,), batch (2, 4), state axes (2, 4)), HHMM (the
+   same observations, event_dim=2) and Factorial_HMM(3, (2,), (4,)), each
+   10 sweeps in float32 after a warm-up: sweeps/s; the ELBO finite and
+   ending above where it started; no kernel and no plain scan (their
+   smoother is sequential, as in the JAX package); then card f32 vs CPU
+   f64 over 3 sweeps from one numpy state: ELBO, p and KLqprior within
+   relative 1e-4;
+27. GMM_vector(16, 8) (vector-format NIW components) on GMM-core's data as
+   (n, 8, 1) columns: as phase 25, and KLqprior card vs CPU within
+   relative 1e-4 (p's deviation printed);
+28. LDS-core (benchmarks/core_models_bench.py:20: lds_data, T=200,
+   batch=100, obs 4, hidden 2) with a caller's observation model,
+   MatrixNormalGamma.create((4, 2), pad_X=True), and parallel_scan=True:
+   10 sweeps of update(y) in float32 after a warm-up, sweeps/s; the ELBO
+   finite and ending above where it started; the lane Kalman kernel 2
+   launches a sweep at (200, 2, 100), no other kernel, no plain scan; card
+   f32 vs CPU f64 over 3 sweeps within relative 1e-4;
+29. examples/two_moons.py's loop at full size (n=400, the example's data; a
+   dMixtureofLinearTransforms(2, 2, 4) layer and an MNLR(2, 2) head, both
+   pad_X=True; 20 iterations) in float32 on the card: seconds, test
+   accuracy >= 0.80, no kernel; the same numpy state in float64 on the
+   CPU: the argmax predictions agree on >= 99% of the points;
+30. every node ported with the tensor HMMs (the Wisharts: plain, Eigh,
+   UnitDet, UnitTrace; DiagonalWishart and its UnitTrace;
+   MatrixNormalGamma and its UnitTrace with pad_X; Hierarchical_Dirichlet,
+   Transition, HierarchicalTransition; the two MVN message types; the two
+   vector-format NIWs) at batch (1000,), events 4 x 4 (8 for the NIWs):
+   one update from fixed statistics, then the KL and expectations, card f32
+   vs CPU f64 within relative 1e-4 (node_suite).
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -162,8 +193,10 @@ With --baseline, MixLDS (phase 5's data and state) is also timed end to
 end with our lane kernel and the baseline's, in 12 alternating pairs.  --trace profiles 3
 sweeps of DMBD-Lorenz, of DMBD-Flocking on both routes and of MixLDS with
 the fold off and forced on (device busy time, kernel time by kind, wall
-clock), of NLDS, dHMM and ARHMM, and of DMBD-life, DMBD-artificial-life and
-GMM-core (3 iterations).  Neither changes what the phases check.
+clock), of NLDS, dHMM and ARHMM, of DMBD-life, DMBD-artificial-life and
+GMM-core (3 iterations), and of the three tensor HMMs, GMM_vector, LDS-core
+with the pad_X observation model and two moons.  Neither changes what the
+phases check.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -254,6 +287,20 @@ ALIFE = dict(T_synth=400, n=16, role_dims=(0, 1, 0), hidden_dims=(8, 4, 2),
              compare=((5.0, 1), (1.0, 2)), lr=0.5, scan=(199, 10, 16), seed=0)
 # benchmarks/core_models_bench.py:19-28 (GMM_CFG) with its gmm_data recipe
 GMM_CORE = dict(n=200000, nc=16, d=8, iters=10, compare_iters=3, data_seed=0, seed=0)
+# benchmarks/core_models_bench.py:19's HMM data (HMM_CORE) under the
+# tensor-state HMMs: 8 joint states as the axes (2, 4) (Tensor_HMM, HHMM) or
+# as 3 binary factors (Factorial_HMM)
+TENSOR_HMM = dict(sweeps=10, compare_sweeps=3, seed=0)
+# benchmarks/core_models_bench.py:20 (LDS_CFG) with its lds_data recipe: obs
+# 4, hidden 2, the observation model a MatrixNormalGamma of event (4, 2)
+# with pad_X=True (its bias column takes the LDS's regressor)
+LDS_CORE = dict(T=200, batch=100, obs=4, hidden=2, sweeps=10, compare_sweeps=3,
+                data_seed=0, seed=0)
+# examples/two_moons.py at full size: two_moons(n=400), a
+# dMixtureofLinearTransforms(2, 2, 4, pad_X=True) layer, an
+# MultiNomialLogisticRegression(2, 2, pad_X=True) head, 20 iterations
+MOONS = dict(n=400, hidden=2, experts=4, iters=20, min_acc=0.80, min_agree=0.99, seed=0)
+NODE_BATCH = 1000  # phase 30: every new node at batch (1000,)
 SIM_TOL = 1e-6  # a simulator on the card against the same simulator on the CPU
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (dense FP32 below)
@@ -590,6 +637,11 @@ def phase_kernels(card, base=None):
         T, K, N = c["scan"]
         cases.append((scan.LOGSEMIRING, f"K={K} T={T} N={N} ({name})",
                       (semiring_elems(rs, T, K, N),)))
+    # phase 28's lane scan, LDS-core with a pad_X observation model: N=100 is
+    # not a multiple of 32, so the per-lane copy path
+    c = LDS_CORE
+    cases.append((scan.KALMAN_LANE, f"H={c['hidden']} T={c['T']} N={c['batch']} (LDS-core)",
+                  lane_elems(rs, c["T"], c["hidden"], c["batch"])))
     record = {s.name: dict(abs=0.0, ms=None, plain_ms=None, bound=None) for s in scan.SCANS}
     for s, label, arrays in cases:
         leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
@@ -1842,6 +1894,461 @@ def phase_gmm(card):
     return launches
 
 
+def tensor_hmm_states(seed):
+    """(label, numpy state) of the three tensor-state HMMs at HMM_CORE's
+    widths, built on the CPU in float64 from ``seed``."""
+    from pyvbmp_tpu_torch import models
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.utils.convert import tensor_hmm_state
+
+    d = HMM_CORE["d"]
+    kw = dict(dtype=torch.float64, device="cpu")
+
+    def obs(g):
+        return NormalInverseWishart.create((d,), (2, 4), generator=g, dtype=torch.float64)
+
+    builds = (
+        ("Tensor_HMM NIW (4,) batch (2, 4), state (2, 4)",
+         lambda g: models.Tensor_HMM(obs(g), (2, 4), generator=g, **kw)),
+        ("HHMM NIW (4,) batch (2, 4), event_dim=2",
+         lambda g: models.HHMM(obs(g), event_dim=2, generator=g, **kw)),
+        ("Factorial_HMM(3, (2,), (4,))",
+         lambda g: models.Factorial_HMM(3, (2,), (d,), generator=g, **kw)),
+    )
+    return [(label, tensor_hmm_state(build(torch.Generator().manual_seed(seed))))
+            for label, build in builds]
+
+
+def compare_outputs(label, gpu, cpu, outputs, card):
+    """Each named output (a method of the models, or an attribute) on the
+    card against the CPU: within REL_TOL of the CPU's largest entry."""
+    def value(m, name):
+        v = getattr(m, name)
+        return (v() if callable(v) else v).double().cpu()
+
+    errs = {name: rel_err(value(gpu, name), value(cpu, name))[0] for name in outputs}
+    print(f"  {label} card f32 vs CPU f64: max rel dev "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; card {card}")
+    if not max(errs.values()) <= REL_TOL:
+        fail(f"{label}: card and CPU differ ({errs})")
+
+
+def phase_tensor_hmm(card):
+    """Phase 26: Tensor_HMM, HHMM and Factorial_HMM on the HMM-core data in
+    float32 on the card: 10 sweeps after a warm-up (sweeps/s; the ELBO
+    finite and ending above where it started; no kernel, no plain scan: the
+    smoother is sequential, as in the JAX package), then 3 sweeps card f32
+    vs CPU f64 from one numpy state (ELBO, p, KLqprior)."""
+    from pyvbmp_tpu_torch.utils.convert import tensor_hmm_from_state
+
+    c = TENSOR_HMM
+    y64 = hmm_data()
+    y = y64.to("cuda", torch.float32)
+    for (label, state), (_, state_cmp) in zip(tensor_hmm_states(c["seed"]),
+                                              tensor_hmm_states(c["seed"] + 1)):
+        tensor_hmm_from_state(state, "cuda", torch.float32).update(y, iters=1)
+        model = tensor_hmm_from_state(state, "cuda", torch.float32)
+        dt, launches, plain = drive(model, c["sweeps"], y)
+        elbo = np.asarray(model.ELBO_save, np.float64)
+        print(f"phase 26 {label} T={HMM_CORE['T']} batch={HMM_CORE['batch']} d={HMM_CORE['d']} "
+              f"{c['sweeps']} sweeps: {c['sweeps'] / dt:.3f} sweeps/s ({dt:.3f} s); card {card}")
+        print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
+        if not np.isfinite(elbo).all():
+            fail(f"{label}: ELBO not finite")
+        if not elbo[-1] > elbo[0]:
+            fail(f"{label}: ELBO ended below where it started")
+        check_launches(label, launches, plain, {k: 0 for k in launches})
+        if tuple(model.p.shape) != (HMM_CORE["T"], HMM_CORE["batch"]) + model.event_shape:
+            fail(f"{label}: p has shape {tuple(model.p.shape)}")
+        gpu, _, _, cpu = compare_card_cpu(f"phase 26 {label}", tensor_hmm_from_state,
+                                          state_cmp, (y64,), c["compare_sweeps"], card)
+        compare_outputs(f"phase 26 {label}", gpu, cpu, ("p", "KLqprior"), card)
+
+
+def gmm_vector_state0(seed, X64):
+    from pyvbmp_tpu_torch.dists import GMM_vector
+    from pyvbmp_tpu_torch.utils.convert import gmm_state
+
+    g = torch.Generator().manual_seed(seed)
+    m = GMM_vector(GMM_CORE["nc"], GMM_CORE["d"], generator=g, dtype=torch.float64, device="cpu")
+    m.initialize(X64, generator=g)
+    return gmm_state(m)
+
+
+def phase_gmm_vector(card):
+    """Phase 27: GMM_vector(16, 8) (vector-format NIW components) on GMM-core's
+    data as (n, 8, 1) columns in float32 on the card: initialize, 10
+    iterations after a warm-up (it/s; the ELBO finite and ending above
+    where it started; no kernel), then card f32 vs CPU f64 over 3
+    iterations (ELBO and KLqprior; p's deviation printed)."""
+    from pyvbmp_tpu_torch.utils.convert import gmm_from_state
+
+    c = GMM_CORE
+    X64 = gmm_data()[..., None]
+    X = X64.to("cuda", torch.float32)
+    state = gmm_vector_state0(c["seed"], X64)
+    gmm_from_state(state, "cuda", torch.float32).update(X, iters=1)
+    model = gmm_from_state(state, "cuda", torch.float32)
+    dt, launches, plain = drive(model, c["iters"], X)
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase 27 GMM_vector n={c['n']} nc={c['nc']} d={c['d']} (NIW vector-format "
+          f"components) {c['iters']} iterations: {c['iters'] / dt:.3f} it/s ({dt:.3f} s); "
+          f"card {card}")
+    print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
+    if not np.isfinite(elbo).all():
+        fail("GMM_vector: ELBO not finite")
+    if not elbo[-1] > elbo[0]:
+        fail("GMM_vector: ELBO ended below where it started")
+    check_launches("GMM_vector", launches, plain, {k: 0 for k in launches})
+    gpu, _, _, cpu = compare_card_cpu("phase 27 GMM_vector", gmm_from_state,
+                                      gmm_vector_state0(c["seed"] + 1, X64), (X64,),
+                                      c["compare_iters"], card)
+    compare_outputs("phase 27 GMM_vector", gpu, cpu, ("KLqprior",), card)
+    # the assignments differ most at the few points between two components
+    # (~1e-4 of p there); reported, not held to REL_TOL
+    dev = rel_err(gpu.p.double().cpu(), cpu.p)[0]
+    agree = (gpu.p.argmax(-1).cpu() == cpu.p.argmax(-1)).double().mean().item()
+    print(f"  phase 27 GMM_vector p: max dev {dev:.3e}, argmax agree on {agree:.6f}")
+
+
+def lds_core_data():
+    """benchmarks/core_models_bench.py:lds_data at LDS_CORE: a damped
+    rotation (0.2 rad a step) in 2 dims seen through a random 4 x 2 map,
+    (T, batch, 4) float32 values held in float64."""
+    c = LDS_CORE
+    rs = np.random.RandomState(c["data_seed"])
+    th = 0.2
+    A = np.asarray([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]) * 0.98
+    C = rs.randn(c["obs"], c["hidden"])
+    x = rs.randn(c["batch"], c["hidden"])
+    ys = []
+    for _ in range(c["T"]):
+        x = x @ A.T + 0.05 * rs.randn(c["batch"], c["hidden"])
+        ys.append(x @ C.T + 0.1 * rs.randn(c["batch"], c["obs"]))
+    return torch.from_numpy(np.stack(ys).astype(np.float32).astype(np.float64))
+
+
+def lds_core_state0(seed):
+    from pyvbmp_tpu_torch.models import LinearDynamicalSystems
+    from pyvbmp_tpu_torch.transforms import MatrixNormalGamma
+    from pyvbmp_tpu_torch.utils.convert import lds_state
+
+    c = LDS_CORE
+    g = torch.Generator().manual_seed(seed)
+    obs = MatrixNormalGamma.create((c["obs"], c["hidden"]), pad_X=True, generator=g,
+                                   dtype=torch.float64)
+    return lds_state(LinearDynamicalSystems(
+        (c["obs"],), c["hidden"], obs_model=obs, parallel_scan=True, generator=g,
+        dtype=torch.float64, device="cpu"))
+
+
+LANE_WANT = {"logsemiring_scan": 0, "kalman_plane_scan": 0, "kalman_lane_scan": 2,
+             "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
+             "kalman_lane_scan_folded": 0, "weighted_outer": 0}
+
+
+def phase_lds_obs(card):
+    """Phase 28: LDS-core with a caller's observation model,
+    MatrixNormalGamma.create((4, 2), pad_X=True), and the scan smoother, in
+    float32 on the card: 10 sweeps (one update each) after a warm-up
+    (sweeps/s; the ELBO finite and ending above where it started; 2 lane
+    Kalman launches a sweep at (200, 2, 100), no other kernel, no plain
+    scan), then card f32 vs CPU f64 over 3 sweeps.  Returns the timed
+    run's launches."""
+    from pyvbmp_tpu_torch.utils.convert import lds_from_state
+
+    c = LDS_CORE
+    y64 = lds_core_data()
+    y = y64.to("cuda", torch.float32)
+    state = lds_core_state0(c["seed"])
+    lds_from_state(state, "cuda", torch.float32).update(y)
+    model = lds_from_state(state, "cuda", torch.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(c["sweeps"]):
+        model.update(y)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    elbo = np.asarray(model.ELBO_save, np.float64)
+    print(f"phase 28 LDS-core T={c['T']} batch={c['batch']} obs {c['obs']} hidden {c['hidden']}, "
+          f"obs_model MatrixNormalGamma (4, 2) pad_X=True, parallel_scan=True, {c['sweeps']} "
+          f"sweeps: {c['sweeps'] / dt:.3f} sweeps/s ({dt:.3f} s); card {card}")
+    print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
+    if not np.isfinite(elbo).all():
+        fail("LDS-core: ELBO not finite")
+    if not elbo[-1] > elbo[0]:
+        fail("LDS-core: ELBO ended below where it started")
+    check_launches("LDS-core pad_X obs_model", launches, plain, per_sweep(LANE_WANT, c["sweeps"]))
+    compare_card_cpu("phase 28 LDS-core pad_X obs_model", lds_from_state,
+                     lds_core_state0(c["seed"] + 1), (y64,), c["compare_sweeps"], card)
+    return launches
+
+
+def two_moons():
+    """examples/two_moons.py:two_moons at full size: (n, 2) float32 values
+    held in float64, and the labels."""
+    rs = np.random.RandomState(0)
+    n = MOONS["n"]
+    t = np.pi * rs.rand(n // 2)
+    outer = np.stack([np.cos(t), np.sin(t)], -1)
+    inner = np.stack([1 - np.cos(t), -np.sin(t) + 0.5], -1)
+    X = np.concatenate([outer, inner]) + 0.08 * rs.randn(n, 2)
+    y = np.concatenate([np.zeros(n // 2, int), np.ones(n // 2, int)])
+    return torch.from_numpy(X.astype(np.float32).astype(np.float64)), y
+
+
+class MoonsFit:
+    """examples/two_moons.py's loop: a dMixtureofLinearTransforms layer and
+    an MNLR head, the head's backward message fused into the layer's
+    forward one (``combiner``).  ``update(pX, Y, iters)`` runs ``iters``
+    iterations; ``predict(pX)`` the head's class probabilities."""
+
+    def __init__(self, states, device, dtype):
+        from pyvbmp_tpu_torch.utils.convert import dmixlt_from_state, mnlr_from_state
+
+        self.layer = dmixlt_from_state(states[0], device, dtype)
+        self.head = mnlr_from_state(states[1], device, dtype)
+
+    def update(self, pX, Y, iters=1):
+        for _ in range(iters):
+            pH = self.layer.forward(pX)
+            self.head.update(pH, Y, iters=1)
+            pH_msg, _ = self.head.backward(Y)
+            self.layer.update(pX, pH.combiner(pH_msg), iters=1)
+
+    def predict(self, pX):
+        return self.head.forward(self.layer.forward(pX))
+
+
+def moons_inputs(X64, y, device, dtype):
+    """pX (the inputs as messages with covariance 1e-4 I) and one-hot Y."""
+    from pyvbmp_tpu_torch.dists import MultivariateNormal_vector_format
+
+    X = X64.to(device, dtype)
+    eye = torch.eye(2, dtype=dtype, device=device)
+    pX = MultivariateNormal_vector_format(mu=X[..., None],
+                                          Sigma=1e-4 * eye.expand(len(X), 2, 2))
+    return pX, torch.eye(2, dtype=dtype, device=device)[torch.as_tensor(y, device=device)]
+
+
+def moons_states(seed):
+    from pyvbmp_tpu_torch.transforms import (
+        MultiNomialLogisticRegression, dMixtureofLinearTransforms,
+    )
+    from pyvbmp_tpu_torch.utils.convert import dmixlt_state, mnlr_state
+
+    c = MOONS
+    g = torch.Generator().manual_seed(seed)
+    kw = dict(pad_X=True, generator=g, dtype=torch.float64, device="cpu")
+    return (dmixlt_state(dMixtureofLinearTransforms(c["hidden"], 2, c["experts"], **kw)),
+            mnlr_state(MultiNomialLogisticRegression(2, c["hidden"], **kw)))
+
+
+def phase_moons(card):
+    """Phase 29: examples/two_moons.py's loop at full size (n=400, 20
+    iterations) in float32 on the card: seconds, test accuracy >= 0.80, no
+    kernel launched; then the same state and data in float64 on the CPU:
+    the argmax predictions agree on >= 99% of the points."""
+    c = MOONS
+    X64, y = two_moons()
+    states = moons_states(c["seed"])
+    pX, Y = moons_inputs(X64, y, "cuda", torch.float32)
+    fit = MoonsFit(states, "cuda", torch.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    fit.update(pX, Y, iters=c["iters"])
+    pred = fit.predict(pX).argmax(-1).cpu().numpy()
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    acc = (pred == y).mean()
+    pX64, Y64 = moons_inputs(X64, y, "cpu", torch.float64)
+    cpu = MoonsFit(states, "cpu", torch.float64)
+    cpu.update(pX64, Y64, iters=c["iters"])
+    pred_cpu = cpu.predict(pX64).argmax(-1).numpy()
+    agree = (pred == pred_cpu).mean()
+    print(f"phase 29 two moons n={c['n']} hidden {c['hidden']} {c['experts']} experts, "
+          f"{c['iters']} iterations: {dt:.3f} s ({c['iters'] / dt:.3f} it/s); accuracy "
+          f"{acc:.4f} (CPU f64 {(pred_cpu == y).mean():.4f}); card and CPU argmax agree on "
+          f"{agree:.4f}; card {card}")
+    if not acc >= c["min_acc"]:
+        fail(f"two moons: accuracy {acc:.4f} below {c['min_acc']}")
+    if not agree >= c["min_agree"]:
+        fail(f"two moons: card and CPU predictions agree on only {agree:.4f}")
+    check_launches("two moons", launches, plain, {k: 0 for k in launches})
+
+
+def node_cases(B):
+    """name -> (build on the CPU in float64 from a generator at batch
+    (B,), one update from fixed statistics and the outputs to compare) for
+    every node ported alongside the tensor HMMs.  ``ops(node, A)`` gets the
+    node and A, which makes a numpy array a tensor like the node's."""
+    from pyvbmp_tpu_torch import dists as D, transforms as Tr
+
+    def spd(rs, B, d, n=12):
+        W = rs.randn(B, d, n)
+        return W @ np.swapaxes(W, -1, -2)
+
+    def wishart():
+        def build(cls):
+            return lambda g: getattr(D, cls).create(
+                (4, 4), (B,), scale=0.7, **({} if cls == "Wishart" else dict(generator=g)),
+                dtype=torch.float64)
+
+        def ops(n, A):
+            rs = np.random.RandomState(1)
+            n1 = n.ss_update(A(spd(rs, B, 4)), A(rs.rand(B) * 20 + 2), lr=0.8)
+            out = {k: getattr(n1, k)() for k in (
+                "mean", "ESigma", "invEinvSigma", "ElogdetinvSigma", "logdetEinvSigma",
+                "KLqprior", "logZ")}
+            out["invU"] = n1.invU
+            return out
+
+        return {cls: (build(cls), ops) for cls in
+                ("Wishart", "WishartEigh", "WishartUnitDet", "WishartUnitTrace")}
+
+    def diag():
+        def ops(n, A):
+            rs = np.random.RandomState(2)
+            n1 = n.ss_update(A(rs.rand(B, 4) * 5), A(rs.rand(B, 1) * 10 + 1), lr=0.9)
+            return {k: getattr(n1, k)() for k in ("ESigma", "ElogdetinvSigma",
+                                                  "logdetEinvSigma", "invEinvSigma",
+                                                  "KLqprior", "logZ")}
+
+        return {cls: (lambda g, cls=cls: getattr(D, cls).create(
+            (4,), (B,), scale=0.7, generator=g, dtype=torch.float64), ops)
+            for cls in ("DiagonalWishart", "DiagonalWishartUnitTrace")}
+
+    def mng():
+        def ops(n, A):
+            rs = np.random.RandomState(3)
+            X = rs.randn(20, B, 3, 1)
+            Y = rs.randn(4, 3) @ X * 0.7 + 0.3 * rs.randn(20, B, 4, 1) + 0.5
+            n1 = n.raw_update(A(X), A(Y), p=A(rs.rand(20, B)), lr=0.9)
+            M = A(spd(rs, B, 4))
+            out = {k: getattr(n1, k)() for k in ("EXTinvUX", "EXTX", "EXXT", "ElogdetinvU",
+                                                 "ESigma", "invEinvSigma", "KLqprior")}
+            out.update(EXTAX=n1.EXTAX(M), like=n1.Elog_like(A(X), A(Y)))
+            return out
+
+        return {f"{cls} pad_X": (lambda g, cls=cls: getattr(Tr, cls).create(
+            (4, 3), (B,), pad_X=True, generator=g, dtype=torch.float64), ops)
+            for cls in ("MatrixNormalGamma", "MatrixNormalGamma_UnitTrace")}
+
+    def dirichlets():
+        def hd_ops(n, A):
+            rs = np.random.RandomState(4)
+            X = rs.dirichlet(np.ones(16), (20, B)).reshape(20, B, 4, 4)
+            n1 = n.raw_update(A(X * 50), p=A(rs.rand(20, B)), lr=0.8)
+            return dict(mean=n1.mean(), loggeomean=n1.loggeomean(), KLqprior=n1.KLqprior())
+
+        def tr_ops(n, A):
+            rs = np.random.RandomState(5)
+            n1 = n.ss_update(A(rs.rand(B, 4, 4, 4, 4) * 400), lr=0.8)
+            logits = A(rs.randn(B, 4, 4))
+            return dict(loggeomean=n1.loggeomean(), KLqprior=n1.KLqprior(),
+                        log_forward=n1.log_forward(logits))
+
+        def htr_ops(n, A):
+            rs = np.random.RandomState(6)
+            n1 = n.ss_update(A(rs.rand(B, 4, 4, 4, 4) * 400), lr=0.8)
+            return dict(mean=n1.mean(), loggeomean=n1.loggeomean(), KLqprior=n1.KLqprior())
+
+        kw = dict(dtype=torch.float64)
+        return {
+            "Hierarchical_Dirichlet": (lambda g: D.Hierarchical_Dirichlet.create(
+                (4, 4), (B,), generator=g, **kw), hd_ops),
+            "Transition": (lambda g: Tr.Transition.create((4, 4), (B,), generator=g, **kw),
+                           tr_ops),
+            "HierarchicalTransition": (lambda g: Tr.HierarchicalTransition.create(
+                (4, 4), (B,), generator=g, **kw), htr_ops),
+        }
+
+    def messages():
+        def mvn_vf(g):
+            rs = np.random.RandomState(7)
+            return D.MultivariateNormal_vector_format(
+                mu=torch.tensor(rs.randn(B, 4, 1)), Sigma=torch.tensor(spd(rs, B, 4)))
+
+        def mvn(g):
+            rs = np.random.RandomState(8)
+            return D.MultivariateNormal(mu=torch.tensor(rs.randn(B, 4)),
+                                        Sigma=torch.tensor(spd(rs, B, 4)))
+
+        def vf_ops(n, A):
+            rs = np.random.RandomState(9)
+            X = rs.randn(20, B, 4, 1) * 2 + 1
+            n1 = n.raw_update(A(X), p=A(rs.rand(20, B)))
+            c = n1.combiner(D.MultivariateNormal_vector_format(
+                invSigma=A(spd(rs, B, 4)), invSigmamu=A(rs.randn(B, 4, 1))))
+            return dict(EXXT=n1.EXXT(), Res=n1.Res(), like=n1.Elog_like(A(X)), c_mean=c.mean())
+
+        def mat_ops(n, A):
+            rs = np.random.RandomState(10)
+            X = rs.randn(20, B, 4) * 2 - 1
+            n1 = n.raw_update(A(X), p=A(rs.rand(20, B)))
+            return dict(EXXT=n1.EXXT(), EinvSigmamu=n1.EinvSigmamu(), like=n1.Elog_like(A(X)))
+
+        return {"MultivariateNormal_vector_format": (mvn_vf, vf_ops),
+                "MultivariateNormal": (mvn, mat_ops)}
+
+    def niw():
+        def ops(n, A):
+            rs = np.random.RandomState(11)
+            X = rs.randn(20, B, 8, 1) * 1.5 + 2
+            n1 = n.raw_update(A(X), p=A(rs.rand(20, B)), lr=0.8)
+            return dict(EXXT=n1.EXXT(), EinvSigma=n1.EinvSigma(),
+                        ElogdetinvSigma=n1.ElogdetinvSigma(), EXTinvUX=n1.EXTinvUX(),
+                        KLqprior=n1.KLqprior(), like=n1.Elog_like(A(X)))
+
+        return {cls: (lambda g, cls=cls: getattr(D, cls).create(
+            (8, 1), (B,), scale=0.8, dtype=torch.float64), ops)
+            for cls in ("NormalInverseWishart_vector_format",
+                        "NormalInverseWishart_vector_format_invSigma")}
+
+    return {**wishart(), **diag(), **mng(), **dirichlets(), **messages(), **niw()}
+
+
+def node_suite(batch=NODE_BATCH, card=""):
+    """Every node ported alongside the tensor HMMs at batch (``batch``,):
+    one build (CPU, float64), then one update from fixed statistics and the
+    KL and expectations in float32 on the card and in float64 on the CPU.
+    Returns name -> the worst relative deviation (each output against its
+    largest CPU entry)."""
+    worst = {}
+    for name, (build, ops) in node_cases(batch).items():
+        n64 = build(torch.Generator().manual_seed(0))
+        n32 = n64.to("cuda", torch.float32)
+        out = ops(n32, lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda"))
+        ref = ops(n64, lambda a: torch.as_tensor(a, dtype=torch.float64))
+        # an output held at 0 by construction (WishartUnitDet's <logdet
+        # Sigma^-1>: its 4 Newton steps leave ~2e-6 in float64) is held to
+        # REL_TOL absolute
+        errs = {k: rel_err(out[k].double().cpu(), ref[k])[int(ref[k].abs().max() < 1e-3)]
+                for k in ref}
+        worst[name] = max(errs.values())
+        top = max(errs, key=errs.get)
+        print(f"  phase 30 {name} batch ({batch},): worst output {top} {errs[top]:.3e}; "
+              f"card {card}")
+    return worst
+
+
+def phase_nodes(card):
+    """Phase 30: node_suite at batch (1000,): each new node's update, KL and
+    expectations, card f32 vs CPU f64 within REL_TOL (WishartEigh and its
+    variants on cuSOLVER's batched eigh)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    worst = node_suite(NODE_BATCH, card)
+    launches, plain = read_counts()
+    print(f"phase 30 {len(worst)} nodes at batch ({NODE_BATCH},): worst {max(worst.values()):.3e} "
+          f"({max(worst, key=worst.get)}); {time.perf_counter() - t0:.3f} s; card {card}")
+    check_launches("node suite", launches, plain, {k: 0 for k in launches})
+    bad = {k: v for k, v in worst.items() if not v <= REL_TOL}
+    if bad:
+        fail(f"node suite: card and CPU differ: {bad}")
+
+
 def trace_sweeps(card, label, model, args, fit, fold, n=3):
     """Per sweep of ``model.update(*args, iters=n, **fit)`` under the time
     fold ``fold``: the untraced wall clock (median of 5 runs), then one
@@ -1941,6 +2448,22 @@ def phase_trace(card):
     trace_sweeps(card, "GMM-core", gmm_from_state(gmm_state0(GMM_CORE["seed"], X64), "cuda",
                                                   torch.float32),
                  (X64.to("cuda", torch.float32),), {}, "0")
+    from pyvbmp_tpu_torch.utils.convert import lds_from_state, tensor_hmm_from_state
+
+    y = (hmm_data().to("cuda", torch.float32),)
+    for _, state in tensor_hmm_states(TENSOR_HMM["seed"]):
+        trace_sweeps(card, state["kind"], tensor_hmm_from_state(state, "cuda", torch.float32),
+                     y, {}, "0")
+    X64 = X64[..., None]
+    trace_sweeps(card, "GMM_vector", gmm_from_state(gmm_vector_state0(GMM_CORE["seed"], X64),
+                                                    "cuda", torch.float32),
+                 (X64.to("cuda", torch.float32),), {}, "0")
+    trace_sweeps(card, "LDS-core pad_X obs_model",
+                 lds_from_state(lds_core_state0(LDS_CORE["seed"]), "cuda", torch.float32),
+                 (lds_core_data().to("cuda", torch.float32),), {}, "0")
+    X64, y = two_moons()
+    trace_sweeps(card, "two moons", MoonsFit(moons_states(MOONS["seed"]), "cuda", torch.float32),
+                 moons_inputs(X64, y, "cuda", torch.float32), {}, "0")
 
 
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):
@@ -1990,6 +2513,11 @@ def main():
     launches_alife = run("23", phase_alife, card)
     launches_unique = run("24", phase_unique_obs, card)
     run("25", phase_gmm, card)
+    run("26", phase_tensor_hmm, card)
+    run("27", phase_gmm_vector, card)
+    launches_lds_obs = run("28", phase_lds_obs, card)
+    run("29", phase_moons, card)
+    run("30", phase_nodes, card)
     if args.trace:
         run("trace", phase_trace, card)
     if base is not None:
@@ -2003,7 +2531,8 @@ def main():
             launches_dmbd[s.name] + launches_mix[s.name] + launches_flock["0"][s.name]
             + launches_hmm[s.name] + launches_cradle[s.name] + launches_flame[s.name]
             + launches_nlds[s.name] + launches_dhmm[s.name] + launches_arhmm[s.name]
-            + launches_life[s.name] + launches_alife[s.name] + launches_unique[s.name],
+            + launches_life[s.name] + launches_alife[s.name] + launches_unique[s.name]
+            + launches_lds_obs[s.name],
             max(record[s.name]["abs"], one_pass[s.name]), record[s.name]))
     for s in scan.FOLDED_SCANS:
         kernels.append(record_line(

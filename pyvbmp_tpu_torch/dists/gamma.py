@@ -102,6 +102,9 @@ class Gamma(Node):
         # log(alpha) - log(beta), as the JAX package and its reference have it
         return torch.log(self.alpha) - torch.log(self.beta)
 
+    def logZ(self):
+        return -self.alpha * torch.log(self.beta) + torch.lgamma(self.alpha)
+
     def KLqprior(self):
         KL = (
             (self.alpha - self.alpha_0) * torch.digamma(self.alpha)

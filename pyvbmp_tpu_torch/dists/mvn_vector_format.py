@@ -7,11 +7,12 @@ computed on first access and cached on the (otherwise immutable) node.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv, psd_logdet, psd_solve
-from ..utils.torchutils import Node, node
+from ..utils.torchutils import Node, node, replace, sum_leading
 
 
 @node
@@ -43,6 +44,23 @@ class MultivariateNormal_vector_format(Node):
         if r is self.Sigma or r is self.invSigma:
             return tuple(r.shape[:-1]) + (1,)
         return tuple(r.shape)
+
+    @property
+    def event_shape(self):
+        return self.shape[-self.event_dim:]
+
+    @property
+    def batch_shape(self):
+        return self.shape[: len(self.shape) - self.event_dim]
+
+    @property
+    def batch_dim(self):
+        return len(self.batch_shape)
+
+    def to_event(self, n):
+        if n == 0:
+            return self
+        return replace(self, event_dim=self.event_dim + n)
 
     def unsqueeze(self, dim):
         """Insert a batch dim."""
@@ -99,3 +117,49 @@ class MultivariateNormal_vector_format(Node):
             + 0.5 * self.ElogdetinvSigma()
             - 0.5 * self.dim * um.LOG2PI
         )
+
+    def EXTX(self):
+        return self.ESigma().sum((-1, -2)) + (mT(self.mean()) @ self.mean())[..., 0, 0]
+
+    # -- message fusion ---------------------------------------------------------
+    def combiner(self, other):
+        """Precision-add fusion of two messages; returns a new node."""
+        return self.nat_combiner(other.EinvSigma(), other.EinvSigmamu())
+
+    def nat_combiner(self, invSigma, invSigmamu):
+        return MultivariateNormal_vector_format(
+            invSigma=self.EinvSigma() + invSigma,
+            invSigmamu=self.EinvSigmamu() + invSigmamu,
+            event_dim=self.event_dim,
+        )
+
+    # -- updates ------------------------------------------------------------------
+    def ss_update(self, SExx, SEx, n, lr=1.0):
+        """Moment matching (the JAX package's, whose reference defines a
+        natural-parameter ``ss_update`` first and shadows it with this one)."""
+        n = n[..., None, None]
+        mu = SEx / n
+        return MultivariateNormal_vector_format(mu=mu, Sigma=SExx / n - mu @ mT(mu),
+                                                event_dim=self.event_dim)
+
+    def raw_update(self, X, p=None, lr=1.0):
+        nd = self.event_dim + self.batch_dim
+        if p is None:
+            sample_shape = X.shape[: X.ndim - nd]
+            n = X.new_full(self.batch_shape + self.event_shape[:-2],
+                           float(np.prod(sample_shape, dtype=np.float64)))
+            return self.ss_update(sum_leading(X @ mT(X), nd), sum_leading(X, nd), n, lr)
+        pv = p.reshape(p.shape + (1,) * self.event_dim)
+        n = sum_leading(pv, nd)[..., 0, 0]
+        return self.ss_update(sum_leading(X @ mT(X) * pv, nd), sum_leading(X * pv, nd), n, lr)
+
+    def Elog_like(self, X):
+        d = X - self.mean()
+        out = -0.5 * (mT(d) @ self.EinvSigma() @ d)[..., 0, 0]
+        out = out - 0.5 * self.dim * um.LOG2PI + 0.5 * self.ElogdetinvSigma()
+        for _ in range(self.event_dim - 2):
+            out = out.sum(-1)
+        return out
+
+    def KLqprior(self):
+        return self._ref().new_zeros(())

@@ -2,7 +2,8 @@
 pyvbmp_tpu/models/lds.py): information-form Kalman filter + RTS smoother
 with exact logZ residual bookkeeping.
 
-  y_t = B [x_t; r_t] + eps_t        (obs_model: MatrixNormalWishart)
+  y_t = B [x_t; r_t] + eps_t        (obs_model: MatrixNormalWishart, or one
+                                    the caller gives: MNW or MNG, pad_X or not)
   x_t = A [x_{t-1}; u_t] + eta_t    (A: MNW 'shared' noise or MNG 'independent')
 
 Two smoothers, picked by ``parallel_scan``:
@@ -91,11 +92,22 @@ class LinearDynamicalSystems:
             offset + (hidden_dim, hidden_dim + control_dim), batch_shape,
             mask=A_mask, generator=generator, dtype=dtype, device=device,
         )
+        width = hidden_dim + regression_dim
         if obs_model is None:
             obs_model = MatrixNormalWishart.create(
-                self.obs_shape + (hidden_dim + regression_dim,), batch_shape,
+                self.obs_shape + (width,), batch_shape,
                 mask=B_mask, generator=generator, dtype=dtype, device=device,
             )
+        elif obs_model.p != width:
+            pad = int(obs_model.pad_X)
+            raise ValueError(
+                f"obs_model maps an X of width {obs_model.p}"
+                + (" (its pad_X bias column included)" if pad else "")
+                + f"; this LDS needs hidden_dim + regression_dim + 1 = {width}: build it "
+                f"with event shape {self.obs_shape + (width - pad,)}"
+                + (" and pad_X=True" if pad else ""))
+        else:
+            obs_model = obs_model.to(device, dtype)
         self.obs_model = obs_model
         self.px = None
 

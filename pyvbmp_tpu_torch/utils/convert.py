@@ -18,8 +18,12 @@ ARHMM, ARHMM_prXY or ARHMM_prXRY, its class under ``kind``), ``dhmm_state``
 where the model has them, and p (an NLDS's q(s)) when it is set.
 
 The mixtures have ``gmm_state`` (a GaussianMixtureModel, NIW or
-isotropic, or a PoissonMixtureModel; the component node's class under
-``kind``) and ``gmm_from_state``.
+isotropic, a PoissonMixtureModel or a GMM_vector; the component node's class
+under ``kind``) and ``gmm_from_state``; the tensor-state HMMs (Tensor_HMM,
+HHMM, Factorial_HMM) ``tensor_hmm_state`` and ``tensor_hmm_from_state``.
+``node_state`` and ``load_state`` carry any node, fields that hold a list of
+nodes included (Hierarchical_Dirichlet's and HierarchicalTransition's
+``dists``).
 
 The classifiers have the same pair of functions: ``mvn_ard_state`` (an
 MVN_ard node with its Gamma, and its shapes), ``mnlr_state``,
@@ -47,9 +51,10 @@ A standalone HMM's (NormalInverseWishart observations) holds its config
 (Dirichlet), transition_mask (or None), obs_dist (NormalInverseWishart) and
 p when the model has run.  An LDS's dict holds its config, x0 (NormalInverseWishart), A
 (MatrixNormalGamma, or MatrixNormalWishart for latent_noise="shared"),
-obs_model (MatrixNormalWishart, masks included), expand_to_batch and px when
-the model has run; a MixLDS's holds its config, the LDS nodes, pi
-(Dirichlet) and p when the model has run.
+obs_model (MatrixNormalWishart, masks included, or the MNW or MNG the caller
+gave, with or without pad_X: its class and pad_X under obs_config),
+expand_to_batch and px when the model has run; a MixLDS's holds its config,
+the LDS nodes, pi (Dirichlet) and p when the model has run.
 """
 from __future__ import annotations
 
@@ -70,8 +75,8 @@ def _array(x):
 
 
 def node_state(n):
-    """Every array field of a node (recursing into sub-nodes); shape and
-    flag fields are rebuilt from the config instead."""
+    """Every array field of a node (recursing into sub-nodes and lists of
+    sub-nodes); shape and flag fields are rebuilt from the config instead."""
     out = {}
     for f in dataclasses.fields(n):
         v = getattr(n, f.name)
@@ -79,6 +84,8 @@ def node_state(n):
             out[f.name] = None
         elif dataclasses.is_dataclass(v):
             out[f.name] = node_state(v)
+        elif isinstance(v, list):
+            out[f.name] = [node_state(x) for x in v]
         elif not isinstance(v, (bool, int, float, str, tuple)):
             out[f.name] = _array(v)
     return out
@@ -128,6 +135,11 @@ def load_state(n, d):
         cur, v = getattr(n, f.name), d[f.name]
         if dataclasses.is_dataclass(cur):
             changes[f.name] = load_state(cur, v)
+        elif isinstance(cur, list):
+            if len(v) != len(cur):
+                raise ValueError(f"{type(n).__name__}.{f.name}: state has {len(v)} nodes, "
+                                 f"model has {len(cur)}")
+            changes[f.name] = [load_state(c, x) for c, x in zip(cur, v)]
         elif v is None:
             changes[f.name] = None
         elif f.name == "mask":
@@ -228,8 +240,6 @@ def hmm_from_state(state, device=None, dtype=None):
 def _lds_nodes(lds):
     if getattr(lds, "time_mesh", None) is not None:
         raise ValueError("time_mesh is not ported")
-    if getattr(lds.obs_model, "pad_X", False):
-        raise ValueError("an LDS obs_model with pad_X=True is not supported")
     return {
         "x0": node_state(lds.x0),
         "A": node_state(lds.A),
@@ -257,11 +267,40 @@ def lds_state(model):
             parallel_scan=bool(model.parallel_scan),
         ),
         "expand_to_batch": bool(model.expand_to_batch),
+        "obs_config": _obs_config(model.obs_model),
         **_lds_nodes(model),
     }
     if model.px is not None:
         state["px"] = {k: _array(getattr(model.px, k)) for k in _PX_FIELDS}
     return state
+
+
+_DEFAULT_OBS = dict(kind="MatrixNormalWishart", pad_X=False)
+
+
+def _obs_config(om):
+    """The class and pad_X of an LDS's observation model (and MNG's
+    uniform_precision)."""
+    out = dict(kind=type(om).__name__, pad_X=bool(om.pad_X))
+    if hasattr(om, "uniform_precision"):
+        out["uniform_precision"] = bool(om.uniform_precision)
+    return out
+
+
+def _obs_model(state, generator):
+    """The observation model an LDS's state was fitted with, built on the
+    CPU in float64, or None for the constructor's own."""
+    oc = state.get("obs_config", _DEFAULT_OBS)
+    if oc == _DEFAULT_OBS:
+        return None
+    from .. import transforms
+
+    c = state["config"]
+    width = c["hidden_dim"] + c["regression_dim"] + 1 - int(oc["pad_X"])
+    kw = {k: v for k, v in oc.items() if k != "kind"}
+    return getattr(transforms, oc["kind"]).create(
+        tuple(c["obs_shape"]) + (width,), tuple(c["batch_shape"]), **kw,
+        generator=generator, dtype=torch.float64, device="cpu")
 
 
 def lds_from_state(state, device=None, dtype=None):
@@ -270,10 +309,10 @@ def lds_from_state(state, device=None, dtype=None):
     from ..dists.mvn_vector_format import MultivariateNormal_vector_format
     from ..models import LinearDynamicalSystems
 
+    g = torch.Generator().manual_seed(0)
     model = LinearDynamicalSystems(
-        **state["config"],
-        generator=torch.Generator().manual_seed(0),
-        dtype=torch.float64, device="cpu",
+        **state["config"], obs_model=_obs_model(state, g),
+        generator=g, dtype=torch.float64, device="cpu",
     )
     model.expand_to_batch = state["expand_to_batch"]
     _load_lds_nodes(model, state)
@@ -568,14 +607,18 @@ def nlds_from_state(state, device=None, dtype=None):
 # -- mixtures ------------------------------------------------------------------
 def gmm_state(model):
     """Nested dict of numpy arrays holding a GaussianMixtureModel (NIW or,
-    isotropic, NormalGamma components) or a PoissonMixtureModel: its
+    isotropic, NormalGamma components), a PoissonMixtureModel or a
+    GMM_vector (NormalInverseWishart_vector_format components): its
     configuration (``kind`` names the component node), pi (Dirichlet) and
     the component node ``dist``."""
     kind = type(model.dist).__name__
-    if kind not in ("NormalInverseWishart", "NormalGamma", "Gamma"):
+    if kind not in ("NormalInverseWishart", "NormalGamma", "Gamma",
+                    "NormalInverseWishart_vector_format"):
         raise ValueError(f"no mixture model has {kind} components")
+    # NormalInverseWishart_vector_format's event is (dim, 1)
+    dim = model.dist.event_shape[-2 if kind.endswith("vector_format") else -1]
     return {
-        "config": dict(kind=kind, nc=model.event_shape[0], dim=model.dist.event_shape[-1]),
+        "config": dict(kind=kind, nc=model.event_shape[0], dim=dim),
         "pi": node_state(model.pi),
         "dist": node_state(model.dist),
     }
@@ -587,9 +630,13 @@ def gmm_from_state(state, device=None, dtype=None):
     device = default_device(device)
     from ..models import GaussianMixtureModel, PoissonMixtureModel
 
+    from ..dists import GMM_vector
+
     c = state["config"]
     g = torch.Generator().manual_seed(0)
-    if c["kind"] == "Gamma":
+    if c["kind"] == "NormalInverseWishart_vector_format":
+        model = GMM_vector(c["nc"], c["dim"], generator=g, dtype=torch.float64, device="cpu")
+    elif c["kind"] == "Gamma":
         model = PoissonMixtureModel(c["nc"], c["dim"], generator=g, dtype=torch.float64,
                                     device="cpu")
     else:
@@ -597,4 +644,60 @@ def gmm_from_state(state, device=None, dtype=None):
                                      generator=g, dtype=torch.float64, device="cpu")
     model.pi = load_state(model.pi, state["pi"])
     model.dist = load_state(model.dist, state["dist"])
+    return model.to(device, dtype)
+
+
+# -- the tensor-state HMMs -------------------------------------------------------
+def tensor_hmm_state(model):
+    """Nested dict of numpy arrays holding a Tensor_HMM, HHMM or
+    Factorial_HMM with NormalInverseWishart observations: its class under
+    ``kind``, its configuration (ptemp among it), the transition (a
+    Transition, or a HierarchicalTransition's list of Dirichlets), the
+    initial Dirichlet, the observation model and p when the model has run.
+    A Factorial_HMM's projection (``marg_sum_list``) is rebuilt from the
+    configuration."""
+    kind = type(model).__name__
+    obs = model.obs_dist
+    if kind == "Factorial_HMM":
+        config = dict(num_factors=model.num_factors, factor_shape=tuple(model.factor_shape),
+                      event_shape=tuple(obs.event_shape), batch_shape=tuple(model.batch_shape))
+    else:
+        config = dict(event_shape=tuple(model.event_shape))
+        if kind == "HHMM":
+            config["event_dim"] = model.event_dim
+    state = {
+        "kind": kind,
+        "config": config,
+        "ptemp": float(model.ptemp),
+        "obs_shapes": dict(event_shape=tuple(obs.event_shape),
+                           batch_shape=tuple(obs.batch_shape)),
+        "transition": node_state(model.transition),
+        "initial": node_state(model.initial),
+        "obs_dist": node_state(obs),
+    }
+    if model.p is not None:
+        state["p"] = _array(model.p)
+    return state
+
+
+def tensor_hmm_from_state(state, device=None, dtype=None):
+    """This package's Tensor_HMM, HHMM or Factorial_HMM holding ``state``,
+    on ``device`` in ``dtype``."""
+    device = default_device(device)
+    from .. import models
+    from ..dists import NormalInverseWishart
+
+    g = torch.Generator().manual_seed(0)
+    kw = dict(generator=g, dtype=torch.float64, device="cpu")
+    cls = getattr(models, state["kind"])
+    if state["kind"] == "Factorial_HMM":
+        model = cls(**state["config"], **kw)
+    else:
+        obs = NormalInverseWishart.create(**state["obs_shapes"], **kw)
+        model = cls(obs, **state["config"], **kw)
+    model.ptemp = state["ptemp"]
+    model.transition = load_state(model.transition, state["transition"])
+    model.initial = load_state(model.initial, state["initial"])
+    model.obs_dist = load_state(model.obs_dist, state["obs_dist"])
+    _load_p(model, state)
     return model.to(device, dtype)

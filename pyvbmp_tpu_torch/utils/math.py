@@ -52,3 +52,14 @@ def lgamma_masked(x):
 def digamma_masked(x):
     out = torch.digamma(x)
     return torch.where(x > 0, out, torch.zeros_like(out))
+
+
+def stable_softmax(x, dims):
+    """log-softmax over ``dims`` (the reference's name notwithstanding)."""
+    return x - stable_logsumexp(x, dims, keepdim=True)
+
+
+def mvpolygamma1(nu, dim):
+    """Sum of trigammas: d/dnu mvdigamma (WishartUnitDet's Newton step)."""
+    i = torch.arange(dim, dtype=nu.dtype, device=nu.device) / 2.0
+    return torch.polygamma(1, nu[..., None] - i).sum(-1)

@@ -1,7 +1,8 @@
 """Node plumbing and contraction helpers shared by the distributions,
 transforms and models (counterpart of pyvbmp_tpu/utils/jaxutils.py).
 
-Every parameter node is an immutable dataclass of tensors and sub-nodes:
+Every parameter node is an immutable dataclass of tensors and sub-nodes
+(or lists of sub-nodes):
 ``ss_update`` and friends return a new node (as in the JAX package), and the
 model shells re-assign the returned nodes.  ``Node.to`` moves a whole node
 tree to a device and a floating dtype.
@@ -35,6 +36,8 @@ class Node:
                 )
             elif isinstance(v, Node):
                 changes[f.name] = v.to(device, dtype)
+            elif isinstance(v, list):  # a list of sub-nodes
+                changes[f.name] = [x.to(device, dtype) for x in v]
         return dataclasses.replace(self, **changes)
 
 

@@ -8,13 +8,19 @@ import torch
 
 from pyvbmp_tpu_torch import models as tm
 from pyvbmp_tpu_torch import transforms as tt
-from pyvbmp_tpu_torch.dists import NormalInverseWishart
+from pyvbmp_tpu_torch.dists import GMM_vector, NormalInverseWishart
 from pyvbmp_tpu_torch.dists.mvn_ard import MVN_ard
 from pyvbmp_tpu_torch.transforms import MatrixNormalWishart
 from pyvbmp_tpu_torch.utils import convert
 from pyvbmp_tpu_torch.utils.torchutils import NoCardError, default_device
 
 DHMM_OBS = NormalInverseWishart.create((2,), (3,), generator=torch.Generator().manual_seed(0))
+# the tensor HMMs' observations (state axes (2, 3)) and an LDS's pad_X
+# observation model, built before the calls as for an HMM
+TENSOR_OBS = NormalInverseWishart.create((2,), (2, 3),
+                                         generator=torch.Generator().manual_seed(0))
+LDS_OBS = tt.MatrixNormalGamma.create((3, 2), pad_X=True,
+                                      generator=torch.Generator().manual_seed(0))
 CONSTRUCTORS = {
     "DMBD": lambda **k: tm.DynamicMarkovBlanketDiscovery((3, 2), (1, 2, 1), (2, 2, 2), **k),
     "DMBD 3 objects": lambda **k: tm.DynamicMarkovBlanketDiscovery(
@@ -29,6 +35,12 @@ CONSTRUCTORS = {
     # the observation model is built before the call, as for an HMM
     "dHMM": lambda **k: tm.dHMM(DHMM_OBS, 2, **k),
     "NLDS": lambda **k: tm.NLDS((3,), 2, 2, **k),
+    "LDS pad_X obs_model": lambda **k: tm.LinearDynamicalSystems((3,), 2, obs_model=LDS_OBS,
+                                                                  **k),
+    "Tensor_HMM": lambda **k: tm.Tensor_HMM(TENSOR_OBS, (2, 3), **k),
+    "HHMM": lambda **k: tm.HHMM(TENSOR_OBS, event_dim=2, **k),
+    "Factorial_HMM": lambda **k: tm.Factorial_HMM(3, (2,), (4,), **k),
+    "GMM_vector": lambda **k: GMM_vector(4, 3, **k),
     "GMM": lambda **k: tm.GaussianMixtureModel(4, 3, **k),
     "GMM isotropic": lambda **k: tm.GaussianMixtureModel(4, 3, isotropic=True, **k),
     "PoissonMixture": lambda **k: tm.PoissonMixtureModel(4, 3, **k),
@@ -50,6 +62,7 @@ CONVERTERS = {
     "dhmm": lambda: convert.dhmm_state(CONSTRUCTORS["dHMM"](device="cpu")),
     "nlds": lambda: convert.nlds_state(CONSTRUCTORS["NLDS"](device="cpu")),
     "gmm": lambda: convert.gmm_state(CONSTRUCTORS["GMM"](device="cpu")),
+    "tensor_hmm": lambda: convert.tensor_hmm_state(CONSTRUCTORS["HHMM"](device="cpu")),
     "mvn_ard": lambda: convert.mvn_ard_state(
         MVN_ard.create(event_shape=(2, 3, 1), generator=torch.Generator().manual_seed(0))),
     "mnlr": lambda: convert.mnlr_state(CONSTRUCTORS["MNLR"](device="cpu")),

@@ -91,14 +91,16 @@ def test_kernel_matches_plain(cuda, which, size, reverse):
         assert rel_err(o, r) <= TOL
 
 
-# the scans of the HMM-core (and dHMM), Cradle, Flame, ARHMM, NLDS, life and
-# artificial-life paths at the shapes those paths give them (size, T,
-# lanes): ragged lane blocks at every one, and the lane kernel's per-lane
-# copy path (N = 8, below a warp)
+# the scans of the HMM-core (and dHMM), Cradle, Flame, ARHMM, NLDS, life,
+# artificial-life and LDS-core (a pad_X observation model) paths at the
+# shapes those paths give them (size, T, lanes): ragged lane blocks at every
+# one, and the lane kernel's per-lane copy path (N = 8, below a warp; N =
+# 100, not a multiple of 32)
 MAIN_PATH = [("logsemiring", 8, 200, 200), ("logsemiring", 6, 200, 50),
              ("logsemiring", 3, 100, 12), ("kalman", 6, 200, 10), ("kalman", 4, 100, 1),
              ("logsemiring", 4, 200, 200), ("lane", 2, 200, 8),
-             ("logsemiring", 12, 128, 384), ("logsemiring", 10, 199, 16)]
+             ("logsemiring", 12, 128, 384), ("logsemiring", 10, 199, 16),
+             ("lane", 2, 200, 100)]
 
 
 @pytest.mark.parametrize("which,size,T,N", MAIN_PATH)
@@ -609,3 +611,18 @@ def test_chain_model_fit_on_the_card_follows_the_cpu(cuda, name):
     cpu.update(*args, iters=3)
     e_gpu, e_cpu = np.asarray(gpu.ELBO_save), np.asarray(cpu.ELBO_save)
     assert (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max() <= TOL
+
+
+def test_node_suite_on_the_card_follows_the_cpu(cuda):
+    """chip_smoke.py's phase-30 node suite at batch 8: every node ported with
+    the tensor HMMs, one update, its KL and expectations, card float32
+    within relative 1e-4 of CPU float64."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    worst = chip_smoke.node_suite(batch=8)
+    assert len(worst) == 15 and max(worst.values()) <= TOL, worst
