@@ -45,8 +45,8 @@ prints no result:
    on the CPU (float64), ELBO trajectories within relative 1e-4;
 7. the weighted_outer kernel against its plain version (computed in float64
    on the card) at the digits shape (S=1347, p=65, K=9), the JAX module's
-   measured size (S=400000, p=32, K=16) and an MNIST-16x16 shape (S=60000,
-   p=257, K=9): max |kernel - plain| / max |plain| <= 1e-4 and an exactly
+   measured size (S=400000, p=32, K=16), phase 31's gate (S=400000, p=32,
+   K=15) and an MNIST-16x16 shape (S=60000, p=257, K=9): max |kernel - plain| / max |plain| <= 1e-4 and an exactly
    symmetric output, with the kernel's time (per call, and on the device
    from a profiler trace), the float32 plain version's and one
    torch.einsum call's;
@@ -173,11 +173,44 @@ prints no result:
    CPU: the argmax predictions agree on >= 99% of the points;
 30. every node ported with the tensor HMMs (the Wisharts: plain, Eigh,
    UnitDet, UnitTrace; DiagonalWishart and its UnitTrace;
-   MatrixNormalGamma and its UnitTrace with pad_X; Hierarchical_Dirichlet,
-   Transition, HierarchicalTransition; the two MVN message types; the two
-   vector-format NIWs) at batch (1000,), events 4 x 4 (8 for the NIWs):
-   one update from fixed statistics, then the KL and expectations, card f32
-   vs CPU f64 within relative 1e-4 (node_suite).
+   MatrixNormalWishart, MatrixNormalGamma and its UnitTrace with pad_X;
+   Hierarchical_Dirichlet, Transition, HierarchicalTransition; the two MVN
+   message types; the two vector-format NIWs; Dirichlet,
+   NormalInverseWishart and Gamma) at batch (1000,), events 4 x 4 (8 for
+   the NIWs): one update from fixed statistics, then the KL and
+   expectations, the methods the port's classes lacked against the JAX
+   package's among them, card f32 vs CPU f64 within relative 1e-4
+   (node_suite);
+31. dMixture at the weighted scatter's documented size: 16
+   NormalInverseWishart (2,) components, an MNLR gate on 31 inputs, S=400000
+   samples of 16 regions (X from 16 region centres in 31 dimensions, Y from
+   the components' means in 2, in the pattern of
+   tests/test_untested_components.py's dMixture test), float32 with TF32
+   off: 10 sweeps after a warm-up, sweeps/s; the ELBO finite and ending
+   above where it started; weighted_outer ran 2 x sweeps times (X (400000,
+   32), W (400000, 15)), no plain scatter and no scan; card f32 vs CPU f64
+   over 3 sweeps from one numpy state: the ELBO within relative 1e-4, the
+   assignments' argmax agreeing on >= 99%;
+32. the reference bake-off's remaining arms on the digits task, each with
+   benchmarks/classification_bakeoff.py's fit_moe recipe (4 components,
+   raw_update(iters=10)): NLRegression_full_rank(10, 64, 4),
+   NLRegression_low_rank(10, 64, 10, 4), MixtureofLinearTransforms(10, 64,
+   4, pad_X=True), float32 on the card: fit seconds, test accuracy, no
+   kernel; the same state in float64 on the CPU: test argmax agreeing on
+   >= 99%, the training ELBO within relative 1e-4;
+33. the Bayesian transformers at tests/test_transformers.py's widths: GBT
+   and FBT (mixture 4, role 3, obs 2, hidden 2, 6 observations, pad_X) on
+   S=10000 samples of its mixture data, 5 sweeps, and CBT (n=2, 3
+   observations) on S=50000 of its chain, 10 sweeps, after a warm-up
+   sweep: sweeps/s, the ELBO finite and ending above where it started, no
+   kernel; CBT recovers the chain (y0 independent, y1 <- y0, y2 <- y1 at
+   > 0.9); card f32 vs CPU f64 over 3 sweeps from one state within
+   relative 1e-4 (the ELBO and the maps' means);
+34. TensorNormalWishart (3, 4), MultiLinearNormalWishart(3, [2, 4]),
+   ReducedRankRegression(6, 5, 2) and dMixtureofLinearTransforms(1, 1, 2,
+   type="Gamma") at their JAX tests' widths on S=100000 samples: 3 updates
+   from one state on the card (float32) and the CPU (float64), the KL (or
+   the ELBO) and the posterior means within relative 1e-4, no kernel.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -194,9 +227,10 @@ end with our lane kernel and the baseline's, in 12 alternating pairs.  --trace p
 sweeps of DMBD-Lorenz, of DMBD-Flocking on both routes and of MixLDS with
 the fold off and forced on (device busy time, kernel time by kind, wall
 clock), of NLDS, dHMM and ARHMM, of DMBD-life, DMBD-artificial-life and
-GMM-core (3 iterations), and of the three tensor HMMs, GMM_vector, LDS-core
-with the pad_X observation model and two moons.  Neither changes what the
-phases check.
+GMM-core (3 iterations), of the three tensor HMMs, GMM_vector, LDS-core
+with the pad_X observation model and two moons, and of dMixture (phase 31),
+FBT (phase 33) and NLR-full-rank on digits (phase 32).  Neither changes what
+the phases check.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -231,7 +265,7 @@ FLOCK = dict(T=150, batch=20, n_birds=12, obs_dim=4, role_dims=(2, 2, 2),
              hidden_dims=(2, 2, 2), number_of_objects=3, sweeps=10, compare_sweeps=3,
              seed=0)
 SCATTER_SHAPES = [("digits", 1347, 65, 9), ("weighted_scatter.py:16", 400000, 32, 16),
-                  ("MNIST-16x16", 60000, 257, 9)]
+                  ("dMixture gate (phase 31)", 400000, 32, 15), ("MNIST-16x16", 60000, 257, 9)]
 # phase 2's other sizes: every logsemiring rung (K <= 4, 8, 16, 32) and the
 # generic K > 32; the plane Kalman kernel's one-solve-per-thread design (H
 # <= 14) and its looped one (H >= 15), exact rungs and padded sizes
@@ -301,6 +335,23 @@ LDS_CORE = dict(T=200, batch=100, obs=4, hidden=2, sweeps=10, compare_sweeps=3,
 # MultiNomialLogisticRegression(2, 2, pad_X=True) head, 20 iterations
 MOONS = dict(n=400, hidden=2, experts=4, iters=20, min_acc=0.80, min_agree=0.99, seed=0)
 NODE_BATCH = 1000  # phase 30: every new node at batch (1000,)
+# phase 31: dMixture at the weighted scatter's documented size
+# (pyvbmp_tpu/ops/weighted_scatter.py:16: S=400000, p=32, K=16): 16
+# NormalInverseWishart (2,) components and an MNLR gate on 31 inputs (32
+# with its bias column), whose stick-breaking scatter has K - 1 = 15 classes
+DMIX = dict(S=400000, K=16, p=31, d=2, sweeps=10, compare_sweeps=3, min_agree=0.99,
+            data_seed=0, seed=0)
+# phase 32: the reference bake-off's remaining arms on the digits task
+# (benchmarks/classification_bakeoff.py's fit_moe: 4 components, raw_update
+# (iters=10)); NLR-low-rank's hidden width 10 as in the reference's
+# tests/test_vb_mnist.py
+MOE = dict(mixture=4, hidden=10, iters=10, min_agree=0.99, seed=DIGITS["seed"])
+# phase 33: tests/test_transformers.py's widths at S samples (the mixture
+# data) and S_chain (the chain)
+TRANSFORMERS = dict(S=10000, sweeps=5, S_chain=50000, chain_sweeps=10, compare_sweeps=3,
+                    seed=0)
+# phase 34: the JAX tests' widths (tests/test_transforms_misc.py) at S samples
+SMALL = dict(S=100000, updates=3, seed=0)
 SIM_TOL = 1e-6  # a simulator on the card against the same simulator on the CPU
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (dense FP32 below)
@@ -1924,13 +1975,10 @@ def compare_outputs(label, gpu, cpu, outputs, card):
     card against the CPU: within REL_TOL of the CPU's largest entry."""
     def value(m, name):
         v = getattr(m, name)
-        return (v() if callable(v) else v).double().cpu()
+        return v() if callable(v) else v
 
-    errs = {name: rel_err(value(gpu, name), value(cpu, name))[0] for name in outputs}
-    print(f"  {label} card f32 vs CPU f64: max rel dev "
-          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; card {card}")
-    if not max(errs.values()) <= REL_TOL:
-        fail(f"{label}: card and CPU differ ({errs})")
+    close_outputs(label, {name: (value(gpu, name), value(cpu, name)) for name in outputs},
+                  card)
 
 
 def phase_tensor_hmm(card):
@@ -2226,14 +2274,51 @@ def node_cases(B):
             Y = rs.randn(4, 3) @ X * 0.7 + 0.3 * rs.randn(20, B, 4, 1) + 0.5
             n1 = n.raw_update(A(X), A(Y), p=A(rs.rand(20, B)), lr=0.9)
             M = A(spd(rs, B, 4))
-            out = {k: getattr(n1, k)() for k in ("EXTinvUX", "EXTX", "EXXT", "ElogdetinvU",
-                                                 "ESigma", "invEinvSigma", "KLqprior")}
-            out.update(EXTAX=n1.EXTAX(M), like=n1.Elog_like(A(X), A(Y)))
+            out = {k: getattr(n1, k)() for k in (
+                "EXTinvUX", "EXTX", "EXXT", "ElogdetinvU", "ESigma", "invEinvSigma",
+                "KLqprior", "EXinvVXT", "EXmMUTinvUXmMU", "EXmMUinvVXmMUT", "var", "weights",
+                "bias", "logdetEinvSigma")}
+            out.update(EXTAX=n1.EXTAX(M), EXAXT=n1.EXAXT(A(spd(rs, B, 4))),
+                       like=n1.Elog_like(A(X), A(Y)))
+            pX = D.MultivariateNormal_vector_format(mu=A(X[0]), Sigma=A(spd(rs, B, 3)))
+            ef = n1.Eforward(pX)
+            post, res = n1.postdict(A(Y[0]))
+            out.update(Eforward=ef.EinvSigmamu(), postdict=post.EinvSigmamu(), postdict_Res=res)
             return out
 
         return {f"{cls} pad_X": (lambda g, cls=cls: getattr(Tr, cls).create(
             (4, 3), (B,), pad_X=True, generator=g, dtype=torch.float64), ops)
-            for cls in ("MatrixNormalGamma", "MatrixNormalGamma_UnitTrace")}
+            for cls in ("MatrixNormalWishart", "MatrixNormalGamma",
+                        "MatrixNormalGamma_UnitTrace")}
+
+    def conjugate():
+        def dirichlet_ops(n, A):
+            rs = np.random.RandomState(12)
+            X = rs.rand(20, B, 4) * 5
+            n1 = n.raw_update(A(X), p=A(rs.rand(20, B)), lr=0.8)
+            return dict(alpha=n1.alpha, var=n1.var(), logZ=n1.logZ(), KLqprior=n1.KLqprior(),
+                        like=n1.Elog_like(A(X)))
+
+        def niw_ops(n, A):
+            rs = np.random.RandomState(13)
+            n1 = n.raw_update(A(rs.randn(20, B, 4) * 1.5 + 2), p=A(rs.rand(20, B)), lr=0.8)
+            return dict(EX=n1.EX(), EXXT=n1.EXXT(), ESigma=n1.ESigma(), EinvUX=n1.EinvUX(),
+                        KLqprior=n1.KLqprior())
+
+        def gamma_ops(n, A):
+            rs = np.random.RandomState(14)
+            n1 = n.ss_update(A(rs.rand(B, 4) * 30 + 1), A(rs.rand(B, 4) * 30 + 1), lr=0.9)
+            return dict(ElogX=n1.ElogX(), entropy=n1.entropy(), logZprior=n1.logZprior(),
+                        var=n1.var(), KLqprior=n1.KLqprior())
+
+        kw = dict(dtype=torch.float64)
+        return {
+            "Dirichlet": (lambda g: D.Dirichlet.create((4,), (B,), generator=g, **kw),
+                          dirichlet_ops),
+            "NormalInverseWishart": (lambda g: D.NormalInverseWishart.create(
+                (4,), (B,), generator=g, **kw), niw_ops),
+            "Gamma": (lambda g: D.Gamma.create((4,), (B,), generator=g, **kw), gamma_ops),
+        }
 
     def dirichlets():
         def hd_ops(n, A):
@@ -2246,8 +2331,11 @@ def node_cases(B):
             rs = np.random.RandomState(5)
             n1 = n.ss_update(A(rs.rand(B, 4, 4, 4, 4) * 400), lr=0.8)
             logits = A(rs.randn(B, 4, 4))
+            n2 = n1.raw_update(A(rs.rand(5, B, 4, 4, 4, 4) * 80), p=A(rs.rand(5, B, 4, 4)),
+                              lr=0.7)
             return dict(loggeomean=n1.loggeomean(), KLqprior=n1.KLqprior(),
-                        log_forward=n1.log_forward(logits))
+                        log_forward=n1.log_forward(logits), alpha=n2.alpha, var=n2.var(),
+                        logZ=n2.logZ())
 
         def htr_ops(n, A):
             rs = np.random.RandomState(6)
@@ -2306,7 +2394,8 @@ def node_cases(B):
             for cls in ("NormalInverseWishart_vector_format",
                         "NormalInverseWishart_vector_format_invSigma")}
 
-    return {**wishart(), **diag(), **mng(), **dirichlets(), **messages(), **niw()}
+    return {**wishart(), **diag(), **mng(), **dirichlets(), **messages(), **niw(),
+            **conjugate()}
 
 
 def node_suite(batch=NODE_BATCH, card=""):
@@ -2347,6 +2436,372 @@ def phase_nodes(card):
     bad = {k: v for k, v in worst.items() if not v <= REL_TOL}
     if bad:
         fail(f"node suite: card and CPU differ: {bad}")
+
+
+def close_outputs(label, pairs, card):
+    """Each (card, CPU) pair of outputs within REL_TOL of the CPU's largest
+    entry (both finite)."""
+    errs = {k: rel_err(g.detach().double().cpu(), c.detach().double())[0]
+            for k, (g, c) in pairs.items()}
+    print(f"  {label} card f32 vs CPU f64: max rel dev "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; card {card}")
+    if not max(errs.values()) <= REL_TOL:
+        fail(f"{label}: card and CPU differ ({errs})")
+
+
+def check_rising(label, elbo):
+    """A finite ELBO trajectory that ends above where it started."""
+    elbo = np.asarray(elbo, np.float64)
+    print(f"  {label} ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}")
+    if not np.isfinite(elbo).all():
+        fail(f"{label}: ELBO not finite")
+    if not elbo[-1] > elbo[0]:
+        fail(f"{label}: ELBO did not end above where it started")
+
+
+@contextlib.contextmanager
+def scatter_shapes():
+    """The (X, W) shapes of every weighted_outer launch in the block; the
+    launch itself is unchanged."""
+    from pyvbmp_tpu_torch.ops import weighted_scatter as ws
+
+    shapes, kernel = [], ws.WEIGHTED_OUTER.kernel
+
+    def recorded(X, W):
+        shapes.append((tuple(X.shape), tuple(W.shape)))
+        return kernel(X, W)
+
+    ws.WEIGHTED_OUTER.kernel = recorded
+    try:
+        yield shapes
+    finally:
+        del ws.WEIGHTED_OUTER.kernel
+
+
+def dmixture_data():
+    """Phase 31's task, in the pattern of tests/test_untested_components.py's
+    dMixture test: the component of each sample is its X region (16 region
+    centres in 31 dimensions), Y is drawn from that component's mean in 2.
+    Float64 CPU tensors X (S, 31), Y (S, 2) and the regions z."""
+    c = DMIX
+    rs = np.random.RandomState(c["data_seed"])
+    z = rs.randint(0, c["K"], c["S"])
+    centers = rs.randn(c["K"], c["p"]) * 4.0
+    means = rs.randn(c["K"], c["d"]) * 3.0
+    X = centers[z] + 0.5 * rs.randn(c["S"], c["p"])
+    Y = means[z] + 0.3 * rs.randn(c["S"], c["d"])
+    return torch.from_numpy(X), torch.from_numpy(Y), z
+
+
+def dmixture_state0(Y):
+    """A dMixture(NormalInverseWishart (2,) batch (16,), p=31) with its means
+    seeded with the first 16 samples (the JAX test's seeding), as a state."""
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.transforms import dMixture
+    from pyvbmp_tpu_torch.utils.convert import dmixture_state
+    from pyvbmp_tpu_torch.utils.torchutils import replace
+
+    c = DMIX
+    kw = dict(generator=torch.Generator().manual_seed(c["seed"]), dtype=torch.float64,
+              device="cpu")
+    dist = NormalInverseWishart.create((c["d"],), (c["K"],), **kw)
+    return dmixture_state(dMixture(replace(dist, mu=Y[: c["K"]].clone()), c["p"], **kw))
+
+
+def phase_dmixture(card):
+    """Phase 31: dMixture at the weighted scatter's documented size
+    (S=400000, 32 gate inputs with the bias, K=16 components: the
+    stick-breaking gate's scatter has 15 classes): 10 sweeps after a warm-up
+    in float32 with TF32 off, sweeps/s; the ELBO finite and ending above
+    where it started; weighted_outer launched 2 x sweeps times, no plain
+    scatter, no scan; card f32 vs CPU f64 over 3 sweeps from one state: the
+    ELBO within REL_TOL, the assignments' argmax agreeing on >= 99%."""
+    from pyvbmp_tpu_torch.utils.convert import dmixture_from_state
+
+    c = DMIX
+    X64, Y64, z = dmixture_data()
+    state = dmixture_state0(Y64)
+    X, Y = to_card((X64, Y64))
+    dmixture_from_state(state, "cuda", torch.float32).raw_update(X, Y, iters=1)  # warm-up
+    m = dmixture_from_state(state, "cuda", torch.float32)
+    with scatter_shapes() as shapes:
+        reset_counts()
+        t0 = time.perf_counter()
+        m.raw_update(X, Y, iters=c["sweeps"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+    pred = m.assignment().cpu().numpy()
+    acc = sum((pred[z == k] == np.bincount(pred[z == k], minlength=c["K"]).argmax()).sum()
+              for k in range(c["K"])) / c["S"]
+    print(f"phase 31 dMixture S={c['S']} K={c['K']} gate inputs {c['p']} (+1 bias), "
+          f"NormalInverseWishart ({c['d']},) components, {c['sweeps']} sweeps: "
+          f"{c['sweeps'] / dt:.3f} sweeps/s ({dt:.3f} s); the gate's scatter at X "
+          f"({c['S']}, {c['p'] + 1}), W ({c['S']}, {c['K'] - 1}); assignments match the "
+          f"regions (up to labels) on {acc:.4f}; card {card}")
+    check_rising("phase 31 dMixture", m.ELBO_save)
+    check_launches("dMixture", launches, plain,
+                   {k: (2 * c["sweeps"] if k == "weighted_outer" else 0) for k in launches})
+    want = ((c["S"], c["p"] + 1), (c["S"], c["K"] - 1))
+    if set(shapes) != {want}:
+        fail(f"dMixture: the scatter ran at {sorted(set(shapes))}, want X, W {want}")
+    gpu = dmixture_from_state(state, "cuda", torch.float32)
+    cpu = dmixture_from_state(state, "cpu", torch.float64)
+    gpu.raw_update(X, Y, iters=c["compare_sweeps"])
+    cpu.raw_update(X64, Y64, iters=c["compare_sweeps"])
+    e_gpu, e_cpu = (np.asarray(x.ELBO_save, np.float64) for x in (gpu, cpu))
+    dev = (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max()
+    agree = float((gpu.assignment().cpu() == cpu.assignment()).double().mean())
+    print(f"phase 31 dMixture card f32 vs CPU f64, {c['compare_sweeps']} sweeps: ELBO card "
+          f"{e_gpu.tolist()} cpu {e_cpu.tolist()}; max rel dev {dev:.3e}; assignments' "
+          f"argmax agree on {agree:.6f}; card {card}")
+    if not dev <= REL_TOL:
+        fail(f"dMixture: card and CPU ELBO trajectories differ by {dev:.3e}")
+    if not agree >= c["min_agree"]:
+        fail(f"dMixture: card and CPU assignments agree on only {agree:.6f}")
+    return launches
+
+
+def moe_arms(K, p):
+    """The reference bake-off's remaining arms (its tests/test_vb_mnist.py):
+    name -> (a new float64 CPU model's state, the arm's from_state)."""
+    from pyvbmp_tpu_torch import transforms as tr
+    from pyvbmp_tpu_torch.utils import convert
+
+    mix = MOE["mixture"]
+    kw = dict(generator=torch.Generator().manual_seed(MOE["seed"]), dtype=torch.float64,
+              device="cpu")
+    return {
+        f"NLR-full-rank ({mix} components)": (
+            convert.nlr_full_state(tr.NLRegression_full_rank(K, p, mix, **kw)),
+            convert.nlr_full_from_state),
+        f"NLR-low-rank (hidden {MOE['hidden']}, {mix} components)": (
+            convert.nlr_low_state(tr.NLRegression_low_rank(K, p, MOE["hidden"], mix, **kw)),
+            convert.nlr_low_from_state),
+        f"MixLT ({mix} experts, pad_X)": (
+            convert.mixlt_state(tr.MixtureofLinearTransforms(K, p, mix, pad_X=True, **kw)),
+            convert.mixlt_from_state),
+    }
+
+
+def fit_moe(m, X, Y, Xe):
+    """benchmarks/classification_bakeoff.py:101-111's fit_moe: raw_update
+    (iters=10), then the test labels from the predicted mean; MixLT takes
+    column vectors."""
+    if type(m).__name__ == "MixtureofLinearTransforms":
+        X, Y, Xe = X[..., None], Y[..., None], Xe[..., None]
+    m.raw_update(X, Y, iters=MOE["iters"])
+    return m.predict(Xe)[0].mean()[..., 0].argmax(-1)
+
+
+def phase_moe_arms(card, data):
+    """Phase 32: NLRegression_full_rank(10, 64, 4), NLRegression_low_rank(10,
+    64, 10, 4) and MixtureofLinearTransforms(10, 64, 4, pad_X=True) on the
+    digits task with the bake-off's fit_moe recipe, in float32 on the card:
+    fit seconds, test accuracy, no kernel; the same numpy state in float64
+    on the CPU: the test argmax agrees on >= 99% and the training ELBO
+    trajectory within REL_TOL."""
+    Xtr, Ytr, Xte, yte = data
+    X, Y, Xe = to_card((Xtr, Ytr, Xte))
+    for name, (state, from_state) in moe_arms(DIGITS["classes"], Xtr.shape[1]).items():
+        gpu = from_state(state, "cuda", torch.float32)
+        reset_counts()
+        t0 = time.perf_counter()
+        labels = fit_moe(gpu, X, Y, Xe).cpu().numpy()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+        cpu = from_state(state, "cpu")
+        labels_cpu = fit_moe(cpu, Xtr, Ytr, Xte).numpy()
+        acc = float((labels == yte).mean())
+        agree = float((labels == labels_cpu).mean())
+        e_gpu, e_cpu = (np.asarray(x.ELBO_save, np.float64) for x in (gpu, cpu))
+        dev = (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max()
+        print(f"phase 32 {name} digits, float32: fit and predict {dt:.4f} s (first run, no "
+              f"warm-up); test accuracy {acc:.4f} (CPU f64 {(labels_cpu == yte).mean():.4f}); "
+              f"card and CPU argmax agree on {agree:.4f}; ELBO {e_gpu[0]:.6e} -> "
+              f"{e_gpu[-1]:.6e}, max rel dev from the CPU's {dev:.3e}; card {card}")
+        check_launches(name, launches, plain, {k: 0 for k in launches})
+        if not np.isfinite(e_gpu).all():
+            fail(f"{name}: ELBO not finite")
+        if not dev <= REL_TOL:
+            fail(f"{name}: card and CPU ELBO trajectories differ by {dev:.3e}")
+        if not agree >= MOE["min_agree"]:
+            fail(f"{name}: card and CPU labels agree on only {agree:.4f}")
+
+
+def transformer_data(S):
+    """tests/test_transformers.py's _mixture_data at S samples (6
+    observations of width 2, 4 latent maps of width 2), float64 CPU."""
+    rs = np.random.RandomState(0)
+    X = rs.randn(S, 4, 2)
+    z = rs.rand(S, 4).argmax(-1)
+    A = rs.randn(4, 2, 2) / 2**0.5
+    return torch.from_numpy((A[z][:, None] @ X[..., None]).squeeze(-1)[:, :6].copy())
+
+
+def chain_data(S):
+    """tests/test_transformers.py's chain: y0 independent, y1 = W y0, y2 =
+    W y1 (small noise), (S, 3, 2) float64 CPU."""
+    rs = np.random.RandomState(1)
+    W = np.array([[0.9, -0.4], [0.4, 0.9]])
+    y0 = rs.randn(S, 2) * 2.0
+    y1 = y0 @ W.T + 0.01 * rs.randn(S, 2)
+    y2 = y1 @ W.T + 0.01 * rs.randn(S, 2)
+    return torch.from_numpy(np.stack([y0, y1, y2], 1))
+
+
+def phase_transformers(card):
+    """Phase 33: GBT and FBT at tests/test_transformers.py's widths on
+    S=10000 samples of its mixture data, CBT on S=50000 of its chain, in
+    float32 on the card: sweeps/s after a warm-up sweep, the ELBO finite and
+    ending above where it started, no kernel; CBT recovers the chain; card
+    f32 vs CPU f64 over 3 sweeps from one numpy state within REL_TOL."""
+    from pyvbmp_tpu_torch import transforms as tr
+    from pyvbmp_tpu_torch.utils import convert
+
+    c = TRANSFORMERS
+    kw = dict(generator=torch.Generator().manual_seed(c["seed"]), dtype=torch.float64,
+              device="cpu")
+    widths = dict(mixture_dim=4, role_dim=3, obs_dim=2, hidden_dim=2, pad_X=True)
+    Y64 = transformer_data(c["S"])
+    Y = to_card(Y64)
+    for name, state, from_state in (
+            ("GBT", convert.gbt_state(tr.GenerativeBayesianTransformer(**widths, **kw)),
+             convert.gbt_from_state),
+            ("FBT", convert.fbt_state(tr.FocusedBayesianTransformer(**widths, **kw)),
+             convert.fbt_from_state)):
+        from_state(state, "cuda", torch.float32).raw_update(Y, iters=1)  # warm-up
+        m = from_state(state, "cuda", torch.float32)
+        reset_counts()
+        t0 = time.perf_counter()
+        m.raw_update(Y, iters=c["sweeps"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+        print(f"phase 33 {name} S={c['S']} (6 observations, mixture 4, role 3, obs 2, "
+              f"hidden 2, pad_X), {c['sweeps']} sweeps: {c['sweeps'] / dt:.3f} sweeps/s "
+              f"({dt:.3f} s); card {card}")
+        check_rising(f"phase 33 {name}", m.ELBO_save)
+        check_launches(name, launches, plain, {k: 0 for k in launches})
+        gpu, cpu = from_state(state, "cuda", torch.float32), from_state(state, "cpu")
+        gpu.raw_update(Y, iters=c["compare_sweeps"])
+        cpu.raw_update(Y64, iters=c["compare_sweeps"])
+        mean = (lambda m: m.A.mu) if name == "GBT" else (lambda m: m.W.A.mu)
+        close_outputs(f"phase 33 {name}, {c['compare_sweeps']} sweeps", {
+            "ELBO": (torch.tensor(gpu.ELBO_save), torch.tensor(cpu.ELBO_save)),
+            "maps' means": (mean(gpu), mean(cpu))}, card)
+
+    Y64 = chain_data(c["S_chain"])
+    Y = to_card(Y64)
+    state = convert.cbt_state(tr.ChainedBayesianTransformer(1, 1, 2, 2, **kw))
+
+    def chain(m, Y, n):
+        elbo = []
+        for _ in range(n):
+            m.raw_update(Y, iters=1)
+            elbo.append(float(m.ELBO()))
+        return elbo
+
+    chain(convert.cbt_from_state(state, "cuda", torch.float32), Y, 1)  # warm-up
+    m = convert.cbt_from_state(state, "cuda", torch.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    elbo = chain(m, Y, c["chain_sweeps"])
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    p = m.p.mean(0).cpu().numpy()
+    print(f"phase 33 CBT S={c['S_chain']} (3 observations, n=2), {c['chain_sweeps']} "
+          f"sweeps: {c['chain_sweeps'] / dt:.3f} sweeps/s ({dt:.3f} s); P(y0 independent) "
+          f"{1 - p.sum(-1)[0]:.4f}, P(y1 <- y0) {p[1, 0]:.4f}, P(y2 <- y1) {p[2, 1]:.4f}; "
+          f"card {card}")
+    check_rising("phase 33 CBT", elbo)
+    check_launches("CBT", launches, plain, {k: 0 for k in launches})
+    if not (1 - p.sum(-1)[0] > 0.9 and p[1, 0] > 0.9 and p[2, 1] > 0.9):
+        fail(f"CBT did not recover the chain: {p.tolist()}")
+    gpu, cpu = convert.cbt_from_state(state, "cuda", torch.float32), \
+        convert.cbt_from_state(state, "cpu")
+    e_gpu, e_cpu = (chain(x, y, c["compare_sweeps"]) for x, y in ((gpu, Y), (cpu, Y64)))
+    close_outputs(f"phase 33 CBT, {c['compare_sweeps']} sweeps", {
+        "ELBO": (torch.tensor(e_gpu), torch.tensor(e_cpu)), "p": (gpu.p, cpu.p),
+        "W": (gpu.W.mu, cpu.W.mu)}, card)
+
+
+def multilinear_data(S):
+    rs = np.random.RandomState(7)
+    A1, A2 = rs.randn(3, 2), rs.randn(3, 4)
+    X1, X2 = rs.randn(S, 2, 1), rs.randn(S, 4, 1)
+    Y = A1 @ X1 + A2 @ X2 + np.asarray([1.0, -1.0, 0.5])[:, None] + 0.05 * rs.randn(S, 3, 1)
+    return tuple(torch.from_numpy(a) for a in (X1, X2, Y))
+
+
+def phase_small_transforms(card):
+    """Phase 34: TensorNormalWishart (3, 4), MultiLinearNormalWishart(3,
+    [2, 4]), ReducedRankRegression(6, 5, 2) and dMixLT(1, 1, 2,
+    type="Gamma") at the widths of their JAX tests with S=100000 samples:
+    3 updates from one numpy state in float32 on the card and float64 on the
+    CPU, the KL (or the ELBO) and the posterior means within REL_TOL; no
+    kernel."""
+    from pyvbmp_tpu_torch import dists as D, transforms as tr
+    from pyvbmp_tpu_torch.utils import convert
+
+    S, n = SMALL["S"], SMALL["updates"]
+    kw = dict(generator=torch.Generator().manual_seed(SMALL["seed"]), dtype=torch.float64,
+              device="cpu")
+    rs = np.random.RandomState(6)
+    L1, L2 = rs.randn(3, 3) * 0.3 + np.eye(3), rs.randn(4, 4) * 0.3 + np.eye(4)
+    kron = torch.from_numpy(np.einsum("ab,nbc,dc->nad", L1, rs.randn(S, 3, 4), L2))
+    rs = np.random.RandomState(3)
+    U = rs.randn(S, 2)
+    rrr = (torch.from_numpy(U @ rs.randn(5, 2).T + 0.05 * rs.randn(S, 5)),
+           torch.from_numpy(U @ rs.randn(6, 2).T + 0.05 * rs.randn(S, 6)))
+    rs = np.random.RandomState(1)
+    Xp = rs.rand(S, 1) * 4 - 2
+    pw = (torch.from_numpy(Xp),
+          torch.from_numpy(np.where(Xp < 0, 2 * Xp + 1, -Xp + 1) + 0.05 * rs.randn(S, 1)))
+
+    def tnw(m, data):
+        for _ in range(n):
+            m = m.raw_update(data[0])
+        return dict(KL=m.KLqprior(), mu=m.mu, ESigma=m.ESigma())
+
+    def multilinear(m, data):
+        for _ in range(n):
+            m.raw_update([data[0], data[1]], data[2])
+        return dict(KL=m.KLqprior(), A0=m.A[0].mu, A1=m.A[1].mu, bias=m.bias.mean())
+
+    def rrr_fit(m, data):
+        m.raw_update(*data, iters=n)
+        return dict(KL=m.KLqprior(), logZ=m.logZ, A=m.A.mu, B=m.B.mu, U=m.U.mu)
+
+    def dmixlt(m, data):
+        m.raw_update(*data, iters=n)
+        return dict(ELBO=torch.tensor(m.ELBO_save), A=m.A.mu, gamma=m.A.invU.gamma.alpha)
+
+    cases = [
+        ("TensorNormalWishart (3, 4)", convert.tnw_state(D.TensorNormalWishart.create(
+            (3, 4), **kw)), convert.tnw_from_state, tnw, (kron,)),
+        ("MultiLinearNormalWishart(3, [2, 4])", convert.multilinear_state(
+            tr.MultiLinearNormalWishart(3, [2, 4], **kw)), convert.multilinear_from_state,
+         multilinear, multilinear_data(S)),
+        ("ReducedRankRegression(6, 5, 2)", convert.rrr_state(tr.ReducedRankRegression(
+            6, 5, 2, **kw)), convert.rrr_from_state, rrr_fit, rrr),
+        ('dMixLT(1, 1, 2, type="Gamma")', convert.dmixlt_state(
+            tr.dMixtureofLinearTransforms(1, 1, 2, type="Gamma", **kw)),
+         convert.dmixlt_from_state, dmixlt, pw),
+    ]
+    for name, state, from_state, run, data in cases:
+        reset_counts()
+        t0 = time.perf_counter()
+        gpu = run(from_state(state, "cuda", torch.float32), to_card(data))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+        cpu = run(from_state(state, "cpu"), data)
+        print(f"phase 34 {name} S={S}, {n} updates: {dt:.3f} s on the card (first run); "
+              f"card {card}")
+        check_launches(name, launches, plain, {k: 0 for k in launches})
+        close_outputs(f"phase 34 {name}", {k: (gpu[k], cpu[k]) for k in cpu}, card)
 
 
 def trace_sweeps(card, label, model, args, fit, fold, n=3):
@@ -2464,6 +2919,33 @@ def phase_trace(card):
     X64, y = two_moons()
     trace_sweeps(card, "two moons", MoonsFit(moons_states(MOONS["seed"]), "cuda", torch.float32),
                  moons_inputs(X64, y, "cuda", torch.float32), {}, "0")
+    from pyvbmp_tpu_torch.utils.convert import dmixture_from_state, fbt_from_state, fbt_state
+    from pyvbmp_tpu_torch.transforms import FocusedBayesianTransformer
+
+    X64, Y64, _ = dmixture_data()
+    trace_sweeps(card, "dMixture", RawUpdates(dmixture_from_state(
+        dmixture_state0(Y64), "cuda", torch.float32)), to_card((X64, Y64)), {}, "0")
+    fbt = FocusedBayesianTransformer(mixture_dim=4, role_dim=3, obs_dim=2, hidden_dim=2,
+                                     pad_X=True, generator=torch.Generator().manual_seed(0),
+                                     dtype=torch.float64, device="cpu")
+    trace_sweeps(card, "FBT", RawUpdates(fbt_from_state(fbt_state(fbt), "cuda", torch.float32)),
+                 (to_card(transformer_data(TRANSFORMERS["S"])),), {}, "0")
+    data = digits()
+    state, from_state = next(iter(moe_arms(DIGITS["classes"], data[0].shape[1]).values()))
+    trace_sweeps(card, "NLR-full-rank digits", RawUpdates(from_state(state, "cuda",
+                                                                      torch.float32)),
+                 to_card(data[:2]), {}, "0")
+
+
+class RawUpdates:
+    """A transform shell whose sweeps are ``raw_update``, under the name
+    ``update`` that trace_sweeps calls."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def update(self, *args, **kw):
+        self.model.raw_update(*args, **kw)
 
 
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):
@@ -2518,6 +3000,10 @@ def main():
     launches_lds_obs = run("28", phase_lds_obs, card)
     run("29", phase_moons, card)
     run("30", phase_nodes, card)
+    launches_dmix = run("31", phase_dmixture, card)
+    run("32", phase_moe_arms, card, data)
+    run("33", phase_transformers, card)
+    run("34", phase_small_transforms, card)
     if args.trace:
         run("trace", phase_trace, card)
     if base is not None:
@@ -2540,7 +3026,8 @@ def main():
             launches_flock["auto"][s.name] + launches_mix_folded[s.name],
             folded[s.name]["abs"], folded[s.name]))
     w = ws.WEIGHTED_OUTER
-    kernels.append(record_line(w.name, w.source, w.replaces, launches_mnlr[w.name],
+    kernels.append(record_line(w.name, w.source, w.replaces,
+                               launches_mnlr[w.name] + launches_dmix[w.name],
                                scatter["abs"], scatter, scatter["library_ms"]))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s (seconds by phase: "
           f"{seconds}); card {card}")

@@ -15,6 +15,7 @@ from .niw_vector_format import (
     NormalInverseWishart_vector_format_invSigma,
 )
 from .normal_gamma import NormalGamma
+from .tensor_normal_wishart import TensorNormalWishart
 from .wishart import Wishart, WishartEigh, WishartUnitDet, WishartUnitTrace
 
 __all__ = [
@@ -33,6 +34,7 @@ __all__ = [
     "NormalInverseWishart",
     "NormalInverseWishart_vector_format",
     "NormalInverseWishart_vector_format_invSigma",
+    "TensorNormalWishart",
     "Wishart",
     "WishartEigh",
     "WishartUnitDet",

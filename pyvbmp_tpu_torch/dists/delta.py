@@ -12,6 +12,18 @@ from ..utils.torchutils import Node, node
 class Delta(Node):
     X: torch.Tensor
 
+    def unsqueeze(self, dim):
+        return Delta(self.X.unsqueeze(dim))
+
+    def squeeze(self, dim):
+        return Delta(self.X.squeeze(dim))
+
+    def sum(self, dim, keepdim=False):
+        return self.X.sum(dim, keepdim=keepdim)
+
+    def cumsum(self, dim):
+        return self.X.cumsum(dim)
+
     @property
     def shape(self):
         return tuple(self.X.shape)
@@ -28,3 +40,18 @@ class Delta(Node):
 
     def EXXT(self):
         return self.X @ mT(self.X)
+
+    def EXTX(self):
+        return mT(self.X) @ self.X
+
+    def EXTAX(self, A):
+        return mT(self.X) @ A @ self.X
+
+    def EXX(self):
+        return self.X**2
+
+    def ElogX(self):
+        return torch.log(self.X)
+
+    def E(self, f):
+        return f(self.X)

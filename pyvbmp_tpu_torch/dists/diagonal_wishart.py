@@ -37,6 +37,14 @@ class DiagonalWishart(Node):
     def dim(self):
         return self.event_shape[-1]
 
+    @property
+    def event_dim(self):
+        return len(self.event_shape)
+
+    @property
+    def batch_dim(self):
+        return len(self.batch_shape)
+
     def to_event(self, n):
         if n == 0:
             return self

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import math as um
-from ..utils.torchutils import Node, as_tensor, node, replace, uniform
+from ..utils.torchutils import Node, as_tensor, node, replace, sum_leading, uniform
 
 
 @node
@@ -40,6 +40,12 @@ class Dirichlet(Node):
     def batch_dim(self):
         return len(self.batch_shape)
 
+    def to_event(self, n):
+        if n == 0:
+            return self
+        return replace(self, event_shape=self.batch_shape[-n:] + self.event_shape,
+                       batch_shape=self.batch_shape[:-n])
+
     def _edims(self):
         return tuple(range(-self.event_dim, 0))
 
@@ -48,6 +54,15 @@ class Dirichlet(Node):
             NA = beta * self.NA + NA
         alpha = lr * (NA + self.alpha_0) + (1 - lr) * self.alpha
         return replace(self, alpha=alpha, NA=NA)
+
+    def raw_update(self, X, p=None, lr=1.0, beta=None):
+        """Update from counts X (sample + batch + event), weighted by p
+        (sample + batch) when given."""
+        if p is not None:
+            X = X * p.reshape(p.shape + (1,) * self.event_dim)
+        return self.ss_update(sum_leading(X, self.batch_dim + self.event_dim), lr, beta)
+
+    update = raw_update
 
     def mean(self):
         return self.alpha / self.alpha.sum(self._edims(), keepdim=True)
@@ -63,6 +78,21 @@ class Dirichlet(Node):
         return dg - torch.digamma(self.alpha.sum(self._edims(), keepdim=True))
 
     ElogX = loggeomean
+
+    def var(self):
+        alpha_sum = self.alpha.sum(self._edims(), keepdim=True)
+        mean = self.mean()
+        return mean * (1 - mean) / (alpha_sum + 1)
+
+    def Elog_like(self, X):
+        """Multinomial log likelihood of counts X."""
+        ed = self._edims()
+        return ((X * self.loggeomean()).sum(ed) + torch.lgamma(1 + X.sum(ed))
+                - torch.lgamma(1 + X).sum(ed))
+
+    def logZ(self):
+        ed = self._edims()
+        return torch.lgamma(self.alpha).sum(ed) - torch.lgamma(self.alpha.sum(ed))
 
     def KLqprior(self):
         # Evaluated in float64 whatever the node's dtype: with counts ~1e4

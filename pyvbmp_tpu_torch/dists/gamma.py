@@ -95,22 +95,43 @@ class Gamma(Node):
     def mean(self):
         return self.alpha / self.beta
 
+    def var(self):
+        return self.alpha / self.beta**2
+
     def meaninv(self):
         return self.beta / (self.alpha - 1)
+
+    def ElogX(self):
+        return torch.digamma(self.alpha) - torch.log(self.beta)
 
     def loggeomean(self):
         # log(alpha) - log(beta), as the JAX package and its reference have it
         return torch.log(self.alpha) - torch.log(self.beta)
 
+    def entropy(self):
+        return (torch.log(self.alpha) - torch.log(self.beta) + torch.lgamma(self.alpha)
+                + (1 - self.alpha) * torch.digamma(self.alpha))
+
     def logZ(self):
         return -self.alpha * torch.log(self.beta) + torch.lgamma(self.alpha)
 
+    def logZprior(self):
+        return -self.alpha_0 * torch.log(self.beta_0) + torch.lgamma(self.alpha_0)
+
     def KLqprior(self):
+        # Evaluated in float64 whatever the node's dtype, as the Dirichlet's
+        # KL is: a Gamma that has seen ~1e5 samples (TensorNormalWishart's
+        # scale) has terms ~1e6 that cancel to ~1e2.  Float64 results are
+        # unchanged.
+        f = torch.float64
+        alpha, alpha_0 = self.alpha.to(f), self.alpha_0.to(f)
+        beta, beta_0 = self.beta.to(f), self.beta_0.to(f)
         KL = (
-            (self.alpha - self.alpha_0) * torch.digamma(self.alpha)
-            - torch.lgamma(self.alpha)
-            + torch.lgamma(self.alpha_0)
-            + self.alpha_0 * (torch.log(self.beta) - torch.log(self.beta_0))
-            + self.alpha * (self.beta_0 / self.beta - 1)
+            (alpha - alpha_0) * torch.digamma(alpha)
+            - torch.lgamma(alpha)
+            + torch.lgamma(alpha_0)
+            + alpha_0 * (torch.log(beta) - torch.log(beta_0))
+            + alpha * (beta_0 / beta - 1)
         )
-        return KL.sum(tuple(range(-self.event_dim, 0))) if self.event_dim else KL
+        KL = KL.sum(tuple(range(-self.event_dim, 0))) if self.event_dim else KL
+        return KL.to(self.alpha.dtype)

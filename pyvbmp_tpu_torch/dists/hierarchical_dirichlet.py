@@ -71,6 +71,10 @@ class Hierarchical_Dirichlet(Node):
 
     update = raw_update
 
+    def marginal(self, idx):
+        """Left unimplemented, as in the JAX package and its reference."""
+        raise NotImplementedError
+
     def mean(self):
         p = self.dists[0].mean()
         for d in self.dists[1:]:

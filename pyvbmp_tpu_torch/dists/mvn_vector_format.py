@@ -57,6 +57,10 @@ class MultivariateNormal_vector_format(Node):
     def batch_dim(self):
         return len(self.batch_shape)
 
+    @property
+    def ndim(self):
+        return len(self.shape)
+
     def to_event(self, n):
         if n == 0:
             return self

@@ -70,6 +70,12 @@ class NormalInverseWishart(Node):
     def batch_dim(self):
         return len(self.batch_shape)
 
+    def to_event(self, n):
+        if n == 0:
+            return self
+        return replace(self, event_shape=self.batch_shape[-n:] + self.event_shape,
+                       batch_shape=self.batch_shape[:-n], invU=self.invU.to_event(n))
+
     def ss_update(self, SExx, SEx, N, lr=1.0, beta=0.0):
         store = (self.SExx, self.SEx, self.N)
         if beta is not None:
@@ -153,6 +159,16 @@ class NormalInverseWishart(Node):
     def mean(self):
         return self.mu
 
+    def EX(self):
+        return self.mu
+
+    def EXXT(self):
+        return (self.mu[..., :, None] * self.mu[..., None, :]
+                + self.invU.ESigma() / self.lambda_mu[..., None, None])
+
+    def ESigma(self):
+        return self.invU.ESigma()
+
     def ElogdetinvSigma(self):
         return self.invU.ElogdetinvSigma()
 
@@ -161,6 +177,9 @@ class NormalInverseWishart(Node):
 
     def EinvSigma(self):
         return self.invU.EinvSigma()
+
+    def EinvUX(self):
+        return self.EinvSigmamu()
 
     def EXTinvUX(self):
         return (

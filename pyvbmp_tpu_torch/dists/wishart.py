@@ -32,6 +32,10 @@ class _WishartMoments:
     def event_dim(self):
         return len(self.event_shape)
 
+    @property
+    def batch_dim(self):
+        return len(self.batch_shape)
+
     def to_event(self, n):
         if n == 0:
             return self

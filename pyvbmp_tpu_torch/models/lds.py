@@ -121,6 +121,10 @@ class LinearDynamicalSystems:
         self.logZ = self.logZ.to(device, dtype)
         return self
 
+    def set_latent_parms(self):
+        """A no-op kept for the reference's API: the latent parameters are
+        recomputed from A inside every step."""
+
     # ------------------------------------------------------------------ inputs
     def reshape_inputs(self, y, u=None, r=None):
         """Vectorize and pad controls/regressors with ones."""

@@ -4,6 +4,9 @@ pyvbmp_tpu/transforms/_fused.py).
 The JAX package runs ``iters`` sweeps of a pure step function in one
 ``lax.scan``; PyTorch runs eagerly, so here the sweeps are a host loop with
 the same contract, and the ELBO trajectory reaches the host in one fetch.
+The JAX scan stacks every sweep's auxiliary outputs (the assignments among
+them) before keeping the last; this loop keeps only the last sweep's, so a
+fit holds one sweep's assignments, not ``iters`` of them.
 """
 from __future__ import annotations
 
@@ -26,14 +29,11 @@ def fused_fit(shell, step, nodes, iters, *data, lr=1.0):
     return nodes, tuple(aux), torch.stack(ELBOs)
 
 
-def record_elbos(shell, ELBOs, verbose):
-    """The reference's per-sweep verbose print and ELBO bookkeeping, from
-    the trajectory fetched once."""
+def record_elbos(shell, ELBOs, verbose, label="Percent Change in ELBO = "):
+    """The reference's per-sweep verbose print (after ``label``) and ELBO
+    bookkeeping, from the trajectory fetched once."""
     for e in ELBOs.detach().to("cpu", torch.float64).tolist():
         if verbose:
-            print(
-                "Percent Change in ELBO = ",
-                (e - shell.ELBO_last) / abs(shell.ELBO_last) * 100,
-            )
+            print(label, (e - shell.ELBO_last) / abs(shell.ELBO_last) * 100)
         shell.ELBO_last = float(e)
         shell.ELBO_save.append(float(e))

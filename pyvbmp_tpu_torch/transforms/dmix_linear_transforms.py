@@ -1,6 +1,6 @@
 """Directed mixture of linear transforms (mixture of experts): the gate
-p(z|x) is an MNLR, the experts are MatrixNormalWisharts with a bias column
-(counterpart of pyvbmp_tpu/transforms/dmix_linear_transforms.py): the
+p(z|x) is an MNLR, the experts are MatrixNormalWisharts (``type="Wishart"``)
+or MatrixNormalGammas (``type="Gamma"``) with a bias column (counterpart of pyvbmp_tpu/transforms/dmix_linear_transforms.py): the
 data-valued path (``raw_update``, ``predict``, ``Elog_like``) and the
 message-valued one (``update``, ``forward``, ``backward``,
 ``backward_mix``, ``postdict``, ``Elog_like_given_pX_pY``).
@@ -16,6 +16,7 @@ from ..utils import math as um
 from ..utils.linalg import mT, psd_logdet
 from ..utils.torchutils import default_device
 from ._fused import fused_fit
+from .matrix_normal_gamma import MatrixNormalGamma
 from .matrix_normal_wishart import MatrixNormalWishart
 from .mnlr import MultiNomialLogisticRegression
 
@@ -24,8 +25,6 @@ class dMixtureofLinearTransforms:
     def __init__(self, n, p, mixture_dim, batch_shape=(), pad_X=True,
                  type="Wishart", fixed_precision=False, generator=None,
                  dtype=None, device=None):
-        if type != "Wishart":
-            raise ValueError(f"expert type {type!r} is not ported (only 'Wishart')")
         device = default_device(device)
         self.event_shape = (mixture_dim, n, p)
         self.batch_shape = tuple(batch_shape)
@@ -35,7 +34,8 @@ class dMixtureofLinearTransforms:
         self.ELBO_last = -float("inf")
         self.ELBO_save = []
 
-        self.A = MatrixNormalWishart.create(
+        cls = {"Wishart": MatrixNormalWishart, "Gamma": MatrixNormalGamma}[type]
+        self.A = cls.create(
             event_shape=(n, p), batch_shape=tuple(batch_shape) + (mixture_dim,),
             scale=1.0 / mixture_dim ** (1.0 / n), pad_X=pad_X,
             fixed_precision=fixed_precision, generator=generator, dtype=dtype,

@@ -1,15 +1,11 @@
 """Bayesian linear map Y = A X + U^{-1/2} eps with a MatrixNormal-Wishart
-prior (counterpart of pyvbmp_tpu/transforms/matrix_normal_wishart.py).
-
-The port carries what DMBD's emission model (ARHMM_prXRY) uses: ``mask``
-(zero pattern on A, enforced by a constrained least-squares solve),
-``X_mask`` (input selection), the message-valued ``update`` and the
-likelihood messages ``Elog_like_given_pX_pY`` and ``Elog_like_X``; and what
-the mixture-of-experts classifiers use: ``pad_X`` (a bias column appended to
-X), ``raw_update``, ``Elog_like``, ``predict`` and the messages
-``forward`` and ``backward``; and what the ARHMM family uses:
-``Elog_like_X_given_pY``.  DMBD builds every transform with
-``pad_X=False``.
+prior (counterpart of pyvbmp_tpu/transforms/matrix_normal_wishart.py), with
+the JAX package's whole surface: ``mask`` (zero pattern on A, enforced by a
+constrained least-squares solve), ``X_mask`` (input selection), ``pad_X``
+(a bias column appended to X), the data- and message-valued updates, the
+likelihoods and messages (``Elog_like``, ``Elog_like_given_pX_pY``,
+``Elog_like_X``, ``Elog_like_X_given_pY``, ``forward``, ``Eforward``,
+``backward``, ``predict``, ``postdict``) and the expectation suite.
 """
 from __future__ import annotations
 
@@ -151,6 +147,17 @@ class MatrixNormalWishart(Node):
     @property
     def batch_dim(self):
         return len(self.batch_shape)
+
+    @property
+    def X_mask_static(self):
+        """Whether an input selection X_mask is set."""
+        return self.X_mask is not None
+
+    def to_event(self, n):
+        if n == 0:
+            return self
+        return replace(self, event_shape=self.batch_shape[-n:] + self.event_shape,
+                       batch_shape=self.batch_shape[:-n], invU=self.invU.to_event(n))
 
     # -- natural parameter update ------------------------------------------------
     def _posterior_mean(self, SExx, SEyx):
@@ -433,6 +440,23 @@ class MatrixNormalWishart(Node):
         Res = Res - 0.5 * psd_logdet(self.n * V @ pX.ESigma() + eye)
         return MVN_vf(mu=mu_y, Sigma=Sigma_yy), Res
 
+    def Eforward(self, pX):
+        """The message to Y given the message pX at the mean of A."""
+        if self.pad_X:
+            invSigmamu = self.EinvUX()[..., :, :-1] @ pX.mean() + self.EinvUX()[..., :, -1:]
+        else:
+            invSigmamu = self.EinvUX() @ pX.mean()
+        return MVN_vf(invSigma=self.EinvSigma(), invSigmamu=invSigmamu)
+
+    def predict_given_pX(self, pX):
+        return self.forward(pX)
+
+    def postdict(self, Y):
+        """The message to X given data Y, and its residual."""
+        invSigma_x_x, invSigmamu_x, Residual = self.Elog_like_X(Y)
+        pX = MVN_vf(invSigma=invSigma_x_x, invSigmamu=invSigmamu_x)
+        return pX, Residual - pX.Res()
+
     def predict(self, X):
         """The message to Y given data X, and its residual."""
         if self.pad_X:
@@ -451,18 +475,64 @@ class MatrixNormalWishart(Node):
         pY = MVN_vf(invSigma=self.EinvSigma(), invSigmamu=invSigmamu_y)
         return pY, Res - pY.Res()
 
-    # -- expectations --------------------------------------------------------------
+    # -- point estimates -----------------------------------------------------------
     def mean(self):
         return self.mu
 
+    def bias(self):
+        return self.mu[..., -1:] if self.pad_X else self.mu.new_zeros(())
+
+    def weights(self):
+        return self.mu[..., :-1] if self.pad_X else self.mu
+
+    def var(self):
+        return torch.diagonal(self.ESigma(), dim1=-1, dim2=-2)[..., None] \
+            * torch.diagonal(self.V, dim1=-1, dim2=-2)[..., None, :]
+
+    # -- expectations --------------------------------------------------------------
     def EinvUX(self):
         return self.invU.EinvSigma() @ self.mu
 
     def EXTinvU(self):
         return mT(self.mu) @ self.invU.EinvSigma()
 
+    def EXTAX(self, A):
+        return self.EXmMUTAXmMU(A) + mT(self.mu) @ A @ self.mu
+
+    def EXmMUTAXmMU(self, A):
+        return self.V * (self.invU.ESigma() * A).sum((-1, -2))[..., None, None]
+
+    def EXAXT(self, A):
+        return self.EXmMUAXmMUT(A) + self.mu @ A @ mT(self.mu)
+
+    def EXmMUAXmMUT(self, A):
+        return self.ESigma() * (self.V * A).sum((-1, -2))[..., None, None]
+
     def EXTinvUX(self):
         return self.n * self.V + mT(self.mu) @ self.invU.EinvSigma() @ self.mu
+
+    def EXinvVXT(self):
+        return self.p * self.invU.ESigma() + self.mu @ self.invV @ mT(self.mu)
+
+    def EXmMUTinvUXmMU(self):
+        return self.n * self.V
+
+    def EXmMUinvVXmMUT(self):
+        return self.p * self.invU.ESigma()
+
+    def EXTX(self):
+        trace = torch.diagonal(self.invU.ESigma(), dim1=-2, dim2=-1).sum(-1)
+        return self.V * trace[..., None, None] + mT(self.mu) @ self.mu
+
+    def EXXT(self):
+        trace = torch.diagonal(self.V, dim1=-2, dim2=-1).sum(-1)
+        return trace[..., None, None] * self.invU.ESigma() + self.mu @ mT(self.mu)
+
+    def ElogdetinvU(self):
+        return self.invU.ElogdetinvSigma()
+
+    def logdetEinvSigma(self):
+        return self.invU.logdetEinvSigma()
 
     def ElogdetinvSigma(self):
         return self.invU.ElogdetinvSigma()

@@ -19,7 +19,7 @@ from ..dists.mvn_ard import MVN_ard
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv
-from ..utils.torchutils import default_device, highest_precision, normal, replace
+from ..utils.torchutils import bquad, default_device, highest_precision, normal, replace
 
 
 def _stick_breaking_stats(Y):
@@ -199,9 +199,12 @@ class MultiNomialLogisticRegression:
         X = self._padded(X)
         pgb, YmN = _stick_breaking_stats(Y)
         Xr = X[..., None, :]  # sample x batch x 1 x p
-        SEyxb = (YmN[..., None] * Xr * self.beta.mean()[..., 0]).sum(-1)
-        Xc = Xr[..., None]
-        pgc = torch.sqrt((Xc * (self.beta.EXXT() @ Xc)).sum(-2)[..., 0])
+        # YmN factored out of the sum over p: with a leading class axis on Y
+        # (log_predict) no (classes, samples, n, p) product is made
+        SEyxb = YmN * (Xr * self.beta.mean()[..., 0]).sum(-1)
+        # x' <b b'> x for every class: one (samples, p) @ (p, n p) matmul for
+        # unbatched weights (bquad), not a (p, p) @ (p, 1) product a sample
+        pgc = torch.sqrt(bquad(Xr, self.beta.EXXT()))
         return self._bound(SEyxb, pgb, pgc)
 
     @highest_precision

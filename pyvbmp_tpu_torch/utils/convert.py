@@ -25,6 +25,17 @@ HHMM, Factorial_HMM) ``tensor_hmm_state`` and ``tensor_hmm_from_state``.
 nodes included (Hierarchical_Dirichlet's and HierarchicalTransition's
 ``dists``).
 
+The transform shells of the JAX package's ``transforms`` have the same
+pair of functions, each dict holding the constructor arguments under
+``config`` and one entry per posterior node (a list of them for the
+multilinear model's factors): ``multilinear_state``, ``rrr_state``,
+``mixlt_state``, ``dmixture_state`` (the component node's class under
+``config.kind``), ``nlr_full_state``, ``nlr_low_state``, ``nlr_orig_state``,
+``gbt_state``, ``fbt_state`` and ``cbt_state``; ``tnw_state`` carries a
+TensorNormalWishart.  The transformers' latents and every shell's last
+assignments are not carried: a model loaded from a state starts them afresh,
+as a new model does.
+
 The classifiers have the same pair of functions: ``mvn_ard_state`` (an
 MVN_ard node with its Gamma, and its shapes), ``mnlr_state``,
 ``bouchard_state``, ``dmixlt_state`` and ``nlrm_state``, each with its
@@ -423,6 +434,11 @@ def bouchard_from_state(state, device=None, dtype=None):
     )
 
 
+def _expert_type(A):
+    """The ``type`` argument that builds experts like A."""
+    return "Gamma" if type(A).__name__.startswith("MatrixNormalGamma") else "Wishart"
+
+
 def dmixlt_state(model):
     """Nested dict of numpy arrays holding a dMixtureofLinearTransforms
     (experts A and gate pi)."""
@@ -432,6 +448,7 @@ def dmixlt_state(model):
                        mixture_dim=model.mix_dim,
                        batch_shape=tuple(model.batch_shape),
                        pad_X=bool(model.A.pad_X),
+                       type=_expert_type(model.A),
                        fixed_precision=bool(model.A.fixed_precision)),
         "A": node_state(model.A),
         "pi": node_state(model.pi.beta),
@@ -701,3 +718,229 @@ def tensor_hmm_from_state(state, device=None, dtype=None):
     model.obs_dist = load_state(model.obs_dist, state["obs_dist"])
     _load_p(model, state)
     return model.to(device, dtype)
+
+
+# -- the transform shells ------------------------------------------------------------
+def _nodes_state(v):
+    return [node_state(x) for x in v] if isinstance(v, list) else node_state(v)
+
+
+def _shell_state(model, config, names):
+    """``config`` and the state of each node attribute in ``names``."""
+    return {"config": config, **{n: _nodes_state(getattr(model, n)) for n in names}}
+
+
+def _load_nodes(cur, v):
+    if isinstance(cur, list):
+        if len(v) != len(cur):
+            raise ValueError(f"state has {len(v)} nodes, model has {len(cur)}")
+        return [load_state(c, x) for c, x in zip(cur, v)]
+    return load_state(cur, v)
+
+
+def _shell_from_state(cls, state, device, dtype, names):
+    """``cls`` built on the CPU in float64 from the state's config, its
+    nodes ``names`` loaded, then moved to ``device`` in ``dtype``."""
+    device = default_device(device)
+    model = cls(**state["config"], generator=torch.Generator().manual_seed(0),
+                dtype=torch.float64, device="cpu")
+    for n in names:
+        setattr(model, n, _load_nodes(getattr(model, n), state[n]))
+    return model.to(device, dtype)
+
+
+def _transform(name):
+    from .. import transforms
+
+    return getattr(transforms, name)
+
+
+def tnw_state(n):
+    """Nested dict of numpy arrays holding a TensorNormalWishart."""
+    return {"config": dict(event_shape=tuple(n.event_shape), batch_shape=tuple(n.batch_shape)),
+            "node": node_state(n)}
+
+
+def tnw_from_state(state, device=None, dtype=None):
+    """This package's TensorNormalWishart holding ``state``, on ``device``
+    in ``dtype``."""
+    device = default_device(device)
+    from ..dists import TensorNormalWishart
+
+    n = TensorNormalWishart.create(**state["config"], generator=torch.Generator().manual_seed(0),
+                                   dtype=torch.float64, device="cpu")
+    return load_state(n, state["node"]).to(device, dtype)
+
+
+_MULTILINEAR_NODES = ("A", "bias", "invSigma")
+
+
+def multilinear_state(model):
+    """Nested dict of numpy arrays holding a MultiLinearNormalWishart (the
+    factors A, the bias and the shared noise invSigma)."""
+    config = dict(n=model.n, p_list=list(model.p_list), batch_shape=tuple(model.batch_shape),
+                  noise_type=model.noise_type)
+    return _shell_state(model, config, _MULTILINEAR_NODES)
+
+
+def multilinear_from_state(state, device=None, dtype=None):
+    """This package's MultiLinearNormalWishart holding ``state``, on
+    ``device`` in ``dtype`` (its factors share the loaded noise node)."""
+    return _shell_from_state(_transform("MultiLinearNormalWishart"), state, device, dtype,
+                             _MULTILINEAR_NODES)
+
+
+def rrr_state(model):
+    """Nested dict of numpy arrays holding a ReducedRankRegression."""
+    config = dict(n=model.n, p=model.p, dim=model.dim, batch_shape=tuple(model.batch_shape),
+                  pad_X=bool(model.A.pad_X), independent=_expert_type(model.A) == "Gamma")
+    return _shell_state(model, config, ("A", "B", "U"))
+
+
+def rrr_from_state(state, device=None, dtype=None):
+    """This package's ReducedRankRegression holding ``state``, on ``device``
+    in ``dtype``."""
+    return _shell_from_state(_transform("ReducedRankRegression"), state, device, dtype,
+                             ("A", "B", "U"))
+
+
+def mixlt_state(model):
+    """Nested dict of numpy arrays holding a MixtureofLinearTransforms."""
+    # model.p holds the last assignments; the input width is W's
+    config = dict(n=model.n, p=model.W.p - int(model.W.pad_X), dim=model.dim,
+                  batch_shape=tuple(model.batch_shape), pad_X=bool(model.W.pad_X),
+                  type=_expert_type(model.W))
+    return _shell_state(model, config, ("W", "pi"))
+
+
+def mixlt_from_state(state, device=None, dtype=None):
+    """This package's MixtureofLinearTransforms holding ``state``, on
+    ``device`` in ``dtype``."""
+    return _shell_from_state(_transform("MixtureofLinearTransforms"), state, device, dtype,
+                             ("W", "pi"))
+
+
+def dmixture_state(model):
+    """Nested dict of numpy arrays holding a dMixture: the component node
+    (its class, shapes and state) and the gate's weights."""
+    d = model.dist
+    return {
+        "config": dict(kind=type(d).__name__, event_shape=tuple(d.event_shape),
+                       batch_shape=tuple(d.batch_shape),
+                       p=model.pi.p - int(model.pi.pad_X)),
+        "dist": node_state(d),
+        "pi": node_state(model.pi.beta),
+    }
+
+
+def dmixture_from_state(state, device=None, dtype=None):
+    """This package's dMixture holding ``state``, on ``device`` in
+    ``dtype``."""
+    device = default_device(device)
+    from .. import dists
+
+    c = state["config"]
+    kw = dict(generator=torch.Generator().manual_seed(0), dtype=torch.float64, device="cpu")
+    dist = getattr(dists, c["kind"]).create(c["event_shape"], c["batch_shape"], **kw)
+    model = _transform("dMixture")(load_state(dist, state["dist"]), c["p"], **kw)
+    model.pi.beta = load_state(model.pi.beta, state["pi"])
+    return model.to(device, dtype)
+
+
+def nlr_full_state(model):
+    """Nested dict of numpy arrays holding an NLRegression_full_rank."""
+    config = dict(n=model.A.n, p=model.A.p - 1, mixture_dim=model.pi.event_shape[-1],
+                  batch_shape=tuple(model.batch_shape), independent=bool(model.independent))
+    return _shell_state(model, config, ("A", "X", "pi"))
+
+
+def nlr_full_from_state(state, device=None, dtype=None):
+    """This package's NLRegression_full_rank holding ``state``, on
+    ``device`` in ``dtype``."""
+    return _shell_from_state(_transform("NLRegression_full_rank"), state, device, dtype,
+                             ("A", "X", "pi"))
+
+
+def nlr_low_state(model):
+    """Nested dict of numpy arrays holding an NLRegression_low_rank."""
+    config = dict(n=model.A.n, p=model.W.n, hidden_dim=model.hidden_dim,
+                  mixture_dim=model.mixture_dim, batch_shape=tuple(model.batch_shape),
+                  independent=bool(model.independent))
+    return _shell_state(model, config, ("A", "W", "U", "pi"))
+
+
+def nlr_low_from_state(state, device=None, dtype=None):
+    """This package's NLRegression_low_rank holding ``state``, on ``device``
+    in ``dtype``."""
+    return _shell_from_state(_transform("NLRegression_low_rank"), state, device, dtype,
+                             ("A", "W", "U", "pi"))
+
+
+def nlr_orig_state(model):
+    """Nested dict of numpy arrays holding an NLRegression_orig (U's
+    precision is W's: loading re-binds it)."""
+    # model.p holds the last assignments once fit; the input width is W's
+    config = dict(n=model.n, p=model.W.p, hidden_dim=model.hidden_dim,
+                  mixture_dim=model.mixture_dim, batch_shape=tuple(model.batch_shape))
+    return _shell_state(model, config, ("W", "A", "U", "pi"))
+
+
+def nlr_orig_from_state(state, device=None, dtype=None):
+    """This package's NLRegression_orig holding ``state``, on ``device`` in
+    ``dtype``."""
+    from ..transforms.nl_regression import NLRegression_orig
+
+    return _shell_from_state(NLRegression_orig, state, device, dtype, ("W", "A", "U", "pi"))
+
+
+def _transformer_config(model):
+    return dict(mixture_dim=model.mixture_dim, role_dim=model.role_dim,
+                obs_dim=model.obs_dim, hidden_dim=model.hidden_dim,
+                batch_shape=tuple(model.batch_shape))
+
+
+def gbt_state(model):
+    """Nested dict of numpy arrays holding a GenerativeBayesianTransformer."""
+    config = dict(_transformer_config(model), pad_X=bool(model.A.pad_X))
+    return _shell_state(model, config, ("A", "pi_role", "pi_mix"))
+
+
+def gbt_from_state(state, device=None, dtype=None):
+    """This package's GenerativeBayesianTransformer holding ``state``, on
+    ``device`` in ``dtype``."""
+    return _shell_from_state(_transform("GenerativeBayesianTransformer"), state, device, dtype,
+                             ("A", "pi_role", "pi_mix"))
+
+
+def fbt_state(model):
+    """Nested dict of numpy arrays holding a FocusedBayesianTransformer (its
+    heads W as a ``dmixlt_state``)."""
+    return {"config": dict(_transformer_config(model), pad_X=bool(model.W.A.pad_X)),
+            "W": dmixlt_state(model.W), "pi": node_state(model.pi)}
+
+
+def fbt_from_state(state, device=None, dtype=None):
+    """This package's FocusedBayesianTransformer holding ``state``, on
+    ``device`` in ``dtype``."""
+    device = default_device(device)
+    model = _transform("FocusedBayesianTransformer")(
+        **state["config"], generator=torch.Generator().manual_seed(0),
+        dtype=torch.float64, device="cpu")
+    model.W.A = load_state(model.W.A, state["W"]["A"])
+    model.W.pi.beta = load_state(model.W.pi.beta, state["W"]["pi"])
+    model.pi = load_state(model.pi, state["pi"])
+    return model.to(device, dtype)
+
+
+def cbt_state(model):
+    """Nested dict of numpy arrays holding a ChainedBayesianTransformer."""
+    config = dict(mixture_dim=model.mixture_dim, role_dim=model.role_dim, n=model.obs_dim,
+                  p=model.regression_dim, batch_shape=tuple(model.batch_shape))
+    return _shell_state(model, config, ("x0", "W", "pi"))
+
+
+def cbt_from_state(state, device=None, dtype=None):
+    """This package's ChainedBayesianTransformer holding ``state``, on
+    ``device`` in ``dtype``."""
+    return _shell_from_state(_transform("ChainedBayesianTransformer"), state, device, dtype,
+                             ("x0", "W", "pi"))

@@ -8,9 +8,10 @@ import torch
 
 from pyvbmp_tpu_torch import models as tm
 from pyvbmp_tpu_torch import transforms as tt
-from pyvbmp_tpu_torch.dists import GMM_vector, NormalInverseWishart
+from pyvbmp_tpu_torch.dists import GMM_vector, NormalInverseWishart, TensorNormalWishart
 from pyvbmp_tpu_torch.dists.mvn_ard import MVN_ard
 from pyvbmp_tpu_torch.transforms import MatrixNormalWishart
+from pyvbmp_tpu_torch.transforms.nl_regression import NLRegression_orig
 from pyvbmp_tpu_torch.utils import convert
 from pyvbmp_tpu_torch.utils.torchutils import NoCardError, default_device
 
@@ -21,6 +22,9 @@ TENSOR_OBS = NormalInverseWishart.create((2,), (2, 3),
                                          generator=torch.Generator().manual_seed(0))
 LDS_OBS = tt.MatrixNormalGamma.create((3, 2), pad_X=True,
                                       generator=torch.Generator().manual_seed(0))
+# a dMixture's components, built before the call as for an HMM
+DMIX_DIST = NormalInverseWishart.create((2,), (3,), generator=torch.Generator().manual_seed(0))
+TRANSFORMER = dict(mixture_dim=4, role_dim=3, obs_dim=2, hidden_dim=2, pad_X=True)
 CONSTRUCTORS = {
     "DMBD": lambda **k: tm.DynamicMarkovBlanketDiscovery((3, 2), (1, 2, 1), (2, 2, 2), **k),
     "DMBD 3 objects": lambda **k: tm.DynamicMarkovBlanketDiscovery(
@@ -48,6 +52,17 @@ CONSTRUCTORS = {
     "MNLR (Bouchard)": lambda **k: tt.MultiNomialLogisticRegression_Bouchard(3, 4, **k),
     "dMixLT": lambda **k: tt.dMixtureofLinearTransforms(3, 4, 2, **k),
     "NLR-multinomial": lambda **k: tt.NLRegression_Multinomial(3, 4, 2, **k),
+    "dMixLT Gamma": lambda **k: tt.dMixtureofLinearTransforms(3, 4, 2, type="Gamma", **k),
+    "MultiLinearNormalWishart": lambda **k: tt.MultiLinearNormalWishart(3, [2, 4], **k),
+    "ReducedRankRegression": lambda **k: tt.ReducedRankRegression(6, 5, 2, **k),
+    "MixtureofLinearTransforms": lambda **k: tt.MixtureofLinearTransforms(1, 1, 2, **k),
+    "dMixture": lambda **k: tt.dMixture(DMIX_DIST, 2, **k),
+    "NLR-full-rank": lambda **k: tt.NLRegression_full_rank(1, 1, 2, **k),
+    "NLR-low-rank": lambda **k: tt.NLRegression_low_rank(1, 1, 1, 2, **k),
+    "NLR-orig": lambda **k: NLRegression_orig(1, 1, 1, 2, **k),
+    "GBT": lambda **k: tt.GenerativeBayesianTransformer(**TRANSFORMER, **k),
+    "FBT": lambda **k: tt.FocusedBayesianTransformer(**TRANSFORMER, **k),
+    "CBT": lambda **k: tt.ChainedBayesianTransformer(1, 1, 2, 2, **k),
 }
 NODES = (NormalInverseWishart, MatrixNormalWishart, MVN_ard)
 # converter name -> the state of a small CPU model
@@ -69,6 +84,19 @@ CONVERTERS = {
     "bouchard": lambda: convert.bouchard_state(CONSTRUCTORS["MNLR (Bouchard)"](device="cpu")),
     "dmixlt": lambda: convert.dmixlt_state(CONSTRUCTORS["dMixLT"](device="cpu")),
     "nlrm": lambda: convert.nlrm_state(CONSTRUCTORS["NLR-multinomial"](device="cpu")),
+    "tnw": lambda: convert.tnw_state(
+        TensorNormalWishart.create((3, 4), generator=torch.Generator().manual_seed(0))),
+    "multilinear": lambda: convert.multilinear_state(
+        CONSTRUCTORS["MultiLinearNormalWishart"](device="cpu")),
+    "rrr": lambda: convert.rrr_state(CONSTRUCTORS["ReducedRankRegression"](device="cpu")),
+    "mixlt": lambda: convert.mixlt_state(CONSTRUCTORS["MixtureofLinearTransforms"](device="cpu")),
+    "dmixture": lambda: convert.dmixture_state(CONSTRUCTORS["dMixture"](device="cpu")),
+    "nlr_full": lambda: convert.nlr_full_state(CONSTRUCTORS["NLR-full-rank"](device="cpu")),
+    "nlr_low": lambda: convert.nlr_low_state(CONSTRUCTORS["NLR-low-rank"](device="cpu")),
+    "nlr_orig": lambda: convert.nlr_orig_state(CONSTRUCTORS["NLR-orig"](device="cpu")),
+    "gbt": lambda: convert.gbt_state(CONSTRUCTORS["GBT"](device="cpu")),
+    "fbt": lambda: convert.fbt_state(CONSTRUCTORS["FBT"](device="cpu")),
+    "cbt": lambda: convert.cbt_state(CONSTRUCTORS["CBT"](device="cpu")),
 }
 
 

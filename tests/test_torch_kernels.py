@@ -546,6 +546,53 @@ def test_mnlr_fit_runs_the_scatter_kernel(cuda):
     assert acc > 0.9
 
 
+def test_dmixture_gate_launches_the_scatter_and_follows_the_plain_version(cuda, monkeypatch):
+    """dMixture's MNLR gate (16 components, 31 inputs) launches weighted_outer
+    twice a sweep at X (S, 32), W (S, 15) and runs no plain scatter; each
+    launch's output is within TOL of the plain version (float64) on the same
+    inputs, and the ELBO trajectory within TOL of the same sweeps with the
+    gate's scatter swapped for the plain version."""
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.transforms import dMixture
+    from pyvbmp_tpu_torch.utils.convert import dmixture_from_state, dmixture_state
+    from pyvbmp_tpu_torch.utils.torchutils import replace
+
+    rs = np.random.RandomState(0)
+    S, K, p = 20000, 16, 31
+    z = rs.randint(0, K, S)
+    X = torch.tensor(rs.randn(K, p)[z] * 4 + 0.5 * rs.randn(S, p), dtype=torch.float32,
+                     device=cuda)
+    Y = torch.tensor(rs.randn(K, 2)[z] * 3 + 0.3 * rs.randn(S, 2), dtype=torch.float32,
+                     device=cuda)
+    kw = dict(generator=torch.Generator().manual_seed(0), dtype=torch.float64, device="cpu")
+    dist = NormalInverseWishart.create((2,), (K,), **kw)
+    state = dmixture_state(dMixture(replace(dist, mu=Y[:K].double().cpu()), p, **kw))
+    calls = []
+    kernel = ws.WEIGHTED_OUTER.kernel
+
+    def recorded(X, W):
+        out = kernel(X, W)
+        calls.append((X.clone(), W.clone(), out))
+        return out
+
+    monkeypatch.setattr(ws.WEIGHTED_OUTER, "kernel", recorded)
+    m = dmixture_from_state(state, cuda, torch.float32)
+    launches, plain = ws.WEIGHTED_OUTER.launches, ws.WEIGHTED_OUTER.plain_calls
+    m.raw_update(X, Y, iters=3)
+    torch.cuda.synchronize()
+    assert ws.WEIGHTED_OUTER.launches == launches + 6
+    assert ws.WEIGHTED_OUTER.plain_calls == plain
+    assert [(tuple(a.shape), tuple(w.shape)) for a, w, _ in calls] == [((S, p + 1), (S, K - 1))] * 6
+    for a, w, out in calls:
+        assert rel_err(out.double(), ws.weighted_outer_einsum(a.double(), w.double())) <= TOL
+    monkeypatch.setattr(ws.WEIGHTED_OUTER, "kernel", lambda X, W: ws.weighted_outer_einsum(
+        X.double(), W.double()).float())
+    ref = dmixture_from_state(state, cuda, torch.float32)
+    ref.raw_update(X, Y, iters=3)
+    e, e_ref = np.asarray(m.ELBO_save), np.asarray(ref.ELBO_save)
+    assert np.abs(e - e_ref).max() / np.abs(e_ref).max() <= TOL
+
+
 def ar_pairs(rs, T, B):
     """Two AR regimes switching every 10 steps: X and Y (T, B, 1, 2, 1)."""
     rot = np.asarray([[0.0, -0.9], [0.9, 0.0]])
@@ -625,4 +672,4 @@ def test_node_suite_on_the_card_follows_the_cpu(cuda):
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     worst = chip_smoke.node_suite(batch=8)
-    assert len(worst) == 15 and max(worst.values()) <= TOL, worst
+    assert len(worst) == 19 and max(worst.values()) <= TOL, worst

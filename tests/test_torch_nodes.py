@@ -18,7 +18,16 @@ updates on the same numpy statistics or data (``ss_update``, or
   ``nat_combiner``, ``Elog_like``) and MultivariateNormal (matrix layout);
 - NormalInverseWishart_vector_format and its ``_invSigma`` variant
   (``raw_update`` and the message ``update``);
-- GMM_vector: ``initialize`` and 3 iterations through ``convert.gmm_state``.
+- GMM_vector: ``initialize`` and 3 iterations through ``convert.gmm_state``;
+- the methods that the port's classes lacked against the JAX package's
+  (``tests/test_torch_api.py`` keeps that list empty): Dirichlet's and
+  Transition's ``raw_update``/``update``/``Elog_like``/``to_event``/``var``/
+  ``logZ`` (and the (3, 3) Transition updated from counts of shape
+  (10, 3, 3, 3, 3)), NormalInverseWishart's ``EX``/``ESigma``/``EXXT``/
+  ``EinvUX``/``to_event``, Gamma's ``ElogX``/``entropy``/``logZprior``/
+  ``var``, Delta's expectations and reshapes, MatrixNormalWishart's and
+  MatrixNormalGamma's (UnitTrace too) point estimates, messages and
+  expectation suite, and the shape properties.
 
 Tolerance: max |port - jax| / max |jax| <= 1e-8 (1e-8 absolute for an
 output that vanishes by construction).  The same nodes on the card against
@@ -384,3 +393,156 @@ def test_gmm_vector_initialize_keeps_invU(gmm_vector_fit):
     rows = {tuple(r) for r in X[..., 0].tolist()}
     assert all(tuple(r) in rows for r in m.dist.mu[..., 0].tolist())
     assert torch.allclose(m.dist.invU, invU)
+
+
+
+# -- the methods the port lacked (the public-attribute diff's repairs) ------------
+def dirichlet_repair_ops(weighted):
+    def ops(n, A, lib):
+        rs = np.random.RandomState(21)
+        shape = (S,) + n.batch_shape + n.event_shape
+        X = rs.rand(*shape) * 3
+        w = A(rs.rand(S, *n.batch_shape)) if weighted else None
+        n1 = n.raw_update(A(X), p=w, lr=0.8, beta=0.5).update(A(X), p=w, beta=0.5)
+        out = dict(alpha=n1.alpha, NA=n1.NA, var=n1.var(), logZ=n1.logZ(),
+                   to_event=np.asarray(n1.to_event(1).event_shape))
+        if type(n).__name__ == "Dirichlet":  # Transition's KL and likelihood differ
+            out.update(like=n1.Elog_like(A(X)), to_event_KL=n1.to_event(1).KLqprior())
+        return out
+    return ops
+
+
+def niw_repair_ops(n, A, lib):
+    rs = np.random.RandomState(22)
+    n1 = n.raw_update(A(rs.randn(S, B, D) + 1.0), lr=0.9)
+    return dict(EX=n1.EX(), ESigma=n1.ESigma(), EXXT=n1.EXXT(), EinvUX=n1.EinvUX(),
+                to_event=n1.to_event(1).KLqprior())
+
+
+def gamma_repair_ops(n, A, lib):
+    rs = np.random.RandomState(23)
+    n1 = n.ss_update(A(rs.rand(B, D) * 3), A(rs.rand(B, D) * 3), lr=0.9)
+    return dict(ElogX=n1.ElogX(), entropy=n1.entropy(), logZprior=n1.logZprior(),
+                var=n1.var())
+
+
+MNW_REPAIRED = ("weights", "bias", "var", "logdetEinvSigma", "ElogdetinvU", "EXinvVXT",
+                "EXmMUTinvUXmMU", "EXmMUinvVXmMUT", "EXTX", "EXXT", "EXTinvUX")
+
+
+def mnw_repair_ops(pad):
+    def ops(n, A, lib):
+        rs = np.random.RandomState(24)
+        p = n.p - int(pad)
+        X = rs.randn(S, 2, p, 1)
+        Y = rs.randn(4, p) @ X * 0.7 + 0.3 * rs.randn(S, 2, 4, 1) + 0.5
+        n1 = n.raw_update(A(X), A(Y), p=A(rs.rand(S, 2)), lr=0.9)
+        M4, Mp = A(spd(rs, (2,), 4)), A(spd(rs, (2,), n.p))
+        out = {k: getattr(n1, k)() for k in MNW_REPAIRED}
+        out.update(EXTAX=n1.EXTAX(M4), EXmMUTAXmMU=n1.EXmMUTAXmMU(M4), EXAXT=n1.EXAXT(Mp),
+                   EXmMUAXmMUT=n1.EXmMUAXmMUT(Mp), to_event=n1.to_event(1).KLqprior())
+        pX = lib.MultivariateNormal_vector_format(
+            mu=A(X[:5]), Sigma=A(np.broadcast_to(0.1 * np.eye(p), (5, 2, p, p)).copy()))
+        ef = n1.Eforward(pX)
+        out.update(Eforward_invSigma=ef.EinvSigma(), Eforward_invSigmamu=ef.EinvSigmamu())
+        post, res = n1.postdict(A(Y[:5]))
+        out.update(postdict_invSigma=post.EinvSigma(), postdict_invSigmamu=post.EinvSigmamu(),
+                   postdict_Res=res)
+        if type(n).__name__ == "MatrixNormalWishart":  # MNG's forward has no residual
+            pY, res = n1.predict_given_pX(pX)
+            out.update(pgx_mu=pY.mean(), pgx_Sigma=pY.ESigma(), pgx_Res=res)
+        return out
+    return ops
+
+
+REPAIR_CASES = {
+    **{f"Dirichlet weighted={wt}": (
+        lambda: JD.Dirichlet.create((D,), (B,), key=KEY),
+        lambda: PD.Dirichlet.create((D,), (B,), **F64), dirichlet_repair_ops(wt))
+       for wt in (False, True)},
+    **{f"Transition weighted={wt}": (
+        lambda: JT.Transition.create((2, 3), (2,), key=KEY),
+        lambda: PT.Transition.create((2, 3), (2,), **F64), dirichlet_repair_ops(wt))
+       for wt in (False, True)},
+    "NormalInverseWishart": (lambda: JD.NormalInverseWishart.create((D,), (B,), key=KEY),
+                             lambda: PD.NormalInverseWishart.create((D,), (B,), **F64),
+                             niw_repair_ops),
+    "Gamma": (lambda: JD.Gamma.create((D,), (B,), key=KEY),
+              lambda: PD.Gamma.create((D,), (B,), **F64), gamma_repair_ops),
+    **{f"{name} pad_X={pad}": (
+        lambda name=name, pad=pad: getattr(JT, name).create((4, 3), (2,), pad_X=pad, key=KEY),
+        lambda name=name, pad=pad: getattr(PT, name).create((4, 3), (2,), pad_X=pad, **F64),
+        mnw_repair_ops(pad))
+       for name in ("MatrixNormalWishart", "MatrixNormalGamma", "MatrixNormalGamma_UnitTrace")
+       for pad in (False, True)},
+}
+
+
+@pytest.mark.parametrize("name", list(REPAIR_CASES))
+def test_repaired_methods_match_jax(name):
+    make_jax, make_port, ops = REPAIR_CASES[name]
+    with jax.enable_x64(True):
+        jn = make_jax()
+        state = node_state(jn)
+        ref = _numpy(ops(jn, jnp.asarray, JD))
+    tn = load_state(make_port(), state)
+    _compare(_numpy(ops(tn, torch.tensor, PD)), ref)
+
+
+def test_delta_matches_jax():
+    rs = np.random.RandomState(25)
+    X, M = rs.rand(S, 2, D, 1) + 0.1, spd(rs, (), D)
+
+    def ops(lib, A):
+        d = lib.Delta(A(X))
+        return dict(E=d.E(lambda x: x * 2.0), EXX=d.EXX(), EXTX=d.EXTX(), EXTAX=d.EXTAX(A(M)),
+                    ElogX=d.ElogX(), sum=d.sum(1), sum_keep=d.sum(0, keepdim=True),
+                    cumsum=d.cumsum(0), unsqueeze=d.unsqueeze(-3).X,
+                    squeeze=d.unsqueeze(1).squeeze(1).X)
+
+    with jax.enable_x64(True):
+        ref = _numpy(ops(JD, jnp.asarray))
+    _compare(_numpy(ops(PD, torch.tensor)), ref)
+
+
+def test_transition_updates_from_tensor_counts():
+    """A (3, 3)-state Transition updated from counts of shape
+    (10, 3, 3, 3, 3) gives a node in both packages, with the same alpha."""
+    X = np.random.RandomState(26).rand(10, 3, 3, 3, 3)
+    with jax.enable_x64(True):
+        jn = JT.Transition.create((3, 3), key=KEY)
+        state = node_state(jn)
+        jn = jn.raw_update(jnp.asarray(X))
+        ref = np.asarray(jn.alpha)
+    tn = load_state(PT.Transition.create((3, 3), **F64), state).raw_update(torch.tensor(X))
+    assert isinstance(tn, PT.Transition) and isinstance(jn, JT.Transition)
+    assert rel_dev(tn.alpha, ref) <= TOL
+
+
+def test_repaired_shapes_and_stubs():
+    """The shape properties; Hierarchical_Dirichlet.marginal raising as in
+    the JAX package; LDS/DMBD.set_latent_parms a no-op."""
+    from pyvbmp_tpu_torch import models as PM
+
+    with jax.enable_x64(True):
+        jnodes = [getattr(JD, n).create((D, D), (B, 2), key=KEY) if n != "Wishart"
+                  else JD.Wishart.create((D, D), (B, 2))
+                  for n in ("Wishart", "WishartEigh", "WishartUnitDet", "WishartUnitTrace")]
+        jnodes += [getattr(JD, n).create((D,), (B,), key=KEY)
+                   for n in ("DiagonalWishart", "DiagonalWishartUnitTrace")]
+        jshapes = [(n.batch_dim, n.event_dim) for n in jnodes]
+        jm = JD.MultivariateNormal_vector_format(mu=jnp.zeros((S, B, D, 1)))
+        assert jm.ndim == 4
+        with pytest.raises(NotImplementedError):
+            JD.Hierarchical_Dirichlet.create((3, 2), key=KEY).marginal(0)
+    pnodes = [getattr(PD, n).create((D, D), (B, 2), **F64)
+              for n in ("Wishart", "WishartEigh", "WishartUnitDet", "WishartUnitTrace")]
+    pnodes += [getattr(PD, n).create((D,), (B,), **F64)
+               for n in ("DiagonalWishart", "DiagonalWishartUnitTrace")]
+    assert [(n.batch_dim, n.event_dim) for n in pnodes] == jshapes == [(2, 2)] * 4 + [(1, 1)] * 2
+    assert PD.MultivariateNormal_vector_format(mu=torch.zeros(S, B, D, 1)).ndim == 4
+    with pytest.raises(NotImplementedError):
+        PD.Hierarchical_Dirichlet.create((3, 2), **F64).marginal(0)
+    lds = PM.LinearDynamicalSystems((3,), 2, device="cpu")
+    dmbd = PM.DynamicMarkovBlanketDiscovery((3, 2), (1, 2, 1), (2, 2, 2), device="cpu")
+    assert lds.set_latent_parms() is None and dmbd.set_latent_parms() is None
