@@ -27,7 +27,8 @@ prints no result:
    lane as dHMM builds them; ARHMM K=4 T=200 N=200; NLDS lane H=2 T=200
    N=8; Cradle K=6 T=200 N=50 and H=6 N=10; Flame K=3 T=100 N=12 and H=4
    N=1; life K=12 T=128 N=384; artificial life K=10 T=199 N=16; LDS-core
-   lane H=2 T=200 N=100);
+   lane H=2 T=200 N=100; the flocking example's K=14 T=200 N=120 and H=14
+   T=200 N=10);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -210,7 +211,32 @@ prints no result:
    ReducedRankRegression(6, 5, 2) and dMixtureofLinearTransforms(1, 1, 2,
    type="Gamma") at their JAX tests' widths on S=100000 samples: 3 updates
    from one state on the card (float32) and the CPU (float64), the KL (or
-   the ELBO) and the posterior means within relative 1e-4, no kernel.
+   the ELBO) and the posterior means within relative 1e-4, no kernel;
+35. BayesianFactorAnalysis(64, 8) on tests/test_models_hmm_lds.py's BFA
+   recipe at S=100000 (numpy seed 4), float32 on the card: 10 raw_update
+   sweeps after a warm-up, sweeps/s; the ELBO non-decreasing after the
+   first sweep (within |ELBO| 1e-4) and the column space of A recovered
+   (error < 0.1); no kernel; card f32 vs CPU f64 over 3 sweeps from one
+   numpy state, the ELBO and A's mean within relative 1e-4;
+36. BayesNet on two moons (n=400, hidden (2,), experts (4,): the two-moons
+   network; 20 FBI sweeps, accuracy >= 0.80) and on the digits task (hidden
+   (16, 8), experts (4, 4); 10 FBI sweeps after a warm-up: sweeps/s, test
+   accuracy), no kernel; digits card f32 vs CPU f64 over 3 sweeps: test
+   argmax agreeing on >= 99%, the head's and the first layer's weights
+   within relative 1e-4;
+37. DMBD-Lorenz (phase 3's model) after 3 sweeps saved with
+   utils.checkpoint, loaded into a card model from another generator
+   (every floating tensor float32 on the card) and into a CPU float64
+   model; one more sweep each: the card ELBOs equal, the CPU's within
+   relative 1e-4; utils.diagnostics.assert_finite passes, and names A.mu
+   once an entry of it is NaN;
+38. each example of pyvbmp_tpu_torch.examples through its main(plots=False)
+   on the card at full width, at its own depth unless EXAMPLE_CUTS cuts it
+   (printed with the reason): seconds, sweeps/s, first and last ELBO (the
+   accuracy for two moons and NLDS), and launches: flocking 2 logsemiring
+   and 2 plane Kalman a sweep, NLDS 2 lane Kalman a sweep, the rest none;
+   then calcium's configuration (zero-width z blocks) card f32 vs CPU f64
+   over 3 sweeps within relative 1e-4.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -352,6 +378,35 @@ TRANSFORMERS = dict(S=10000, sweeps=5, S_chain=50000, chain_sweeps=10, compare_s
                     seed=0)
 # phase 34: the JAX tests' widths (tests/test_transforms_misc.py) at S samples
 SMALL = dict(S=100000, updates=3, seed=0)
+# phase 2: examples/flocking_example.py's scans at full width (12 birds,
+# batch 10, T=200, 3 objects: K = H = 14): logsemiring (T, K, lanes) and
+# plane Kalman (T, H, batch)
+FLOCK_EX = dict(T=200, K=14, lanes=120, batch=10)
+# phase 35: tests/test_models_hmm_lds.py::test_bfa_recovery's recipe at S
+# samples, o observed and h latent dimensions
+BFA = dict(S=100000, o=64, h=8, sweeps=10, compare_sweeps=3, data_seed=4, seed=0,
+           max_err=0.1)
+# phase 36: BayesNet on two moons (examples/two_moons.py's network: hidden 2,
+# 4 experts; n=400, the example's 20 iterations) and on the digits task at
+# hidden (16, 8), experts (4, 4) (no published configuration exists)
+BAYESNET = dict(moons_iters=20, min_acc=MOONS["min_acc"], digits_hidden=(16, 8),
+                digits_experts=(4, 4), sweeps=10, compare_sweeps=3, min_agree=0.99, seed=0)
+# phase 37: DMBD-Lorenz (phase 3's model) checkpointed after SWEEPS sweeps
+CHECKPOINT = dict(sweeps=3, seed=5, other_seed=6)
+# phase 38: the examples at full width; each runs its own depth unless cut
+# here: name -> (keyword arguments of its main, the reason, printed)
+# (life and calcium run their sequential smoothers at 0.904 and 1.277
+# sweeps/s in this phase on an NVIDIA H100 80GB HBM3 at 700 W; at their
+# full 40 and 50 sweeps the phase passes 90 s)
+EXAMPLE_CUTS = {
+    "nlds_example": (dict(restarts=1), "phase 19 runs its whole fit(iters=30, restarts=6) "
+                     "at this size"),
+    "life_as_we_know_it_example": (dict(iters=15), "the phase's time; phase 22 fits this "
+                                   "configuration at full width"),
+    "calcium_imaging_example": (dict(iters=25), "the phase's time; its card-vs-CPU "
+                                "comparison follows"),
+}
+CALCIUM_CMP = dict(compare_sweeps=3, seed=0)
 SIM_TOL = 1e-6  # a simulator on the card against the same simulator on the CPU
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (dense FP32 below)
@@ -693,6 +748,12 @@ def phase_kernels(card, base=None):
     c = LDS_CORE
     cases.append((scan.KALMAN_LANE, f"H={c['hidden']} T={c['T']} N={c['batch']} (LDS-core)",
                   lane_elems(rs, c["T"], c["hidden"], c["batch"])))
+    # the flocking example's scans (phase 38)
+    f = FLOCK_EX
+    cases.append((scan.LOGSEMIRING, f"K={f['K']} T={f['T']} N={f['lanes']} (flocking example)",
+                  (semiring_elems(rs, f["T"], f["K"], f["lanes"]),)))
+    cases.append((scan.KALMAN_PLANE, f"H={f['K']} T={f['T']} N={f['batch']} (flocking example)",
+                  kalman_elems(rs, f["T"], f["K"], f["batch"])))
     record = {s.name: dict(abs=0.0, ms=None, plain_ms=None, bound=None) for s in scan.SCANS}
     for s, label, arrays in cases:
         leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
@@ -2948,6 +3009,279 @@ class RawUpdates:
         self.model.raw_update(*args, **kw)
 
 
+def bfa_data():
+    """tests/test_models_hmm_lds.py::test_bfa_recovery's recipe at BFA's
+    size: Y = z A' + 0.1 noise, (S, o) float32 values held in float64, and
+    the true loading matrix A."""
+    c = BFA
+    rs = np.random.RandomState(c["data_seed"])
+    A = rs.randn(c["o"], c["h"])
+    z = rs.randn(c["S"], c["h"])
+    Y = (z @ A.T + 0.1 * rs.randn(c["S"], c["o"])).astype(np.float32)
+    return torch.from_numpy(Y.astype(np.float64)), A
+
+
+def bfa_state0(seed):
+    from pyvbmp_tpu_torch.models import BayesianFactorAnalysis
+    from pyvbmp_tpu_torch.utils.convert import bfa_state
+
+    return bfa_state(BayesianFactorAnalysis(
+        BFA["o"], BFA["h"], generator=torch.Generator().manual_seed(seed),
+        dtype=torch.float64, device="cpu"))
+
+
+NO_KERNEL = {"logsemiring_scan": 0, "kalman_plane_scan": 0, "kalman_lane_scan": 0,
+             "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
+             "kalman_lane_scan_folded": 0, "weighted_outer": 0}
+
+
+def phase_bfa(card):
+    """Phase 35: BayesianFactorAnalysis at S=100000, o=64, h=8 in float32 on
+    the card: 10 raw_update sweeps after a warm-up (sweeps/s), the ELBO
+    non-decreasing after the first sweep (within |ELBO| 1e-4, as the JAX
+    test), the column space of A recovered (error < 0.1), no kernel and no
+    plain version; then card f32 vs CPU f64 from one numpy state over 3
+    sweeps: the ELBO and A's mean within relative 1e-4."""
+    from pyvbmp_tpu_torch.utils.convert import bfa_from_state
+
+    c = BFA
+    Y64, A = bfa_data()
+    Y = Y64.to("cuda", torch.float32)
+    state = bfa_state0(c["seed"])
+    bfa_from_state(state, "cuda", torch.float32).raw_update(Y, iters=1)  # warm-up
+    model = bfa_from_state(state, "cuda", torch.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    model.raw_update(Y, iters=c["sweeps"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    e = np.asarray(model.ELBO_save, np.float64)
+    Ahat = model.A.mean().double().cpu().numpy()
+    err = np.linalg.norm(A - Ahat @ np.linalg.pinv(Ahat) @ A) / np.linalg.norm(A)
+    print(f"phase 35 BFA S={c['S']} o={c['o']} h={c['h']} {c['sweeps']} sweeps: "
+          f"{c['sweeps'] / dt:.3f} sweeps/s ({dt:.3f} s); column-space error {err:.4e}; "
+          f"card {card}")
+    print(f"  ELBO trajectory {e.tolist()}")
+    if not np.isfinite(e).all():
+        fail("BFA: ELBO not finite")
+    if not (np.diff(e)[1:] > -np.abs(e[-1]) * 1e-4).all():
+        fail("BFA: the ELBO fell after the first sweep")
+    if not err < c["max_err"]:
+        fail(f"BFA: column-space error {err:.4e} not below {c['max_err']}")
+    check_launches("BFA", launches, plain, NO_KERNEL)
+    n = c["compare_sweeps"]
+    gpu, launches_cmp, plain_cmp, cpu = compare_card_cpu(
+        "phase 35 BFA", lambda st, device, dtype: bfa_from_state(st, device, dtype),
+        bfa_state0(c["seed"] + 1), (Y64,), n, card)
+    close_outputs("phase 35 BFA", {"A mean": (gpu.A.mean(), cpu.A.mean())}, card)
+    check_launches("BFA (card vs CPU)", launches_cmp, plain_cmp, NO_KERNEL)
+
+
+def bayesnet_state0(seed, n, p, hidden, experts):
+    from pyvbmp_tpu_torch.models import BayesNet
+    from pyvbmp_tpu_torch.utils.convert import bayesnet_state
+
+    return bayesnet_state(BayesNet(n, p, hidden, experts,
+                                   generator=torch.Generator().manual_seed(seed),
+                                   dtype=torch.float64, device="cpu"))
+
+
+def phase_bayesnet(card, data):
+    """Phase 36: BayesNet in float32 on the card: two moons (n=400, hidden 2,
+    4 experts, 20 FBI sweeps; accuracy >= 0.80) and the digits task (hidden
+    (16, 8), experts (4, 4), 10 FBI sweeps after a warm-up: sweeps/s, test
+    accuracy), no kernel and no plain version; then digits from one numpy
+    state, 3 sweeps on the card (float32) and the CPU (float64): the test
+    argmax agreeing on >= 99% and the head's weights within relative 1e-4."""
+    from pyvbmp_tpu_torch.utils.convert import bayesnet_from_state
+
+    c = BAYESNET
+    X64, y = two_moons()
+    Y64 = torch.from_numpy(np.eye(2)[y])
+    net = bayesnet_from_state(bayesnet_state0(c["seed"], 2, 2, (MOONS["hidden"],),
+                                              (MOONS["experts"],)), "cuda", torch.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    net.update(*to_card((X64, Y64)), iters=c["moons_iters"])
+    acc = net.accuracy(to_card(X64), y)
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    print(f"phase 36 BayesNet two moons n={MOONS['n']} hidden ({MOONS['hidden']},) experts "
+          f"({MOONS['experts']},), {c['moons_iters']} FBI sweeps: {c['moons_iters'] / dt:.3f} "
+          f"sweeps/s ({dt:.3f} s); accuracy {acc:.4f}; card {card}")
+    if not acc >= c["min_acc"]:
+        fail(f"BayesNet two moons: accuracy {acc:.4f} below {c['min_acc']}")
+    check_launches("BayesNet two moons", launches, plain, NO_KERNEL)
+
+    Xtr, Ytr, Xte, yte = data
+    shape = (DIGITS["classes"], Xtr.shape[1], c["digits_hidden"], c["digits_experts"])
+    state = bayesnet_state0(c["seed"], *shape)
+    bayesnet_from_state(state, "cuda", torch.float32).update(*to_card((Xtr, Ytr)), iters=1)
+    net = bayesnet_from_state(state, "cuda", torch.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    net.update(*to_card((Xtr, Ytr)), iters=c["sweeps"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    acc = net.accuracy(to_card(Xte), yte)
+    print(f"phase 36 BayesNet digits {tuple(Xtr.shape)} hidden {c['digits_hidden']} experts "
+          f"{c['digits_experts']}, {c['sweeps']} FBI sweeps: {c['sweeps'] / dt:.3f} sweeps/s "
+          f"({dt:.3f} s); test accuracy {acc:.4f}; card {card}")
+    check_launches("BayesNet digits", launches, plain, NO_KERNEL)
+    st = bayesnet_state0(c["seed"] + 1, *shape)
+    n = c["compare_sweeps"]
+    gpu = bayesnet_from_state(st, "cuda", torch.float32)
+    cpu = bayesnet_from_state(st, "cpu", torch.float64)
+    reset_counts()
+    gpu.update(*to_card((Xtr, Ytr)), iters=n)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    cpu.update(Xtr, Ytr, iters=n)
+    agree = (gpu.predict(to_card(Xte)).argmax(-1).cpu().numpy()
+             == cpu.predict(Xte).argmax(-1).numpy()).mean()
+    print(f"phase 36 BayesNet digits card f32 vs CPU f64, {n} sweeps: test argmax agree on "
+          f"{agree:.4f}; card {card}")
+    close_outputs("phase 36 BayesNet digits", {
+        "head beta mean": (gpu.head.beta.mu, cpu.head.beta.mu),
+        "first layer A mean": (gpu.layers[0].A.mu, cpu.layers[0].A.mu)}, card)
+    if not agree >= c["min_agree"]:
+        fail(f"BayesNet digits: card and CPU predictions agree on only {agree:.4f}")
+    check_launches("BayesNet digits (card vs CPU)", launches, plain, NO_KERNEL)
+
+
+def phase_checkpoint(card):
+    """Phase 37: DMBD-Lorenz (phase 3's model, scan smoothers) after 3
+    sweeps on the card, saved; loaded into a card model built from another
+    generator (every floating tensor float32 on the card) and into a CPU
+    model in float64; each takes 1 more sweep: the card ELBOs equal, the
+    CPU's within relative 1e-4; assert_finite passes, and names the node
+    after one of its fields is set to NaN."""
+    import dataclasses
+    import tempfile
+
+    from pyvbmp_tpu_torch.utils import checkpoint, diagnostics
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    c = CHECKPOINT
+    y = lorenz_data(torch.float32, "cuda")
+    a = dmbd_from_state(dmbd_state(build_model(torch.Generator().manual_seed(c["seed"]))),
+                        "cuda", torch.float32)
+    a.update(y, iters=c["sweeps"])
+    other = dmbd_state(build_model(torch.Generator().manual_seed(c["other_seed"])))
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "dmbd_lorenz.pt")
+        t0 = time.perf_counter()
+        checkpoint.save(a, path)
+        size = Path(path).stat().st_size
+        b = checkpoint.load(dmbd_from_state(other, "cuda", torch.float32), path)
+        dt = time.perf_counter() - t0
+        cpu = checkpoint.load(dmbd_from_state(other, "cpu", torch.float64), path)
+    floats = {path: t for k, v in checkpoint.model_state(b).items()
+              for path, t in diagnostics._leaves(v, k) if t.is_floating_point()}
+    wrong = [k for k, t in floats.items() if t.dtype != torch.float32 or t.device.type != "cuda"]
+    if wrong or not floats:
+        fail(f"checkpoint: loaded tensors not float32 on the card: {wrong}")
+    a.update(y, iters=1)
+    b.update(y, iters=1)
+    cpu.update(lorenz_data(torch.float64, "cpu"), iters=1)
+    ea, eb, ec = a.ELBO_save[-1], b.ELBO_save[-1], cpu.ELBO_save[-1]
+    dev = abs(eb - ec) / abs(ec)
+    print(f"phase 37 checkpoint DMBD-Lorenz after {c['sweeps']} sweeps: {len(floats)} float32 "
+          f"card tensors, {size} bytes, saved and loaded in {dt:.3f} s; next ELBO saved model "
+          f"{ea:.6e}, loaded on the card {eb:.6e}, on the CPU f64 {ec:.6e} (rel dev "
+          f"{dev:.3e}); card {card}")
+    if ea != eb:
+        fail(f"checkpoint: the loaded card model's ELBO {eb} is not the saved one's {ea}")
+    if not dev <= REL_TOL:
+        fail(f"checkpoint: the CPU model loaded from the card's file differs by {dev:.3e}")
+    diagnostics.assert_finite(b, where="phase 37")
+    mu = b.A.mu.clone()
+    mu.view(-1)[0] = float("nan")
+    b.A = dataclasses.replace(b.A, mu=mu)
+    try:
+        diagnostics.assert_finite(b, where="phase 37")
+    except FloatingPointError as e:
+        if "A.mu" not in str(e):
+            fail(f"assert_finite did not name A.mu: {e}")
+        print(f"  assert_finite after A.mu[0] = NaN: {e}")
+    else:
+        fail("assert_finite passed a model holding a NaN")
+
+
+def example_launch_want(name, sweeps):
+    if name == "flocking_example":
+        return per_sweep(SCAN_PAIR_WANT, sweeps)
+    if name == "nlds_example":
+        return dict(NO_KERNEL, kalman_lane_scan=2 * sweeps)
+    return NO_KERNEL
+
+
+EXAMPLE_NAMES = ("lorenz_example", "flame_example", "flocking_example",
+                 "newtons_cradle_example", "calcium_imaging_example",
+                 "life_as_we_know_it_example", "artificial_life_example", "nlds_example",
+                 "two_moons")
+
+
+def phase_examples(card):
+    """Phase 38: each example's main(plots=False) on the card at full width
+    and its own depth (cut where EXAMPLE_CUTS says, printed): seconds of
+    main (data made and model built included), sweeps/s over them, the
+    first and last ELBO (accuracy for two moons and NLDS), and launches:
+    flocking 2 logsemiring and 2 plane Kalman a sweep, NLDS 2 lane Kalman a
+    sweep, the rest none, and no plain version.  Then calcium's
+    configuration (zero-width z blocks) card f32 vs CPU f64 from one numpy
+    state over 3 sweeps within relative 1e-4.  Returns the launches by
+    example."""
+    import importlib
+    import io
+
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
+
+    out = {}
+    for name in EXAMPLE_NAMES:
+        ex = importlib.import_module(f"pyvbmp_tpu_torch.examples.{name}")
+        cut, why = EXAMPLE_CUTS.get(name, ({}, ""))
+        reset_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res = ex.main(device="cuda", smoke=False, plots=False, **cut)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+        if name == "two_moons":
+            sweeps, summary = cut.get("iters", ex.ITERS), f"accuracy {res:.4f}"
+            if not res >= MOONS["min_acc"]:
+                fail(f"two_moons example: accuracy {res:.4f} below {MOONS['min_acc']}")
+        else:
+            e = np.asarray(res.ELBO_save, np.float64)
+            if not np.isfinite(e).all():
+                fail(f"{name}: ELBO not finite")
+            sweeps, summary = len(e), f"ELBO {e[0]:.6e} -> {e[-1]:.6e}"
+            if name == "nlds_example":
+                sweeps = cut.get("iters", ex.ITERS) * cut.get("restarts", ex.RESTARTS)
+                _, ztrue = ex.make_data(device="cpu")
+                summary += f" (best restart), segmentation accuracy {ex.accuracy(res, ztrue):.4f}"
+        print(f"phase 38 example {name}"
+              + (f" (depth cut to {cut}: {why})" if cut else "")
+              + f": main {dt:.3f} s, {sweeps} sweeps, {sweeps / dt:.3f} sweeps/s; {summary}; "
+              f"its last line: {log.getvalue().strip().splitlines()[-1][:120]!r}; card {card}")
+        check_launches(f"{name} example", launches, plain, example_launch_want(name, sweeps))
+        out[name] = launches
+    ex = importlib.import_module("pyvbmp_tpu_torch.examples.calcium_imaging_example")
+    y64 = ex.load_calcium(device="cpu", dtype=torch.float64)
+    c = CALCIUM_CMP
+    state = dmbd_state(ex.build_model(y64.shape[-2:], torch.Generator().manual_seed(c["seed"]),
+                                      "cpu", torch.float64))
+    n = c["compare_sweeps"]
+    _, launches, plain, _ = compare_card_cpu("phase 38 calcium", dmbd_from_state, state,
+                                             (y64,), n, card, fit=dict(lr=0.5))
+    check_launches("calcium (card vs CPU)", launches, plain, NO_KERNEL)
+    return out
+
+
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):
     bound = r["bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3004,6 +3338,10 @@ def main():
     run("32", phase_moe_arms, card, data)
     run("33", phase_transformers, card)
     run("34", phase_small_transforms, card)
+    run("35", phase_bfa, card)
+    run("36", phase_bayesnet, card, data)
+    run("37", phase_checkpoint, card)
+    launches_examples = run("38", phase_examples, card)
     if args.trace:
         run("trace", phase_trace, card)
     if base is not None:
@@ -3018,7 +3356,8 @@ def main():
             + launches_hmm[s.name] + launches_cradle[s.name] + launches_flame[s.name]
             + launches_nlds[s.name] + launches_dhmm[s.name] + launches_arhmm[s.name]
             + launches_life[s.name] + launches_alife[s.name] + launches_unique[s.name]
-            + launches_lds_obs[s.name],
+            + launches_lds_obs[s.name]
+            + sum(launches[s.name] for launches in launches_examples.values()),
             max(record[s.name]["abs"], one_pass[s.name]), record[s.name]))
     for s in scan.FOLDED_SCANS:
         kernels.append(record_line(

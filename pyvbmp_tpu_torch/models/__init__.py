@@ -1,7 +1,10 @@
 """Models: DynamicMarkovBlanketDiscovery, the linear dynamical systems, the
 HMM family (the tensor-state HMMs among it), the mixture models and the
-pieces they are built from."""
+pieces they are built from, factor analysis and the message-passing
+BayesNet."""
 from .arhmm import ARHMM, ARHMM_prXY, ARHMM_prXRY
+from .bayes_net import BayesNet
+from .bayesian_factor_analysis import BayesianFactorAnalysis
 from .dhmm import dHMM
 from .dmbd import DynamicMarkovBlanketDiscovery
 from .gmm import GaussianMixtureModel, PoissonMixtureModel
@@ -15,6 +18,8 @@ __all__ = [
     "ARHMM",
     "ARHMM_prXY",
     "ARHMM_prXRY",
+    "BayesNet",
+    "BayesianFactorAnalysis",
     "DynamicMarkovBlanketDiscovery",
     "Factorial_HMM",
     "GaussianMixtureModel",

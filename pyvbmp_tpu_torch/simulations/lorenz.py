@@ -25,14 +25,22 @@ class Lorenz:
         T = (num_steps - 1) // 5 after smoothing and decimation."""
         device = default_device(device)
         f64 = torch.float64
+        u = [torch.rand(batch_num, generator=generator, dtype=f64) for _ in range(3)]
+        xyz0 = torch.randn(3, batch_num, generator=generator, dtype=f64)
+        return self.integrate(*(x.to(device) for x in (*u, xyz0)))
+
+    def integrate(self, u_sigma, u_rho, u_beta, xyz0):
+        """``simulate`` from its draws: U[0, 1) jitters (batch,) of sigma,
+        rho and beta and the starting points xyz0 (3, batch), on their
+        device."""
         jitter = 0.02
 
-        def jittered(value):
-            u = torch.rand(batch_num, generator=generator, dtype=f64).to(device)
+        def jittered(value, u):
             return value * (1 + 2 * (u - 0.5) * jitter)
 
-        sigma, rho, beta = jittered(self.sigma), jittered(self.rho), jittered(self.beta)
-        x, y, z = torch.randn(3, batch_num, generator=generator, dtype=f64).to(device)
+        sigma, rho, beta = (jittered(v, u) for v, u in
+                            ((self.sigma, u_sigma), (self.rho, u_rho), (self.beta, u_beta)))
+        x, y, z = xyz0
         traj = []
         for _ in range(self.num_steps):
             dx = sigma * (y - x)

@@ -50,12 +50,14 @@ class dMixtureofLinearTransforms:
         self.NA = None
 
     def to(self, device=None, dtype=None):
-        """Move the nodes and the last responsibilities in place; returns
-        self."""
+        """Move the nodes and the last responsibilities, logZ and NA in
+        place; returns self."""
         self.A = self.A.to(device, dtype)
         self.pi.to(device, dtype)
-        if self.p is not None:
-            self.p = self.p.to(device, dtype)
+        for name in ("p", "logZ", "NA"):
+            v = getattr(self, name)
+            if v is not None:
+                setattr(self, name, v.to(device, dtype))
         return self
 
     def _vb_step_raw(self, nodes, X, AX, AY, p, lr):

@@ -43,6 +43,12 @@ MVN_ard node with its Gamma, and its shapes), ``mnlr_state``,
 ``config`` and one entry per posterior node (``beta``; ``A`` and ``pi``;
 ``A`` and ``Z``).
 
+The last two models have the same pair of functions: ``bfa_state`` (a
+BayesianFactorAnalysis: its shapes and the loading matrix A) and
+``bayesnet_state`` (a BayesNet: its widths, each layer as a
+``dmixlt_state`` and the head as an ``mnlr_state``), each with its
+``..._from_state``.
+
 Random initialisation cannot be shared between the packages (``jax.random``
 and ``torch.Generator`` draw different numbers), so parity runs go JAX model
 -> state -> port.  A DMBD's dict holds:
@@ -944,3 +950,56 @@ def cbt_from_state(state, device=None, dtype=None):
     ``device`` in ``dtype``."""
     return _shell_from_state(_transform("ChainedBayesianTransformer"), state, device, dtype,
                              ("x0", "W", "pi"))
+
+
+# -- factor analysis and the BayesNet --------------------------------------------
+def bfa_state(model):
+    """Nested dict of numpy arrays holding a BayesianFactorAnalysis: its
+    shapes under ``config`` and the loading matrix A (MatrixNormalGamma).
+    The latents q(z) are not carried."""
+    return {"config": dict(obs_dim=model.obs_dim, latent_dim=model.latent_dim,
+                           batch_shape=tuple(model.batch_shape)),
+            "A": node_state(model.A)}
+
+
+def bfa_from_state(state, device=None, dtype=None):
+    """This package's BayesianFactorAnalysis holding ``state``, on ``device``
+    in ``dtype``."""
+    device = default_device(device)
+    from ..models import BayesianFactorAnalysis
+
+    model = BayesianFactorAnalysis(**state["config"], generator=torch.Generator().manual_seed(0),
+                                   dtype=torch.float64, device="cpu")
+    model.A = load_state(model.A, state["A"])
+    return model.to(device, dtype)
+
+
+def bayesnet_state(model):
+    """Nested dict of numpy arrays holding a BayesNet: its widths under
+    ``config``, each layer as a ``dmixlt_state`` and the head as an
+    ``mnlr_state``."""
+    # a layer's ``p`` holds its last responsibilities once fit; the input
+    # width is its experts', less their bias column
+    return {"config": dict(n=model.head.n + 1, p=model.layers[0].A.p - 1,
+                           hidden_dims=tuple(model.hidden_dims),
+                           mixture_dims=tuple(model.mixture_dims),
+                           batch_shape=tuple(model.batch_shape)),
+            "layers": [dmixlt_state(layer) for layer in model.layers],
+            "head": mnlr_state(model.head)}
+
+
+def bayesnet_from_state(state, device=None, dtype=None):
+    """This package's BayesNet holding ``state``, on ``device`` in ``dtype``."""
+    device = default_device(device)
+    from ..models import BayesNet
+
+    model = BayesNet(**state["config"], generator=torch.Generator().manual_seed(0),
+                     dtype=torch.float64, device="cpu")
+    if len(state["layers"]) != model.num_layers:
+        raise ValueError(f"state has {len(state['layers'])} layers, model has "
+                         f"{model.num_layers}")
+    for layer, st in zip(model.layers, state["layers"]):
+        layer.A = load_state(layer.A, st["A"])
+        layer.pi.beta = load_state(layer.pi.beta, st["pi"])
+    model.head.beta = load_state(model.head.beta, state["head"]["beta"])
+    return model.to(device, dtype)

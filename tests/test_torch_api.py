@@ -15,10 +15,7 @@ import pytest
 SUBPACKAGES = ("dists", "transforms", "models")
 
 # (subpackage, class) -> why the port does not export it yet
-NOT_PORTED = {
-    ("models", "BayesianFactorAnalysis"): "ROADMAP Queue A 2, the next slice",
-    ("models", "BayesNet"): "ROADMAP Queue A 2, the next slice",
-}
+NOT_PORTED = {}
 # (subpackage, class, attribute) -> why the port's class lacks it
 MISSING_ATTRIBUTES = {}
 

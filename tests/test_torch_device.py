@@ -12,7 +12,7 @@ from pyvbmp_tpu_torch.dists import GMM_vector, NormalInverseWishart, TensorNorma
 from pyvbmp_tpu_torch.dists.mvn_ard import MVN_ard
 from pyvbmp_tpu_torch.transforms import MatrixNormalWishart
 from pyvbmp_tpu_torch.transforms.nl_regression import NLRegression_orig
-from pyvbmp_tpu_torch.utils import convert
+from pyvbmp_tpu_torch.utils import convert, rng
 from pyvbmp_tpu_torch.utils.torchutils import NoCardError, default_device
 
 DHMM_OBS = NormalInverseWishart.create((2,), (3,), generator=torch.Generator().manual_seed(0))
@@ -63,6 +63,13 @@ CONSTRUCTORS = {
     "GBT": lambda **k: tt.GenerativeBayesianTransformer(**TRANSFORMER, **k),
     "FBT": lambda **k: tt.FocusedBayesianTransformer(**TRANSFORMER, **k),
     "CBT": lambda **k: tt.ChainedBayesianTransformer(1, 1, 2, 2, **k),
+    "BayesianFactorAnalysis": lambda **k: tm.BayesianFactorAnalysis(6, 2, **k),
+    "BayesianFactorAnalysis batched": lambda **k: tm.BayesianFactorAnalysis(
+        6, 2, batch_shape=(2,), **k),
+    "BayesNet": lambda **k: tm.BayesNet(2, 2, (3, 2), (2, 2), **k),
+    # a generator of utils.rng's sequence, as the examples pass one
+    "BayesNet (rng generator)": lambda generator, **k: tm.BayesNet(
+        2, 2, (2,), (4,), generator=rng.next_generator(), **k),
 }
 NODES = (NormalInverseWishart, MatrixNormalWishart, MVN_ard)
 # converter name -> the state of a small CPU model
@@ -97,6 +104,8 @@ CONVERTERS = {
     "gbt": lambda: convert.gbt_state(CONSTRUCTORS["GBT"](device="cpu")),
     "fbt": lambda: convert.fbt_state(CONSTRUCTORS["FBT"](device="cpu")),
     "cbt": lambda: convert.cbt_state(CONSTRUCTORS["CBT"](device="cpu")),
+    "bfa": lambda: convert.bfa_state(CONSTRUCTORS["BayesianFactorAnalysis"](device="cpu")),
+    "bayesnet": lambda: convert.bayesnet_state(CONSTRUCTORS["BayesNet"](device="cpu")),
 }
 
 
@@ -196,3 +205,20 @@ def test_from_state_without_a_device_builds_on_the_card(name):
     m = getattr(convert, f"{name}_from_state")(CONVERTERS[name](), dtype=torch.float32)
     ts = [t for t in tensors(m) if t.is_floating_point()]
     assert ts and all(t.device.type == "cuda" and t.dtype == torch.float32 for t in ts)
+
+
+def test_rng_hands_out_cpu_generators_from_one_seeded_sequence(no_card):
+    """``next_generator`` needs no card: it makes CPU generators by default,
+    which is what every constructor draws from; a seed gives the sequence
+    again, and torch's global generator is left as it was."""
+    state = torch.random.get_rng_state()
+    rng.seed(3)
+    a = [rng.next_generator() for _ in range(3)]
+    rng.seed(3)
+    b = [rng.next_generator() for _ in range(3)]
+    assert all(g.device.type == "cpu" for g in a)
+    assert [g.initial_seed() for g in a] == [g.initial_seed() for g in b]
+    assert len({g.initial_seed() for g in a}) == 3
+    assert torch.equal(torch.random.get_rng_state(), state)
+    with pytest.raises(NoCardError):
+        tm.BayesNet(2, 2, (2,), (4,), generator=rng.next_generator())

@@ -95,12 +95,13 @@ def test_kernel_matches_plain(cuda, which, size, reverse):
 # artificial-life and LDS-core (a pad_X observation model) paths at the
 # shapes those paths give them (size, T, lanes): ragged lane blocks at every
 # one, and the lane kernel's per-lane copy path (N = 8, below a warp; N =
-# 100, not a multiple of 32)
+# 100, not a multiple of 32); and the flocking example's scans (12 birds,
+# batch 10, 3 objects, T = 200: K = H = 14)
 MAIN_PATH = [("logsemiring", 8, 200, 200), ("logsemiring", 6, 200, 50),
              ("logsemiring", 3, 100, 12), ("kalman", 6, 200, 10), ("kalman", 4, 100, 1),
              ("logsemiring", 4, 200, 200), ("lane", 2, 200, 8),
              ("logsemiring", 12, 128, 384), ("logsemiring", 10, 199, 16),
-             ("lane", 2, 200, 100)]
+             ("lane", 2, 200, 100), ("logsemiring", 14, 200, 120), ("kalman", 14, 200, 10)]
 
 
 @pytest.mark.parametrize("which,size,T,N", MAIN_PATH)
@@ -658,6 +659,22 @@ def test_chain_model_fit_on_the_card_follows_the_cpu(cuda, name):
     cpu.update(*args, iters=3)
     e_gpu, e_cpu = np.asarray(gpu.ELBO_save), np.asarray(cpu.ELBO_save)
     assert (np.abs(e_gpu - e_cpu) / np.abs(e_cpu)).max() <= TOL
+
+
+def test_flocking_example_launches_two_of_each_scan_a_sweep(cuda):
+    """The flocking example (parallel_scan=True) at its smoke width on the
+    card: 2 logsemiring and 2 plane Kalman launches a sweep, no other kernel
+    and no plain scan."""
+    from pyvbmp_tpu_torch.examples import flocking_example as ex
+
+    before = [(s.launches, s.plain_calls) for s in scan.SCANS]
+    model = ex.main(device=cuda, smoke=True, plots=False)
+    counts = {s.name: (s.launches - b[0], s.plain_calls - b[1])
+              for s, b in zip(scan.SCANS, before)}
+    n = ex.SMOKE_ITERS
+    assert counts == {"logsemiring_scan": (2 * n, 0), "kalman_plane_scan": (2 * n, 0),
+                      "kalman_lane_scan": (0, 0)}
+    assert np.isfinite(model.ELBO_save).all()
 
 
 def test_node_suite_on_the_card_follows_the_cpu(cuda):
