@@ -28,7 +28,10 @@ prints no result:
    N=8; Cradle K=6 T=200 N=50 and H=6 N=10; Flame K=3 T=100 N=12 and H=4
    N=1; life K=12 T=128 N=384; artificial life K=10 T=199 N=16; LDS-core
    lane H=2 T=200 N=100; the flocking example's K=14 T=200 N=120 and H=14
-   T=200 N=10);
+   T=200 N=10; phase 39's chunks, each rank's: logsemiring K=4 and plane
+   H=6 at T=100 and 99 (N=300, 100), T=399 (N=75, 25) and T=200 (N=150,
+   50), lane H=2 T=25 N=4000, logsemiring K=8 T=50 N=200, one transition
+   and per time);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -236,7 +239,20 @@ prints no result:
    accuracy for two moons and NLDS), and launches: flocking 2 logsemiring
    and 2 plane Kalman a sweep, NLDS 2 lane Kalman a sweep, the rest none;
    then calcium's configuration (zero-width z blocks) card f32 vs CPU f64
-   over 3 sweeps within relative 1e-4.
+   over 3 sweeps within relative 1e-4;
+39. the parallel layer (pyvbmp_tpu_torch/parallel), ranks started with
+   torch.multiprocessing.spawn, loading the kernels phase 1 built: (a) one
+   rank on NCCL, DMBD-Lorenz with time_mesh=make_mesh(1, "seq") and under
+   data_parallel_update, 3 sweeps each, the ELBOs within relative 1e-6 of
+   the single-process card run from the same state; four ranks sharing the
+   card on gloo with their tensors on it: (b) DMBD-Lorenz with its time
+   axis cut over the 4 (T=399: 100, 100, 100, 99 rows), (c) under
+   data_parallel_update (25 trajectories a rank), (d) on a 2 x 2 (seq x
+   data) mesh with both, (e) MixLDS, HMM-core and dHMM with time_mesh,
+   each within relative 1e-4 of its single-process card run; every rank
+   launches each scan of its path 2 times a sweep and runs no plain scan;
+   (c)'s "reduce" elements a sweep the same at batch 400, and no
+   "gather"; sweeps/s and the collectives' bytes a sweep for each leg.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -748,6 +764,23 @@ def phase_kernels(card, base=None):
     c = LDS_CORE
     cases.append((scan.KALMAN_LANE, f"H={c['hidden']} T={c['T']} N={c['batch']} (LDS-core)",
                   lane_elems(rs, c["T"], c["hidden"], c["batch"])))
+    # phase 39's chunks, each rank's: T=399 cut over 4 ranks (100, 100, 100
+    # and 99 rows), 25 trajectories a rank under data_parallel_update, the
+    # 2 x 2 mesh's 200 (and 199) rows of 50 trajectories; MixLDS's, HMM-core's
+    # and dHMM's T cut over 4
+    lanes = CFG["obs_shape"][0]
+    for T, b, leg in ((100, CFG["batch"], "b"), (99, CFG["batch"], "b, last rank"),
+                      (CFG["T"], CFG["batch"] // 4, "c"), (200, CFG["batch"] // 2, "d")):
+        cases.append((scan.LOGSEMIRING, f"K=4 T={T} N={b * lanes} (39{leg})",
+                      (semiring_elems(rs, T, 4, b * lanes),)))
+        cases.append((scan.KALMAN_PLANE, f"H=6 T={T} N={b} (39{leg})", kalman_elems(rs, T, 6, b)))
+    cases.append((scan.KALMAN_LANE, f"H=2 T={MIX['T'] // 4} N={N_mix} (39e MixLDS)",
+                  lane_elems(rs, MIX["T"] // 4, 2, N_mix)))
+    cases.append((scan.LOGSEMIRING, f"K={hc['K']} T={hc['T'] // 4} N={hc['batch']} (39e HMM-core)",
+                  (semiring_elems(rs, hc["T"] // 4, hc["K"], hc["batch"]),)))
+    cases.append((scan.LOGSEMIRING,
+                  f"K={hc['K']} T={hc['T'] // 4} N={hc['batch']} per-time (39e dHMM)",
+                  (semiring_elems(rs, hc["T"] // 4, hc["K"], hc["batch"], per_time=True),)))
     # the flocking example's scans (phase 38)
     f = FLOCK_EX
     cases.append((scan.LOGSEMIRING, f"K={f['K']} T={f['T']} N={f['lanes']} (flocking example)",
@@ -3282,6 +3315,221 @@ def phase_examples(card):
     return out
 
 
+# -- phase 39: the parallel layer, ranks on the one card ---------------------------------
+MESH_SWEEPS = 3  # timed sweeps a leg, after a warm-up sweep
+MESH_WORLD = 4
+MESH_BIG_BATCH = 400  # leg (c)'s reductions at 4 times DMBD-Lorenz's batch
+WORLD1_TOL = 1e-6  # leg (a): one rank against the single process
+
+
+def _mesh_inputs(workdir):
+    """The legs' data (float32, numpy) and states, saved for the ranks."""
+    y = lorenz_data(torch.float32, "cpu").numpy()
+    inputs = dict(
+        lorenz=y, lorenz_big=np.concatenate([y] * (MESH_BIG_BATCH // CFG["batch"]), 1),
+        mix=mixlds_data(), hmm=hmm_data().float().numpy(),
+        dhmm_u=dhmm_inputs().float().numpy(),
+        dmbd_state=dmbd_state0(), mix_state=mixlds_state0(MIX["seed"]),
+        hmm_state=hmm_state0(HMM_CORE["seed"]), dhmm_state=dhmm_state0(DHMM_CORE["seed"]))
+    np.save(Path(workdir) / "inputs.npy", inputs, allow_pickle=True)
+    return inputs
+
+
+def dmbd_state0():
+    from pyvbmp_tpu_torch.utils.convert import dmbd_state
+
+    return dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"])))
+
+
+# leg -> (model, how the sweeps run): every leg builds its model from one
+# numpy state on the card in float32, takes a warm-up sweep on a second copy,
+# then MESH_SWEEPS timed sweeps
+MESH_LEGS = {
+    "a_time": ("dmbd", "time"), "a_data": ("dmbd", "data"),
+    "b": ("dmbd", "time"), "c": ("dmbd", "data"), "c_big": ("dmbd_big", "data"),
+    "d": ("dmbd", "both"), "e_mixlds": ("mixlds", "time"), "e_hmm": ("hmm", "time"),
+    "e_dhmm": ("dhmm", "time"),
+}
+
+
+def _mesh_model(name, inputs, time_mesh):
+    from pyvbmp_tpu_torch.utils import convert
+
+    kind, state, data = {
+        "dmbd": ("dmbd", "dmbd_state", ("lorenz",)),
+        "dmbd_big": ("dmbd", "dmbd_state", ("lorenz_big",)),
+        "mixlds": ("mixlds", "mix_state", ("mix",)),
+        "hmm": ("hmm", "hmm_state", ("hmm",)),
+        "dhmm": ("dhmm", "dhmm_state", ("dhmm_u", "hmm")),
+    }[name]
+    build = getattr(convert, f"{kind}_from_state")
+    kw = {} if time_mesh is None else dict(time_mesh=time_mesh)
+    return (lambda: build(inputs[state], "cuda", torch.float32, **kw),
+            tuple(torch.from_numpy(inputs[k]).cuda() for k in data))
+
+
+def _mesh_leg(leg, inputs, meshes):
+    """One leg on this rank: (ELBOs, seconds of the timed sweeps, kernel
+    launches and plain calls, collective elements and bytes by tag)."""
+    import torch.distributed as dist
+
+    from pyvbmp_tpu_torch.parallel import data_parallel_update
+
+    name, how = MESH_LEGS[leg]
+    seq = meshes["seq_data" if how == "both" else "seq"]
+    data_mesh = meshes["seq_data" if how == "both" else "data"]
+    make, data = _mesh_model(name, inputs, None if how == "data" else seq)
+    sweeps = 1 if leg == "c_big" else MESH_SWEEPS
+
+    def run(model, iters):
+        if how == "time":
+            model.update(*data, iters=iters)
+        else:
+            data_parallel_update(model, data[0], mesh=data_mesh, iters=iters)
+
+    run(make(), 1)
+    model = make()
+    reset_counts()
+    for m in meshes.values():
+        m.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    run(model, sweeps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = read_counts()
+    tags = ("scan", "halo", "reduce", "gather", "replicate")
+    return dict(elbo=list(model.ELBO_save), seconds=dt, sweeps=sweeps, launches=launches,
+                plain=plain,
+                elements={t: sum(m.elements(t) for m in meshes.values()) for t in tags},
+                nbytes={t: sum(m.nbytes(t) for m in meshes.values()) for t in tags})
+
+
+def _mesh_rank(rank, world, workdir, backend, legs):
+    """A rank of phase 39: the kernels are loaded from the parent's build,
+    the legs run in order, the results go to a numpy file."""
+    import torch.distributed as dist
+
+    from pyvbmp_tpu_torch.ops import _cuda, scan
+    from pyvbmp_tpu_torch.parallel import Mesh, make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scan.TIME_FOLD = "0"
+    dist.init_process_group(backend, init_method=f"file://{workdir}/rendezvous",
+                            world_size=world, rank=rank,
+                            device_id=torch.device("cuda", 0) if backend == "nccl" else None)
+    try:
+        _cuda.load_library()
+        inputs = np.load(Path(workdir) / "inputs.npy", allow_pickle=True).item()
+        meshes = {"seq": make_mesh(world, "seq"), "data": make_mesh(world, "data")}
+        if world == 4:
+            meshes["seq_data"] = Mesh(np.arange(4).reshape(2, 2), ("seq", "data"))
+        out = {leg: _mesh_leg(leg, inputs, meshes) for leg in legs}
+        np.save(Path(workdir) / f"rank{rank}.npy", out, allow_pickle=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world, workdir, backend, legs):
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(world, str(workdir), backend, legs), nprocs=world, join=True)
+    out = [np.load(Path(workdir) / f"rank{r}.npy", allow_pickle=True).item()
+           for r in range(world)]
+    return out, time.perf_counter() - t0
+
+
+def _single(name, inputs):
+    """The single-process card run of a leg's model: its ELBOs."""
+    make, data = _mesh_model(name, inputs, None)
+    model = make()
+    model.update(*data, iters=MESH_SWEEPS)
+    return np.asarray(model.ELBO_save, np.float64)
+
+
+def phase_mesh(card):
+    """Phase 39: the parallel layer (pyvbmp_tpu_torch/parallel), ranks on
+    the one card.  Four ranks share one H100, so the legs measure
+    correctness and the cost of the collectives, not multi-GPU speed.
+    The kernels are built once, in phase 1; the ranks load them.
+
+    (a) one rank, NCCL: DMBD-Lorenz with time_mesh=make_mesh(1, "seq"), and
+        under data_parallel_update, 3 sweeps each: the ELBOs within relative
+        1e-6 of the single-process card run from the same state;
+    (b) 4 ranks, gloo with the tensors on the card: DMBD-Lorenz with its
+        time axis (T=399) cut over 4 ranks: the ELBO within 1e-4 of the
+        single process; on every rank 2 logsemiring and 2 plane Kalman
+        launches a sweep, no plain scan;
+    (c) 4 ranks: data_parallel_update of DMBD-Lorenz, 25 trajectories a
+        rank: the ELBO within 1e-4; the "reduce" elements of a sweep the
+        same at batch 400; no "gather";
+    (d) a 2 x 2 (seq x data) mesh: DMBD-Lorenz with time_mesh and
+        data_parallel_update both: the ELBO within 1e-4;
+    (e) 4 ranks: MixLDS, HMM-core and dHMM with time_mesh, each within 1e-4
+        of its single-process run; 2 launches a sweep of their scan.
+
+    Prints sweeps/s and the collectives' bytes a sweep for each leg.
+    Returns the launches of every rank of every leg, by kernel."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d4:
+        inputs = _mesh_inputs(d1)
+        np.save(Path(d4) / "inputs.npy", inputs, allow_pickle=True)
+        one, t1 = _spawn_ranks(1, d1, "nccl", ["a_time", "a_data"])
+        four, t4 = _spawn_ranks(MESH_WORLD, d4, "gloo",
+                                ["b", "c", "c_big", "d", "e_mixlds", "e_hmm", "e_dhmm"])
+    print(f"phase 39 parallel layer: spawned 1 rank (NCCL) in {t1:.1f} s and "
+          f"{MESH_WORLD} ranks on one card (gloo, tensors on the card) in {t4:.1f} s; "
+          f"card {card}")
+    refs = {name: _single(name, inputs) for name in ("dmbd", "mixlds", "hmm", "dhmm")}
+    total = {k.name: 0 for k in kernel_counts()}
+    a_sweep = lambda n, sweeps: {k: v // sweeps for k, v in n.items()}
+    for ranks, legs in ((one, ("a_time", "a_data")),
+                        (four, ("b", "c", "c_big", "d", "e_mixlds", "e_hmm", "e_dhmm"))):
+        for leg in legs:
+            name, how = MESH_LEGS[leg]
+            res = ranks[0][leg]
+            for r in ranks:
+                for k, n in r[leg]["launches"].items():
+                    total[k] += n
+                if r[leg]["elbo"] != res["elbo"]:
+                    fail(f"phase 39 ({leg}): the ranks' ELBOs differ")
+            sweeps = res["sweeps"]
+            secs = max(r[leg]["seconds"] for r in ranks)
+            label = f"({leg[0]}) {name} {how} on {len(ranks)} rank{'s' * (len(ranks) > 1)}"
+            print(f"  {label}: {sweeps / secs:.3f} sweeps/s ({secs:.3f} s); collective "
+                  f"bytes a sweep (rank 0) {a_sweep(res['nbytes'], sweeps)}, elements "
+                  f"{a_sweep(res['elements'], sweeps)}; card {card}")
+            if leg == "c_big":
+                continue
+            ref = refs[name]
+            dev = float(np.max(np.abs(np.asarray(res["elbo"]) - ref) / np.abs(ref)))
+            tol = WORLD1_TOL if leg.startswith("a") else REL_TOL
+            print(f"    ELBO {res['elbo']}; single process {ref.tolist()}; max rel dev "
+                  f"{dev:.3e} (want <= {tol:g})")
+            if not dev <= tol:
+                fail(f"phase 39 ({leg}): {name} differs from the single process by {dev:.3e}")
+            want = {"dmbd": SCAN_PAIR_WANT, "mixlds": LANE_WANT, "hmm": ROLE_SCAN_WANT,
+                    "dhmm": ROLE_SCAN_WANT}[name]
+            want = per_sweep(want, sweeps)
+            print(f"    kernel launches on each rank {res['launches']} (want {want})")
+            for i, r in enumerate(ranks):
+                if r[leg]["launches"] != want or any(r[leg]["plain"].values()):
+                    fail(f"phase 39 ({leg}) rank {i}: launches {r[leg]['launches']}, plain "
+                         f"versions {r[leg]['plain']}, want {want} and none")
+    c, big = four[0]["c"], four[0]["c_big"]
+    small_reduce = c["elements"]["reduce"] // c["sweeps"]
+    print(f"  (c) reduce elements a sweep: batch {CFG['batch']} {small_reduce}, batch "
+          f"{MESH_BIG_BATCH} {big['elements']['reduce']}; gather {c['elements']['gather']}")
+    if small_reduce != big["elements"]["reduce"] or not small_reduce > 0:
+        fail("phase 39 (c): the reductions grow with the batch")
+    if c["elements"]["gather"] or big["elements"]["gather"]:
+        fail("phase 39 (c): a data-parallel sweep gathered")
+    return total
+
+
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):
     bound = r["bound"]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3342,6 +3590,7 @@ def main():
     run("36", phase_bayesnet, card, data)
     run("37", phase_checkpoint, card)
     launches_examples = run("38", phase_examples, card)
+    launches_mesh = run("39", phase_mesh, card)
     if args.trace:
         run("trace", phase_trace, card)
     if base is not None:
@@ -3356,7 +3605,7 @@ def main():
             + launches_hmm[s.name] + launches_cradle[s.name] + launches_flame[s.name]
             + launches_nlds[s.name] + launches_dhmm[s.name] + launches_arhmm[s.name]
             + launches_life[s.name] + launches_alife[s.name] + launches_unique[s.name]
-            + launches_lds_obs[s.name]
+            + launches_lds_obs[s.name] + launches_mesh[s.name]
             + sum(launches[s.name] for launches in launches_examples.values()),
             max(record[s.name]["abs"], one_pass[s.name]), record[s.name]))
     for s in scan.FOLDED_SCANS:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.torchutils import Node, as_tensor, node, replace, uniform
+from ..utils.torchutils import Node, as_tensor, batch_sum, node, replace, uniform
 
 
 @node
@@ -85,6 +85,7 @@ class Gamma(Node):
             pv = p.reshape(p.shape + (1,) * self.event_dim)
             SEx = (X * pv).sum(sdims)
             N = pv.sum(sdims).expand(shape)
+        SEx, N = batch_sum(SEx, N)
         return self.ss_update(SEx, N, lr=lr, beta=beta)
 
     def Elog_like(self, X):

@@ -14,7 +14,7 @@ import torch
 
 from .dirichlet import Dirichlet
 from ..utils import math as um
-from ..utils.torchutils import sum_leading
+from ..utils.torchutils import batch_sum, sum_leading
 
 
 class Mixture:
@@ -134,7 +134,8 @@ def _assignments(event_dim, batch_dim, pi, dist, Xv):
     log_p = dist.Elog_like(Xv) + pi.loggeomean()
     logZ = um.stable_logsumexp(log_p, tuple(range(-event_dim, 0)))
     p = torch.exp(log_p - logZ.reshape(logZ.shape + (1,) * event_dim))
-    return p, sum_leading(p, batch_dim + event_dim), sum_leading(logZ, batch_dim)
+    NA, logZ = batch_sum(sum_leading(p, batch_dim + event_dim), sum_leading(logZ, batch_dim))
+    return p, NA, logZ
 
 
 def _mixture_step(event_dim, batch_dim, pi, dist, Xv, lr):

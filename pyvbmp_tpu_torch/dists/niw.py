@@ -7,7 +7,7 @@ import torch
 from .wishart import Wishart
 from ..utils import math as um
 from ..utils.torchutils import (
-    Node, as_tensor, bquad, centered_scatter, node, normal, replace,
+    Node, as_tensor, batch_sum, bquad, centered_scatter, node, normal, replace,
 )
 
 
@@ -124,6 +124,9 @@ class NormalInverseWishart(Node):
             SExx, SEx, _ = centered_scatter(X, pv, sdims)
             N = p.sum(sdims)
             N = N.reshape(N.shape + (1,) * (self.event_dim - 1))
+        # centered_scatter returns the raw moment sum p (x-c)(x-c)' + N cc',
+        # so parts of the batch centred each on its own mean add up exactly
+        SExx, SEx, N = batch_sum(SExx, SEx, N)
         return self.ss_update(SExx, SEx, N, lr, beta)
 
     def Elog_like(self, X):

@@ -7,7 +7,7 @@ import torch
 
 from .gamma import Gamma
 from ..utils import math as um
-from ..utils.torchutils import Node, as_tensor, node, normal, replace, uniform
+from ..utils.torchutils import Node, as_tensor, batch_sum, node, normal, replace, uniform
 
 
 @node
@@ -122,6 +122,7 @@ class NormalGamma(Node):
             SEx = (X * pv).sum(sdims)
             SExx = (X ** 2 * pv).sum(sdims)
             N = N.reshape(N.shape + (1,) * (self.event_dim - 1)).expand(shape)
+        SExx, SEx, N = batch_sum(SExx, SEx, N)
         return self.ss_update(SExx, SEx, N, lr, beta)
 
     def Elog_like(self, X):

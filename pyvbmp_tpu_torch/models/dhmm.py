@@ -6,7 +6,9 @@ Its smoother is the input-driven forward-backward, with per-time transition
 logits and per-time pairwise statistics: the sequential
 ``driven_forward_backward`` below (two Python loops over T, no kernel), or
 with ``parallel_scan=True`` ``ops.parallel_hmm.driven_forward_backward_parallel``
-(the logsemiring scan pair, the CUDA kernel for tensors on the card).
+(the logsemiring scan pair, the CUDA kernel for tensors on the card), or
+with a ``time_mesh`` (a ``parallel.Mesh``) that smoother with its time axis
+cut across the mesh's ranks.
 """
 from __future__ import annotations
 
@@ -73,9 +75,11 @@ class dHMM:
         """The JAX package's signature (``transition_mask`` is accepted and
         unused, as there); ``generator``, ``dtype`` and ``device`` are
         keyword-only.  The model goes to ``device``, the card unless the
-        caller asks for another."""
-        if time_mesh is not None:
-            raise NotImplementedError("time_mesh (the time-sharded smoother) is not ported")
+        caller asks for another.  ``time_mesh`` is None or a
+        ``parallel.Mesh`` (anything else raises ``TypeError``)."""
+        from ..parallel.api import as_time_mesh
+
+        self.time_mesh = as_time_mesh(time_mesh)
         obs_dist = obs_dist.to(default_device(device), dtype)
         like = obs_dist.mu
         self.obs_dist = obs_dist
@@ -88,7 +92,6 @@ class dHMM:
         self.transition_mask = transition_mask
         self.ptemp = ptemp
         self.parallel_scan = parallel_scan
-        self.time_mesh = None
         self.transition = MultiNomialLogisticRegression(
             n, p, batch_shape=self.batch_shape + (n,), pad_X=True, generator=generator,
             dtype=like.dtype, device=like.device,

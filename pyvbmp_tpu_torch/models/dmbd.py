@@ -19,10 +19,13 @@ from fresh role and latent E-steps; ``plot_observation`` and
 ``plot_transition`` draw the labelled emission and transition heatmaps
 (matplotlib is imported only inside them).
 
-``time_mesh`` (the time-sharded smoothers) and a non-empty ``batch_shape``
-raise ``NotImplementedError``; the JAX package's own update fails on a
-non-empty ``batch_shape`` (a broadcasting error in its role E-step), so
-there is nothing to port against.
+A ``time_mesh`` (a ``parallel.Mesh`` with a "seq" axis) cuts the time axis
+of both smoothers, the role chain's and the latent chain's, across the
+mesh's ranks (``parallel/seq_parallel.py``), with the corrected
+cross-covariances, as in the JAX package.  A non-empty ``batch_shape``
+raises ``NotImplementedError``; the JAX package's own update fails on it (a
+broadcasting error in its role E-step), so there is nothing to port
+against.
 """
 from __future__ import annotations
 
@@ -34,7 +37,13 @@ from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..transforms import MatrixNormalGamma
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv_and_logdet
-from ..utils.torchutils import brole_avg, default_device, replace, sum_leading
+from ..utils.torchutils import (
+    batch_sum,
+    brole_avg,
+    default_device,
+    replace,
+    sum_leading,
+)
 from .arhmm import ARHMM_prXRY
 from .hmm import smoother_dispatch
 from .lds import LinearDynamicalSystems
@@ -211,8 +220,9 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
                 "broadcasting: shapes=[(15, 2, 2, 4, 1, 2, 2), (2, 3, 2, 2)]'), so "
                 "there is no reference to hold the port to"
             )
-        if time_mesh is not None:
-            raise NotImplementedError("time_mesh (the time-sharded smoothers) is not ported")
+        from ..parallel.api import as_time_mesh
+
+        self.time_mesh = as_time_mesh(time_mesh)
         device = default_device(device)
         dtype = dtype or torch.get_default_dtype()
         control_dim = control_dim + 1
@@ -254,8 +264,7 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         # smoothers compute the corrected cross-covariances, the sequential
         # ones reproduce the reference's
         self.parallel_scan = parallel_scan
-        self.time_mesh = None
-        self.cross_cov_compat = not parallel_scan
+        self.cross_cov_compat = not (parallel_scan or time_mesh is not None)
         self.expand_to_batch = False
         self.ELBO_save = []
         self.ELBO_last = -float("inf")
@@ -401,8 +410,10 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         for _ in range(latent_iters - 1):
             p, _, _ = self._role_estep(transition, initial, B, self._init_px(r), y, r)
             px, _ = self._latents_given_p(x0, A, B, p, y, u, r)
-        # role E-step
+        # role E-step; its sums over the batch are read by the role M-step
+        # and by the ELBO
         p, SEzz, SEz0 = self._role_estep(transition, initial, B, px, y, r)
+        SEzz, SEz0 = batch_sum(SEzz, SEz0)
         # role M-step
         transition = transition.ss_update(SEzz, lr=lr)
         initial = initial.ss_update(SEz0, lr=lr)
@@ -429,10 +440,10 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         ).sum()
         contrib = contrib + (initial.loggeomean() * SEz0).sum()
         safe_p = torch.where(p > 1e-8, p, torch.ones_like(p))
-        contrib = contrib - torch.where(
-            p > 1e-8, p * torch.log(safe_p), torch.zeros_like(p)
-        ).sum()
-        ELBO = sum_leading(logZ, self.batch_dim).sum() - KL.sum() + contrib
+        ent = torch.where(p > 1e-8, p * torch.log(safe_p), torch.zeros_like(p)).sum()
+        data, ent = batch_sum(sum_leading(logZ, self.batch_dim).sum(), ent)
+        contrib = contrib - ent
+        ELBO = data - KL.sum() + contrib
         # latent M-step
         x0, A, _ = self._ss_update(x0, A, ss, lr=lr)
         return x0, A, transition, initial, B, px, p, logZ, ELBO
@@ -443,6 +454,12 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         after ``latent_iters - 1`` warm-up passes of the role and latent
         E-steps (the JAX package's signature)."""
         y, u, r = self.reshape_inputs(y, u, r)
+        self._update_reshaped(y, u, r, iters=iters, latent_iters=latent_iters, lr=lr,
+                              verbose=verbose)
+
+    def _update_reshaped(self, y, u, r, iters=1, latent_iters=1, lr=1.0, verbose=False):
+        """VB sweeps on already-reshaped inputs: the step dispatcher that
+        ``update`` and ``parallel.data_parallel_update`` share."""
         om = self.obs_model
         px = self._init_px(r) if self.px is None else self.px
         x0, A = self.x0, self.A

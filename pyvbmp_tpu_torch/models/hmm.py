@@ -13,8 +13,9 @@ Two smoothers, picked by ``smoother_dispatch`` from the model's
 
 With ``driven=True`` the dispatch gives the input-driven forms of the two
 (``models/dhmm.py:driven_forward_backward`` and
-``ops.parallel_hmm.driven_forward_backward_parallel``).  ``time_mesh`` (the
-JAX package's time-sharded smoother) is not ported and raises.
+``ops.parallel_hmm.driven_forward_backward_parallel``).  A ``time_mesh`` (a
+``parallel.Mesh`` with a "seq" axis) comes first: the scan smoother with
+its time axis cut across the mesh's ranks (``parallel/seq_parallel.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from ..dists import Dirichlet
 from ..utils import math as um
-from ..utils.torchutils import default_device, sum_leading
+from ..utils.torchutils import batch_sum, default_device, sum_leading
 
 
 def forward_backward(trans_logits, init_logits, obs_logits, ptemp=1.0):
@@ -75,14 +76,26 @@ def forward_backward(trans_logits, init_logits, obs_logits, ptemp=1.0):
 
 
 def smoother_dispatch(model, driven=False):
-    """The forward-backward that ``model`` asks for: the scan-based smoother
-    when ``model.parallel_scan`` is set, the sequential one otherwise; with
-    ``driven`` their input-driven forms (per-time transition logits, per-time
-    SEzz).  Returns ``fb(trans_logits, init_logits, obs_logits, ptemp)``.
-    The JAX package's time-sharded tier (``model.time_mesh``) is not ported
-    and raises."""
-    if getattr(model, "time_mesh", None) is not None:
-        raise NotImplementedError("time_mesh (the time-sharded smoother) is not ported")
+    """The forward-backward that ``model`` asks for, in the JAX package's
+    order: time-sharded over ``model.time_mesh`` when it is set, else the
+    scan-based smoother when ``model.parallel_scan`` is set, else the
+    sequential one; with ``driven`` their input-driven forms (per-time
+    transition logits, per-time SEzz).  Returns ``fb(trans_logits,
+    init_logits, obs_logits, ptemp)``."""
+    mesh = getattr(model, "time_mesh", None)
+    if mesh is not None:
+        from ..parallel.seq_parallel import (
+            time_sharded_driven_forward_backward,
+            time_sharded_forward_backward,
+        )
+
+        sharded = (time_sharded_driven_forward_backward if driven
+                   else time_sharded_forward_backward)
+
+        def fb(trans, init, obs, ptemp):
+            return sharded(trans, init, obs, mesh, ptemp=ptemp)
+
+        return fb
     if getattr(model, "parallel_scan", False):
         from ..ops.parallel_hmm import (
             driven_forward_backward_parallel,
@@ -105,9 +118,11 @@ class HMM:
         """The JAX package's signature; ``generator`` (for the Dirichlets'
         initial draws), ``dtype`` and ``device`` are keyword-only.  The
         model (``obs_dist`` with it) goes to ``device``, the card unless the
-        caller asks for another."""
-        if time_mesh is not None:
-            raise NotImplementedError("time_mesh (the time-sharded smoother) is not ported")
+        caller asks for another.  ``time_mesh`` is None or a
+        ``parallel.Mesh`` (anything else raises ``TypeError``)."""
+        from ..parallel.api import as_time_mesh
+
+        self.time_mesh = as_time_mesh(time_mesh)
         obs_dist = obs_dist.to(default_device(device), dtype)
         like = obs_dist.mu
         self.obs_dist = obs_dist
@@ -136,7 +151,6 @@ class HMM:
         self.p = None
         self.ptemp = ptemp
         self.parallel_scan = parallel_scan
-        self.time_mesh = None
         self.logZ = torch.full((), -float("inf"), dtype=like.dtype, device=like.device)
         self.ELBO_last = -float("inf")
         self.ELBO_save = []
@@ -176,6 +190,8 @@ class HMM:
         SEzz = sum_leading(SEzz, keep + 1)
         SEz0 = sum_leading(SEz0, keep)
         logZ = sum_leading(logZ, self.batch_dim)
+        # the E-step's sums over the batch, for the M-steps and the ELBO
+        NA, SEzz, SEz0, logZ = batch_sum(NA, SEzz, SEz0, logZ)
         return p, SEzz, SEz0, NA, logZ
 
     def _vb_step(self, transition, initial, obs_dist, X, lr, beta):

@@ -17,8 +17,11 @@ Two smoothers, picked by ``parallel_scan``:
   (the lane-form CUDA kernel at h <= 3, the plane form above); it computes
   the corrected cross-covariances.
 
-``time_mesh`` (the JAX package's time-sharded smoother) is not ported and
-raises.  DMBD subclasses this class for the latent-chain machinery.
+A ``time_mesh`` (a ``parallel.Mesh`` with a "seq" axis) comes before both:
+the scan-based smoother with its time axis cut across the mesh's ranks
+(``parallel/seq_parallel.py``), whatever ``cross_cov_compat`` says, as in
+the JAX package.  DMBD subclasses this class for the latent-chain
+machinery.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..transforms import MatrixNormalGamma, MatrixNormalWishart
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv, psd_inv_and_logdet
-from ..utils.torchutils import default_device, sum_leading
+from ..utils.torchutils import batch_sum, default_device, sum_leading
 
 
 class LinearDynamicalSystems:
@@ -52,8 +55,9 @@ class LinearDynamicalSystems:
         dtype=None,
         device=None,
     ):
-        if time_mesh is not None:
-            raise NotImplementedError("time_mesh (the time-sharded smoother) is not ported")
+        from ..parallel.api import as_time_mesh
+
+        self.time_mesh = as_time_mesh(time_mesh)
         device = default_device(device)
         dtype = dtype or torch.get_default_dtype()
         control_dim = control_dim + 1
@@ -323,15 +327,21 @@ class LinearDynamicalSystems:
 
     # ----------------------------------------------------------- smoother
     def _smoother(self, parms, x0, like, u):
-        """Dispatch: the scan-based smoother when ``parallel_scan`` is set
-        (corrected cross-covariances), the sequential loops otherwise."""
-        if not self.parallel_scan:
-            return self.forward_backward_loop(parms, x0, like, u)
-        from ..ops.parallel_kalman import parallel_kalman_smoother
+        """Dispatch, in the JAX package's order: the time-sharded smoother
+        over ``time_mesh`` when it is set, else the scan-based smoother when
+        ``parallel_scan`` is set (both with the corrected
+        cross-covariances), else the sequential loops."""
+        if self.time_mesh is not None:
+            from ..parallel.seq_parallel import time_sharded_kalman_smoother
 
-        (Sigma, mu, Js, hs), Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, logZ_total = (
-            parallel_kalman_smoother(parms, x0, like, u)
-        )
+            out = time_sharded_kalman_smoother(parms, x0, like, u, self.time_mesh)
+        elif self.parallel_scan:
+            from ..ops.parallel_kalman import parallel_kalman_smoother
+
+            out = parallel_kalman_smoother(parms, x0, like, u)
+        else:
+            return self.forward_backward_loop(parms, x0, like, u)
+        (Sigma, mu, Js, hs), Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, logZ_total = out
         px = MVN_vf(mu=mu, Sigma=Sigma, invSigmamu=hs, invSigma=Js)
         return px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, logZ_total[None]
 
@@ -429,7 +439,8 @@ class LinearDynamicalSystems:
     # -------------------------------------------------------------------- M-step
     def _ss_update(self, x0, A, ss, p=None, lr=1.0):
         """Sum sufficient statistics over samples (p-weighted for mixtures)
-        and push to x0 / A."""
+        and push to x0 / A.  The sums over the batch are completed in one
+        ``batch_sum`` (data-parallel sweeps)."""
         keys = ("SE_x0_x0", "SE_x0", "SE_xpu_xpu", "SE_x_xpu", "SE_x_x",
                 "SE_xr_xr", "SE_y_xr", "SE_y_y")
         stats = {k: ss[k] for k in ss if k != "logZ"}
@@ -447,6 +458,8 @@ class LinearDynamicalSystems:
             stats[k] = sum_leading(stats[k], keep)
         for k in keys:
             stats[k] = sum_leading(stats[k], keep + 2)
+        names = ("T", "N") + keys
+        stats.update(zip(names, batch_sum(*(stats[k] for k in names))))
         for k in ("SE_x0_x0", "SE_xpu_xpu", "SE_x_x", "SE_xr_xr"):
             stats[k] = 0.5 * (stats[k] + mT(stats[k]))
         x0 = x0.ss_update(stats["SE_x0_x0"], stats["SE_x0"][..., 0], stats["N"], lr)
@@ -459,7 +472,8 @@ class LinearDynamicalSystems:
         px, ss = self._update_latents(x0, A, obs_model, y, u, r)
         logZ = ss["logZ"]
         KL = self._KL(x0, A, obs_model)
-        ELBO = sum_leading(logZ, self.batch_dim).sum() - KL.sum()
+        data, = batch_sum(sum_leading(logZ, self.batch_dim).sum())
+        ELBO = data - KL.sum()
         x0, A, stats = self._ss_update(x0, A, ss, p=p, lr=lr)
         obs_model = obs_model.ss_update(
             stats["SE_xr_xr"], stats["SE_y_xr"], stats["SE_y_y"], stats["T"], lr

@@ -5,14 +5,16 @@ Dirichlet responsibilities from each system's logZ.
 ``parallel_scan=True`` runs the scan-based smoother (at h <= 3 the lane-form
 CUDA kernel, two launches per sweep) with the corrected cross-covariances;
 the default is the sequential smoother with the reference's
-cross-covariance quirk.  ``time_mesh`` is not ported and raises.
+cross-covariance quirk.  A ``time_mesh`` (a ``parallel.Mesh``) cuts the
+smoother's time axis across the mesh's ranks, also with the corrected
+cross-covariances.
 """
 from __future__ import annotations
 
 import torch
 
 from ..dists import Dirichlet
-from ..utils.torchutils import sum_leading
+from ..utils.torchutils import batch_sum, sum_leading
 from .lds import LinearDynamicalSystems
 
 
@@ -28,7 +30,7 @@ class MixtureofLinearDynamicalSystems:
             regression_dim,
             latent_noise="independent",
             batch_shape=(num_systems,),
-            cross_cov_compat=not parallel_scan,
+            cross_cov_compat=not (parallel_scan or time_mesh is not None),
             parallel_scan=parallel_scan,
             time_mesh=time_mesh,
             generator=generator,
@@ -63,15 +65,15 @@ class MixtureofLinearDynamicalSystems:
         logZ = (torch.logsumexp(log_p, -1, keepdim=True) + shift)[..., 0]
         p = torch.exp(log_p)
         p = p / p.sum(-1, keepdim=True)
-        NA = sum_leading(p, 1)
+        NA, data = batch_sum(sum_leading(p, 1), logZ.sum())
         KL = pi.KLqprior() + lds._KL(x0, A, obs_model).sum(-1)
-        ELBO = logZ.sum() - KL
+        ELBO = data - KL
         pi = pi.ss_update(NA, lr=lr)
         x0, A, stats = lds._ss_update(x0, A, ss, p=p, lr=lr)
         obs_model = obs_model.ss_update(
             stats["SE_xr_xr"], stats["SE_y_xr"], stats["SE_y_y"], stats["T"], lr
         )
-        return x0, A, obs_model, pi, p, logZ, ELBO
+        return x0, A, obs_model, pi, p, NA, logZ, ELBO
 
     def update(self, y, u=None, r=None, iters=1, lr=1.0, verbose=False):
         """``iters`` VB-EM sweeps (one smoother pass each) on data y:
@@ -83,7 +85,7 @@ class MixtureofLinearDynamicalSystems:
         x0, A, obs_model, pi = lds.x0, lds.A, lds.obs_model, self.pi
         ELBOs = []
         for _ in range(iters):
-            x0, A, obs_model, pi, p, logZ, ELBO = self._vb_step(
+            x0, A, obs_model, pi, p, NA, logZ, ELBO = self._vb_step(
                 x0, A, obs_model, pi, y, u, r, lr
             )
             ELBOs.append(ELBO)
@@ -97,7 +99,7 @@ class MixtureofLinearDynamicalSystems:
                       % ((ELBO - ELBO_last) / abs(ELBO_last) * 100))
             ELBO_last = ELBO
             self.ELBO_save.append(float(ELBO))
-        self.NA = sum_leading(self.p, 1)
+        self.NA = NA
 
     def KLqprior(self):
         return self.pi.KLqprior() + self.lds.KLqprior().sum(-1)

@@ -7,9 +7,14 @@ out as (T, K, K, N) with the flattened batch N minor.  The scans go through
 ``ops.scan.logsemiring_scan``: the CUDA kernel for tensors on the card, the
 plain fold of ``_logmatmul_plane`` on the CPU.  The input-driven smoother
 (``driven_forward_backward_parallel``) runs the same core on per-time
-transition logits, M_t[i, j] = trans_t[i, j] + obs_t[j].
+transition logits, M_t[i, j] = trans_t[i, j] + obs_t[j].  Both take the
+steps across time from a ``chain`` (``ops.scan.Chain``): the whole time axis
+by default, a time axis cut across processes from
+``parallel/seq_parallel.py``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -44,14 +49,17 @@ def _shift_obs(obs_logits):
     return obs_logits - c, c[..., 0].sum(0, dtype=torch.float64)
 
 
-def _hmm_plane_core(M, init_logits, ptemp, offset):
+def _hmm_plane_core(M, init_logits, ptemp, offset, chain=scan.CHAIN):
     """Returns (p, xi (T,)+b+(K,K), SEz0, logZ) given the semiring elements
-    M (T,)+bshape+(K,K); ``offset`` (bshape, float64) is added to logZ."""
+    M (T,)+bshape+(K,K); ``offset`` (bshape, float64) is added to logZ.
+    ``chain`` holds the steps across time (``scan.Chain``); on a time axis
+    cut across processes M holds this process's rows and ``offset`` their
+    part of the time sum."""
     T, K = M.shape[0], M.shape[-1]
     bshape = M.shape[1:-2]
+    N = math.prod(bshape)
 
-    Mp = M.reshape(T, -1, K, K).permute(0, 2, 3, 1)  # (T, K, K, N)
-    N = Mp.shape[-1]
+    Mp = M.reshape(T, N, K, K).permute(0, 2, 3, 1)  # (T, K, K, N)
     ivec = init_logits.expand(bshape + (K,)).reshape(N, K).T  # (K, N)
     # each step's element shifted by its largest entry c_t (per lane): the
     # scanned products then grow like log K a step, not like the
@@ -59,16 +67,16 @@ def _hmm_plane_core(M, init_logits, ptemp, offset):
     c = _finite_max(Mp.reshape(T, K * K, N), -2)  # (T, 1, N)
     Mp = (Mp - c[:, None]).contiguous()
 
-    prefix = scan.logsemiring_scan(Mp)
-    suffix = scan.logsemiring_scan(Mp, reverse=True)
+    prefix, = chain.scan(scan.LOGSEMIRING, (Mp,))
+    suffix, = chain.scan(scan.LOGSEMIRING, (Mp,), reverse=True)
 
     alpha = um.stable_logsumexp(ivec[None, :, None, :] + prefix, -3)  # (T, K, N)
-    logZ = um.stable_logsumexp(alpha[-1], 0)  # (N,)
-    offset = c[:, 0].sum(0, dtype=torch.float64) + offset.reshape(-1)
+    logZ = um.stable_logsumexp(chain.last(alpha)[0], 0)  # (N,)
+    offset, = chain.reduce(c[:, 0].sum(0, dtype=torch.float64) + offset.reshape(-1))
     logZ = (logZ.double() + offset).to(logZ.dtype)
 
     beta = um.stable_logsumexp(suffix, -2)  # (T, K, N)
-    beta_t = torch.cat([beta[1:], torch.zeros_like(beta[:1])], 0)
+    beta_t, = chain.shift((beta,), up=True)
 
     # The messages grow like the log-likelihood of the steps behind or
     # ahead; each step's is shifted to a maximum of 0 over the states (the
@@ -80,7 +88,7 @@ def _hmm_plane_core(M, init_logits, ptemp, offset):
     smoothed = alpha + beta_t
     smoothed = smoothed - um.stable_logsumexp(smoothed, -2, keepdim=True)
 
-    alpha_prev = torch.cat([ivec[None], alpha[:-1]], 0)
+    alpha_prev, = chain.shift((alpha,), up=False, edge=(ivec,))
     xi = alpha_prev[..., :, None, :] + Mp + beta_t[..., None, :, :]
     xi = torch.exp(xi - _finite_max(xi.reshape(T, K * K, N), -2)[:, None])
     xi = xi / xi.sum((-3, -2), keepdim=True)
@@ -91,12 +99,32 @@ def _hmm_plane_core(M, init_logits, ptemp, offset):
 
     p_d = p.permute(0, 2, 1).reshape((T,) + bshape + (K,))
     xi_d = xi.permute(0, 3, 1, 2).reshape((T,) + bshape + (K, K))
-    SEz0 = xi_d[0].sum(-1)
+    SEz0 = chain.first(xi_d)[0].sum(-1)
     logZ_d = logZ.reshape(bshape)
     return p_d, xi_d, SEz0, logZ_d
 
 
-def forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0):
+def _forward_backward(trans_logits, init_logits, obs_logits, ptemp, driven, chain):
+    """The two smoothers below on ``chain``: this process's rows of the
+    inputs, the whole outputs."""
+    obs_logits = chain.local(obs_logits)
+    if driven:
+        trans_logits = chain.local(trans_logits)
+    obs_logits, offset = _shift_obs(obs_logits)
+    M = trans_logits + obs_logits[..., None, :]
+    p, xi, SEz0, logZ = _hmm_plane_core(M, init_logits, ptemp,
+                                        offset.expand(M.shape[1:-2]), chain)
+    if driven:
+        p, xi = chain.gather(p, xi)
+    else:
+        p, = chain.gather(p)
+        xi, = chain.gather(*chain.reduce(xi.sum(0)), time=False)
+    SEz0, logZ = chain.gather(SEz0, logZ, time=False)
+    return p, xi, SEz0, logZ
+
+
+def forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0,
+                              chain=scan.CHAIN):
     """Same contract as pyvbmp_tpu.ops.parallel_hmm.forward_backward_parallel.
 
     trans_logits: batch + (K, K)
@@ -105,13 +133,11 @@ def forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0):
     Returns (p (T,)+sample+batch+(K,), SEzz sample+batch+(K,K),
     SEz0 sample+batch+(K,), logZ sample+batch).
     """
-    obs_logits, offset = _shift_obs(obs_logits)
-    M = trans_logits + obs_logits[..., None, :]
-    p, xi, SEz0, logZ = _hmm_plane_core(M, init_logits, ptemp, offset.expand(M.shape[1:-2]))
-    return p, xi.sum(0), SEz0, logZ
+    return _forward_backward(trans_logits, init_logits, obs_logits, ptemp, False, chain)
 
 
-def driven_forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0):
+def driven_forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0,
+                                     chain=scan.CHAIN):
     """Same contract as
     pyvbmp_tpu.ops.parallel_hmm.driven_forward_backward_parallel (plane form):
     the input-driven smoother, with per-time transition logits.
@@ -123,6 +149,4 @@ def driven_forward_backward_parallel(trans_logits, init_logits, obs_logits, ptem
     SEz0 sample+batch+(K,), logZ sample+batch).  The pairwise statistics
     stay per time step: the MNLR transition's M-step needs SEzz[t].
     """
-    obs_logits, offset = _shift_obs(obs_logits)
-    M = trans_logits + obs_logits[..., None, :]
-    return _hmm_plane_core(M, init_logits, ptemp, offset.expand(M.shape[1:-2]))
+    return _forward_backward(trans_logits, init_logits, obs_logits, ptemp, True, chain)

@@ -31,6 +31,8 @@ in the JAX package either (its Pallas scan refuses (..., h, h) leaves).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..utils import math as um
@@ -148,14 +150,6 @@ def _marginalize_right_plane(e):
     return J, hv, logc
 
 
-def _shift(a, up):
-    """Shift the time axis: up=True gives a_t <- a_{t+1} with a zero tail
-    (the JAX package's ``_shift_up``), up=False gives a_t <- a_{t-1} with a
-    zero head."""
-    z = torch.zeros_like(a[:1])
-    return torch.cat([a[1:], z], 0) if up else torch.cat([z, a[:-1]], 0)
-
-
 # =========================================================== dense layout path
 def associative_scan(combine, elems, reverse=False):
     """Inclusive scan of the tuple of tensors ``elems`` over axis 0 in chain
@@ -237,16 +231,27 @@ def _marginalize_right(Jaa, Jab, Jbb, ha, hb, w):
     return J, hv, logc
 
 
-def _dense_smoother(elems, bshape, T, hdim):
+class _DenseScan:
+    """``associative_scan`` of the dense combine, as a scan for a chain."""
+
+    combine = staticmethod(_combine)
+
+    def __call__(self, leaves, reverse=False):
+        return associative_scan(_combine, tuple(leaves), reverse)
+
+
+DENSE_SCAN = _DenseScan()
+
+
+def _dense_smoother(elems, bshape, T, hdim, chain=scan.CHAIN):
     Jaa, Jab, Jbb, ha, hb, logw = elems
-    prefix = associative_scan(_combine, elems)
-    suffix = associative_scan(_combine, elems, reverse=True)
+    prefix = chain.scan(DENSE_SCAN, elems)
+    suffix = chain.scan(DENSE_SCAN, elems, reverse=True)
 
     # filtered potentials over x_t; backward messages on x_{t-1} from S_t
     Ja, hva, logca = _marginalize_left(*prefix)
     Jb_all, hvb_all, _ = _marginalize_right(*suffix)
-    Jbeta = _shift(Jb_all, up=True)
-    hbeta = _shift(hvb_all, up=True)
+    Jbeta, hbeta = chain.shift((Jb_all, hvb_all), up=True)
 
     # smoothed marginals
     Js = Ja + Jbeta
@@ -255,32 +260,27 @@ def _dense_smoother(elems, bshape, T, hdim):
     mu = Sigma @ hs
 
     # prior-side marginal q(x_{-1})
-    Sigma_x0_x0 = psd_inv(Jb_all[0])
-    mu_x0 = Sigma_x0_x0 @ hvb_all[0]
+    Jb0, hvb0 = chain.first(Jb_all, hvb_all)
+    Sigma_x0_x0 = psd_inv(Jb0)
+    mu_x0 = Sigma_x0_x0 @ hvb0
 
     # pairwise cross-covariances Sigma_{t-1,t}
-    A = _shift(Ja, up=False) + Jaa
+    A = chain.shift((Ja,), up=False)[0] + Jaa
     D = Jbb + Jbeta
     Ainv_B = psd_inv(A) @ Jab
     Sbb = psd_inv(D - mT(Jab) @ Ainv_B)
     Sigma_cross_all = -Ainv_B @ Sbb
 
     # total logZ from the last filtered potential
-    sol, logdetJ = psd_solve_and_logdet(Ja[-1], hva[-1])
+    Ja_T, hva_T, logca_T = chain.last(Ja, hva, logca)
+    sol, logdetJ = psd_solve_and_logdet(Ja_T, hva_T)
     logZ_total = (
-        logca[-1]
-        + 0.5 * (hva[-1] * sol).sum((-1, -2))
+        logca_T
+        + 0.5 * (hva_T * sol).sum((-1, -2))
         - 0.5 * logdetJ
         + 0.5 * hdim * um.LOG2PI
     )
-    return (
-        (Sigma, mu, Js, hs),
-        Sigma_cross_all[1:],
-        Sigma_cross_all[0],
-        Sigma_x0_x0,
-        mu_x0,
-        logZ_total,
-    )
+    return Sigma, mu, Js, hs, Sigma_cross_all, Sigma_x0_x0, mu_x0, logZ_total
 
 
 # ============================================================ lane layout path
@@ -332,23 +332,22 @@ def _marginalize_right_lane(h, e):
     return J, hv, logc
 
 
-def _lane_smoother(elems, bshape, T, h):
+def _lane_smoother(elems, bshape, T, h, chain=scan.CHAIN):
     (Jaa_d, Jab_d, Jbb_d, ha_d, hb_d, logw_d) = elems
     Jaa = sm.sym_pack(Jaa_d)
     Jab = sm.gen_pack(Jab_d)
     Jbb = sm.sym_pack(Jbb_d)
     ha = sm.vec_pack(ha_d)
     hb = sm.vec_pack(hb_d)
-    logw = logw_d.reshape(T, -1).contiguous()
+    logw = logw_d.reshape(T, math.prod(bshape[:-2])).contiguous()
     elems_l = (Jaa, Jab, Jbb, ha, hb, logw)
 
-    prefix = scan.kalman_lane_scan(elems_l)
-    suffix = scan.kalman_lane_scan(elems_l, reverse=True)
+    prefix = chain.scan(scan.KALMAN_LANE, elems_l)
+    suffix = chain.scan(scan.KALMAN_LANE, elems_l, reverse=True)
 
     Ja, hva, logca = _marginalize_left_lane(h, prefix)
     Jb_all, hvb_all, _ = _marginalize_right_lane(h, suffix)
-    Jbeta = _shift(Jb_all, up=True)
-    hbeta = _shift(hvb_all, up=True)
+    Jbeta, hbeta = chain.shift((Jb_all, hvb_all), up=True)
 
     # smoothed marginals
     Js = sm.sym_add(Ja, Jbeta)
@@ -357,11 +356,12 @@ def _lane_smoother(elems, bshape, T, h):
     mu = sm.mv(h, Sigma, hs, sym_a=True)
 
     # prior-side marginal q(x_{-1})
-    Sigma_x0_x0, _ = sm.sym_inv_and_logdet(h, Jb_all[0])
-    mu_x0 = sm.mv(h, Sigma_x0_x0, hvb_all[0], sym_a=True)
+    Jb0, hvb0 = chain.first(Jb_all, hvb_all)
+    Sigma_x0_x0, _ = sm.sym_inv_and_logdet(h, Jb0)
+    mu_x0 = sm.mv(h, Sigma_x0_x0, hvb0, sym_a=True)
 
     # pairwise cross-covariances Sigma_{t-1,t}
-    A = sm.sym_add(_shift(Ja, up=False), Jaa)
+    A = sm.sym_add(chain.shift((Ja,), up=False)[0], Jaa)
     D = sm.sym_add(Jbb, Jbeta)
     Ainv, _ = sm.sym_inv_and_logdet(h, A)
     Ainv_B = sm.mm(h, Ainv, Jab, sym_a=True)
@@ -370,26 +370,23 @@ def _lane_smoother(elems, bshape, T, h):
     Sigma_cross_all = -sm.mm(h, Ainv_B, Sbb, sym_b=True)
 
     # total logZ from the last filtered potential
-    JaInv, logdetJ = sm.sym_inv_and_logdet(h, Ja[-1])
-    sol = sm.mv(h, JaInv, hva[-1], sym_a=True)
+    Ja_T, hva_T, logca_T = chain.last(Ja, hva, logca)
+    JaInv, logdetJ = sm.sym_inv_and_logdet(h, Ja_T)
+    sol = sm.mv(h, JaInv, hva_T, sym_a=True)
     logZ_total = (
-        logca[-1]
-        + 0.5 * sm.vdot(hva[-1], sol)
+        logca_T
+        + 0.5 * sm.vdot(hva_T, sol)
         - 0.5 * logdetJ
         + 0.5 * h * um.LOG2PI
     )
 
     bout = tuple(bshape[:-2])
-    Sigma_cross_d = sm.gen_unpack(Sigma_cross_all, h, bout)
     return (
-        (
-            sm.sym_unpack(Sigma, h, bout),
-            sm.vec_unpack(mu, bout),
-            sm.sym_unpack(Js, h, bout),
-            sm.vec_unpack(hs, bout),
-        ),
-        Sigma_cross_d[1:],
-        Sigma_cross_d[0],
+        sm.sym_unpack(Sigma, h, bout),
+        sm.vec_unpack(mu, bout),
+        sm.sym_unpack(Js, h, bout),
+        sm.vec_unpack(hs, bout),
+        sm.gen_unpack(Sigma_cross_all, h, bout),
         sm.sym_unpack(Sigma_x0_x0, h, bout),
         sm.vec_unpack(mu_x0, bout),
         logZ_total.reshape(bout),
@@ -397,24 +394,23 @@ def _lane_smoother(elems, bshape, T, h):
 
 
 # =========================================================== plane layout path
-def _plane_smoother(elems, bshape, T, h):
+def _plane_smoother(elems, bshape, T, h, chain=scan.CHAIN):
     (Jaa_d, Jab_d, Jbb_d, ha_d, hb_d, logw_d) = elems
     Jaa = pm.pack(Jaa_d)
     Jab = pm.pack(Jab_d)
     Jbb = pm.pack(Jbb_d)
     ha = pm.pack_vec(ha_d)
     hb = pm.pack_vec(hb_d)
-    logw = logw_d.reshape(T, -1).contiguous()
+    logw = logw_d.reshape(T, math.prod(bshape[:-2])).contiguous()
     elems_p = (Jaa, Jab, Jbb, ha, hb, logw)
 
-    prefix = scan.kalman_plane_scan(elems_p)
-    suffix = scan.kalman_plane_scan(elems_p, reverse=True)
+    prefix = chain.scan(scan.KALMAN_PLANE, elems_p)
+    suffix = chain.scan(scan.KALMAN_PLANE, elems_p, reverse=True)
 
     # filtered potentials over x_t; backward messages on x_{t-1} from S_t
     Ja, hva, logca = _marginalize_left_plane(prefix)
     Jb_all, hvb_all, _ = _marginalize_right_plane(suffix)
-    Jbeta = _shift(Jb_all, up=True)
-    hbeta = _shift(hvb_all, up=True)
+    Jbeta, hbeta = chain.shift((Jb_all, hvb_all), up=True)
 
     # smoothed marginals
     Js = Ja + Jbeta
@@ -423,11 +419,12 @@ def _plane_smoother(elems, bshape, T, h):
     mu = pm.bmv(Sigma, hs)
 
     # prior-side marginal q(x_{-1})
-    Sigma_x0_x0, _ = pm.bsym_inv_and_logdet(Jb_all[0])
-    mu_x0 = pm.bmv(Sigma_x0_x0, hvb_all[0])
+    Jb0, hvb0 = chain.first(Jb_all, hvb_all)
+    Sigma_x0_x0, _ = pm.bsym_inv_and_logdet(Jb0)
+    mu_x0 = pm.bmv(Sigma_x0_x0, hvb0)
 
     # pairwise cross-covariances Sigma_{t-1,t}
-    A = _shift(Ja, up=False) + Jaa
+    A = chain.shift((Ja,), up=False)[0] + Jaa
     D = Jbb + Jbeta
     Ainv, _ = pm.bsym_inv_and_logdet(A)
     Ainv_B = pm.bmm(Ainv, Jab)
@@ -435,33 +432,31 @@ def _plane_smoother(elems, bshape, T, h):
     Sigma_cross_all = -pm.bmm(Ainv_B, Sbb)
 
     # total logZ from the last filtered potential
-    JaInv, logdetJ = pm.bsym_inv_and_logdet(Ja[-1])
-    sol = pm.bmv(JaInv, hva[-1])
+    Ja_T, hva_T, logca_T = chain.last(Ja, hva, logca)
+    JaInv, logdetJ = pm.bsym_inv_and_logdet(Ja_T)
+    sol = pm.bmv(JaInv, hva_T)
     logZ_total = (
-        logca[-1]
-        + 0.5 * pm.bvdot(hva[-1], sol)
+        logca_T
+        + 0.5 * pm.bvdot(hva_T, sol)
         - 0.5 * logdetJ
         + 0.5 * h * um.LOG2PI
     )
 
     bout = tuple(bshape[:-2])
-    Sigma_cross_d = pm.unpack(Sigma_cross_all, bout)
     return (
-        (
-            pm.unpack(Sigma, bout),
-            pm.unpack_vec(mu, bout),
-            pm.unpack(Js, bout),
-            pm.unpack_vec(hs, bout),
-        ),
-        Sigma_cross_d[1:],
-        Sigma_cross_d[0],
+        pm.unpack(Sigma, bout),
+        pm.unpack_vec(mu, bout),
+        pm.unpack(Js, bout),
+        pm.unpack_vec(hs, bout),
+        pm.unpack(Sigma_cross_all, bout),
         Sigma_x0_x0.permute(2, 0, 1).reshape(bout + (h, h)),
         mu_x0.permute(1, 0).reshape(bout + (h, 1)),
         logZ_total.reshape(bout),
     )
 
 
-def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None):
+def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None,
+                             chain=scan.CHAIN):
     """Same contract as pyvbmp_tpu.ops.parallel_kalman.parallel_kalman_smoother:
     returns ((Sigma, mu, Js, hs), Sigma_cross, Sigma_x0_cross, Sigma_x0_x0,
     mu_x0, logZ_total).
@@ -472,6 +467,10 @@ def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None
     lane_form: force the component layout on/off (default: h <= 3).
     plane_form: force the plane layout on/off (default: 3 < h <= 32 when
         the lane form is not taken); with both off, the dense form.
+    chain: the steps across time (``ops.scan.Chain``): the whole time axis
+        by default; ``parallel/seq_parallel.py`` passes a time axis cut
+        across processes, which builds the elements whole, smooths its own
+        rows and gathers the outputs.
     """
     hdim = parms["invQ"].shape[-1]
     if lane_form is None:
@@ -481,8 +480,21 @@ def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None
     if not lane_form and plane_form is None:
         plane_form = hdim <= PLANE_KALMAN_MAX_H
     elems, bshape, T, hdim = _build_elements(parms, x0, like, u)
+    elems = tuple(chain.local(e) for e in elems)
+    bshape, T = tuple(elems[0].shape[1:]), elems[0].shape[0]
     if lane_form:
-        return _lane_smoother(elems, bshape, T, hdim)
-    if plane_form:
-        return _plane_smoother(elems, bshape, T, hdim)
-    return _dense_smoother(elems, bshape, T, hdim)
+        out = _lane_smoother(elems, bshape, T, hdim, chain)
+    elif plane_form:
+        out = _plane_smoother(elems, bshape, T, hdim, chain)
+    else:
+        out = _dense_smoother(elems, bshape, T, hdim, chain)
+    Sigma, mu, Js, hs, Sigma_cross = chain.gather(*out[:5])
+    Sigma_x0_x0, mu_x0, logZ_total = chain.gather(*out[5:], time=False)
+    return (
+        (Sigma, mu, Js, hs),
+        Sigma_cross[1:],
+        Sigma_cross[0],
+        Sigma_x0_x0,
+        mu_x0,
+        logZ_total,
+    )

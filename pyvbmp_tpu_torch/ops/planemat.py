@@ -15,6 +15,8 @@ Layout conventions (all functions):
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -50,7 +52,7 @@ def bsym(A):
 def pack(A):
     """(T,) + bshape + (h, w) dense -> contiguous (T, h, w, N)."""
     T, h, w = A.shape[0], A.shape[-2], A.shape[-1]
-    return A.reshape(T, -1, h, w).permute(0, 2, 3, 1).contiguous()
+    return A.reshape(T, math.prod(A.shape[1:-2]), h, w).permute(0, 2, 3, 1).contiguous()
 
 
 def unpack(A, bshape):
@@ -62,7 +64,7 @@ def unpack(A, bshape):
 def pack_vec(x):
     """(T,) + bshape + (h, 1) -> contiguous (T, h, N)."""
     T, h = x.shape[0], x.shape[-2]
-    return x.reshape(T, -1, h).permute(0, 2, 1).contiguous()
+    return x.reshape(T, math.prod(x.shape[1:-2]), h).permute(0, 2, 1).contiguous()
 
 
 def unpack_vec(x, bshape):

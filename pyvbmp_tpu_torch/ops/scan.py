@@ -40,6 +40,12 @@ kernels: phase 1, then phases 2-3 fused; it counts once, on the scan's
 ``folded`` counter.
 
 The kernels are built and loaded by ``ops/_cuda.py``.
+
+The smoothers take the steps that cross their time axis (the scans, the
+shifts by one step, the first and last rows, the sums over time, and the
+gathering of their outputs) from a ``Chain``: ``CHAIN``, the time axis held
+whole by this process, by default, and a time axis cut across processes
+from ``parallel/seq_parallel.py``.
 """
 from __future__ import annotations
 
@@ -335,6 +341,51 @@ KALMAN_LANE = Scan(
 )
 SCANS = (LOGSEMIRING, KALMAN_PLANE, KALMAN_LANE)
 FOLDED_SCANS = tuple(s.folded for s in SCANS)
+
+
+class Chain:
+    """The smoothers' steps across the time axis, with the whole axis in
+    this process.  ``parallel.seq_parallel.ShardedChain`` holds the same
+    steps for a time axis cut across the ranks of a mesh.  Every method
+    that takes tensors ``*xs`` returns a tuple."""
+
+    def local(self, x):
+        """The rows of a time-leading input that this process smooths."""
+        return x
+
+    def scan(self, s, leaves, reverse=False):
+        """Inclusive scan of ``leaves`` by ``s`` (a ``Scan``, or any
+        callable (leaves, reverse) with a ``combine``)."""
+        return tuple(s(tuple(leaves), reverse))
+
+    def shift(self, xs, up, edge=None):
+        """x[t] <- x[t + 1] (``up``) or x[t - 1], the row that falls off the
+        end replaced by ``edge`` (a tuple of rows; zeros where None)."""
+        if edge is None:
+            edge = tuple(torch.zeros_like(x[:1]) for x in xs)
+        else:
+            edge = tuple(e[None] for e in edge)
+        if up:
+            return tuple(torch.cat([x[1:], e], 0) for x, e in zip(xs, edge))
+        return tuple(torch.cat([e, x[:-1]], 0) for x, e in zip(xs, edge))
+
+    def first(self, *xs):
+        return tuple(x[0] for x in xs)
+
+    def last(self, *xs):
+        return tuple(x[-1] for x in xs)
+
+    def reduce(self, *xs):
+        """Sums over the time rows of this process, completed over all."""
+        return xs
+
+    def gather(self, *xs, time=True):
+        """Outputs over the whole axis (``time``: time-leading, else one
+        per sequence)."""
+        return xs
+
+
+CHAIN = Chain()
 
 
 def logsemiring_scan(M, reverse=False):

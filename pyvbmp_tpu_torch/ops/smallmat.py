@@ -21,6 +21,8 @@ only h <= 3, larger h takes the plane form (``ops/planemat.py``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -47,7 +49,7 @@ def _entry(A, h, i, j, sym, t):
 def _pack(A, idx):
     """(T,) + bshape + (h, w) dense -> contiguous (T, len(idx), N)."""
     T, h, w = A.shape[0], A.shape[-2], A.shape[-1]
-    flat = A.reshape(T, -1, h * w)[..., idx]
+    flat = A.reshape(T, math.prod(A.shape[1:-2]), h * w)[..., idx]
     return flat.permute(0, 2, 1).contiguous()
 
 

@@ -1,0 +1,35 @@
+"""The parallel layer on ``torch.distributed`` (counterpart of
+pyvbmp_tpu/parallel): a ``Mesh`` of ranks, data-parallel VB sweeps
+(``data_parallel_update``) and the time-sharded smoothers
+(``seq_parallel``), which the models reach through ``time_mesh=``."""
+from .api import (
+    Mesh,
+    data_parallel_update,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_pytree_batch,
+)
+from .seq_parallel import (
+    sharded_associative_scan,
+    shift_down,
+    shift_up,
+    time_sharded_driven_forward_backward,
+    time_sharded_forward_backward,
+    time_sharded_kalman_smoother,
+)
+
+__all__ = [
+    "Mesh",
+    "data_parallel_update",
+    "make_mesh",
+    "replicate",
+    "shard_batch",
+    "shard_pytree_batch",
+    "sharded_associative_scan",
+    "shift_down",
+    "shift_up",
+    "time_sharded_driven_forward_backward",
+    "time_sharded_forward_backward",
+    "time_sharded_kalman_smoother",
+]

@@ -1,0 +1,330 @@
+"""The mesh and data-parallel VB sweeps on ``torch.distributed`` (counterpart
+of pyvbmp_tpu/parallel/api.py).
+
+The JAX package runs one program over a ``jax.sharding.Mesh`` and lets XLA
+insert the collectives.  Here every rank is a process holding its own
+replica of the model and its own part of the data, and every collective is
+a call this package makes:
+
+- ``Mesh(ranks, axis_names)``: a 1-D or 2-D array of ranks of the default
+  process group, one ``dist.new_group`` per line of each axis.  It makes
+  three collectives over one axis (``all_reduce``, ``all_gather`` in list
+  form and ``broadcast``) and counts the elements each one moves, by kind
+  and by the caller's tag (``"scan"``, ``"halo"``, ``"reduce"``,
+  ``"gather"``);
+- ``data_parallel_update(model, y, ...)``: each rank takes its block of the
+  batch (``shard_batch``) and runs the model's own sweep; every sum over
+  the batch that feeds an M-step or the ELBO is completed by one
+  ``all_reduce`` over the mesh's ``data`` axis at the point where the model
+  forms it (``utils.torchutils.batch_sum``).  The parameters stay
+  replicated, because every rank computes the same update from the same
+  sums; per-sample state (a DMBD's px, the assignments p) stays local.
+
+The process group and its backend are the caller's.  NCCL is the backend
+on several cards; NCCL refuses two ranks on one device, so several ranks
+sharing one card use gloo, with their tensors on the card.  gloo takes CUDA
+tensors for all three collectives (PyTorch 2.11 with CUDA 12.8 on an H100),
+so the mesh hands every operand to the backend where it lies and stages
+nothing through host memory.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from collections import Counter
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..utils import torchutils
+
+_NO_GROUP = (
+    "no default process group: start one first, e.g. "
+    "torch.distributed.init_process_group('gloo', init_method='tcp://localhost:PORT', "
+    "world_size=W, rank=R) in each of W processes (torchrun or "
+    "torch.multiprocessing.spawn start them), or 'nccl' with one card a rank"
+)
+
+
+class Mesh:
+    """A 1-D or 2-D array of ranks of the default process group with a name
+    for each axis, mirroring the parts of ``jax.sharding.Mesh`` the parallel
+    layer reads: ``shape`` (axis name -> size) and ``axis_names``.
+    ``ranks`` holds the ranks, ``coords`` this rank's coordinate on each
+    axis (None when the mesh does not hold this rank).
+
+    Every rank of the world must build every mesh, in the same order, since
+    ``dist.new_group`` is collective over the whole world: the constructor
+    makes one group per line of each axis and one for the whole mesh, in
+    the same order on every rank."""
+
+    def __init__(self, ranks, axis_names):
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(_NO_GROUP)
+        ranks = np.asarray(ranks)
+        axis_names = tuple(axis_names)
+        if ranks.ndim not in (1, 2) or ranks.ndim != len(axis_names):
+            raise ValueError(f"a mesh is a 1-D or 2-D array of ranks with a name per axis; "
+                             f"got shape {ranks.shape} and names {axis_names}")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"axis names repeat: {axis_names}")
+        flat = [int(r) for r in ranks.reshape(-1)]
+        world = dist.get_world_size()
+        if len(set(flat)) != len(flat) or not all(0 <= r < world for r in flat):
+            raise ValueError(f"mesh ranks {flat} must be distinct ranks of a world of {world}")
+        self.ranks = ranks.astype(np.int64)
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, ranks.shape))
+        self.rank = dist.get_rank()
+        where = np.argwhere(self.ranks == self.rank)
+        self.coords = dict(zip(axis_names, where[0].tolist())) if len(where) else None
+        self._lines = {}
+        for i, name in enumerate(axis_names):
+            lines = np.moveaxis(self.ranks, i, -1).reshape(-1, ranks.shape[i])
+            for line in lines.tolist():
+                group = dist.new_group(line) if len(line) > 1 else None
+                if self.rank in line:
+                    self._lines[name] = (group, line)
+        self._all = (dist.new_group(flat) if len(flat) > 1 else None, flat)
+        self.counts = Counter()
+
+    def __repr__(self):
+        return f"Mesh({self.ranks.tolist()}, {self.axis_names})"
+
+    # -- bookkeeping -------------------------------------------------------------
+    def reset_counts(self):
+        self.counts.clear()
+
+    def _total(self, what, tag, kind):
+        return sum(n for (k, t, w), n in self.counts.items()
+                   if w == what and tag in (None, t) and kind in (None, k))
+
+    def elements(self, tag=None, kind=None):
+        """Elements moved by the collectives with this tag and kind (any
+        where None) since the last ``reset_counts``."""
+        return self._total("elements", tag, kind)
+
+    def nbytes(self, tag=None, kind=None):
+        """Their bytes."""
+        return self._total("bytes", tag, kind)
+
+    def _line(self, axis):
+        if self.coords is None:
+            raise RuntimeError(f"rank {self.rank} is not in {self!r}")
+        if axis not in self._lines:
+            raise ValueError(f"{self!r} has no axis {axis!r}")
+        return self._lines[axis]
+
+    def _count(self, kind, tag, x, lines=1):
+        """One collective moving ``lines`` times the elements of ``x``."""
+        self.counts[(kind, tag, "elements")] += x.numel() * lines
+        self.counts[(kind, tag, "bytes")] += x.numel() * lines * x.element_size()
+
+    # -- the three collectives ----------------------------------------------------
+    def all_reduce(self, x, axis, tag):
+        """The sum of ``x`` over the ranks of this rank's line of ``axis``
+        (a new tensor; ``x`` is left as it was).  Counts x's elements."""
+        group, line = self._line(axis)
+        if len(line) == 1:
+            return x
+        self._count("all_reduce", tag, x)
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    def all_gather(self, x, axis, tag):
+        """``x`` of every rank of this rank's line of ``axis``, as a list in
+        mesh order (every rank passes the same shape).  Counts the elements
+        received, the line's size times x's."""
+        group, line = self._line(axis)
+        if len(line) == 1:
+            return [x]
+        self._count("all_gather", tag, x, len(line))
+        x = x.contiguous()
+        out = [torch.empty_like(x) for _ in line]
+        dist.all_gather(out, x, group=group)
+        # the group numbers its ranks in ascending order, the mesh may not
+        order = sorted(line)
+        return [out[order.index(r)] for r in line]
+
+    def broadcast(self, x, axis, src, tag):
+        """``x`` of the rank at coordinate ``src`` of this rank's line of
+        ``axis``, on every rank of the line.  Counts x's elements."""
+        group, line = self._line(axis)
+        if len(line) == 1:
+            return x
+        self._count("broadcast", tag, x)
+        out = x.contiguous().clone()
+        dist.broadcast(out, src=line[src], group=group)
+        return out
+
+    def _broadcast_all(self, x, tag):
+        """``x`` of the mesh's first rank on every rank of the mesh."""
+        group, flat = self._all
+        if len(flat) == 1:
+            return x
+        self._count("broadcast", tag, x)
+        out = x.contiguous().clone()
+        dist.broadcast(out, src=flat[0], group=group)
+        return out
+
+    # -- packed forms -----------------------------------------------------------
+    def all_reduce_many(self, xs, axis, tag):
+        """The sums of the tensors ``xs`` over ``axis`` in one all_reduce of
+        their flattened concatenation (in their common dtype)."""
+        xs = tuple(xs)
+        dtype = xs[0].dtype
+        for x in xs[1:]:
+            dtype = torch.promote_types(dtype, x.dtype)
+        flat = torch.cat([x.reshape(-1).to(dtype) for x in xs])
+        flat = self.all_reduce(flat, axis, tag)
+        out, i = [], 0
+        for x in xs:
+            out.append(flat[i: i + x.numel()].reshape(x.shape).to(x.dtype))
+            i += x.numel()
+        return tuple(out)
+
+
+def _check_mesh(mesh, what="mesh"):
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"{what} must be a pyvbmp_tpu_torch.parallel.Mesh (a mesh of "
+            f"torch.distributed ranks), got {type(mesh).__module__}.{type(mesh).__name__}"
+        )
+    return mesh
+
+
+def as_time_mesh(time_mesh):
+    """A model's ``time_mesh`` argument: None, or a port ``Mesh``; anything
+    else (a ``jax.sharding.Mesh`` by mistake) raises ``TypeError``."""
+    return None if time_mesh is None else _check_mesh(time_mesh, "time_mesh")
+
+
+def make_mesh(n_devices=None, axis_name="data"):
+    """A 1-D mesh of ranks 0 .. n_devices - 1 (every rank of the default
+    process group by default).  Every rank of the world calls it."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(_NO_GROUP)
+    n = dist.get_world_size() if n_devices is None else n_devices
+    return Mesh(np.arange(n), (axis_name,))
+
+
+def shard_batch(mesh, x, batch_axis=1, axis_name="data"):
+    """This rank's contiguous block of ``x`` along ``batch_axis``, the
+    blocks in ``torch.tensor_split`` order over the ``axis_name`` axis."""
+    if axis_name not in mesh.shape:
+        raise ValueError(f"{mesh!r} has no axis {axis_name!r}")
+    if mesh.coords is None:
+        raise RuntimeError(f"rank {mesh.rank} is not in {mesh!r}")
+    blocks = torch.tensor_split(x, mesh.shape[axis_name], dim=batch_axis)
+    return blocks[mesh.coords[axis_name]].contiguous()
+
+
+def shard_pytree_batch(mesh, tree, batch_axis=1, axis_name="data"):
+    """``shard_batch`` of every tensor in nested tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return shard_batch(mesh, tree, batch_axis, axis_name)
+    if isinstance(tree, dict):
+        return {k: shard_pytree_batch(mesh, v, batch_axis, axis_name) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(shard_pytree_batch(mesh, v, batch_axis, axis_name) for v in tree)
+    return tree
+
+
+def _broadcast_tensor(mesh, t):
+    if t.dtype == torch.bool:  # sent as bytes
+        return mesh._broadcast_all(t.to(torch.uint8), "replicate").to(torch.bool)
+    return mesh._broadcast_all(t, "replicate")
+
+
+def replicate(mesh, tree):
+    """``tree`` with every tensor replaced by the mesh's first rank's: a
+    tensor, a parameter node (every tensor field, sub-nodes included),
+    nested tuples, lists and dicts of them, or a model, whose attributes
+    are replaced in place (its mesh is not walked).  Every rank of the mesh
+    calls it with the same structure."""
+    if isinstance(tree, torch.Tensor):
+        return _broadcast_tensor(mesh, tree)
+    if isinstance(tree, Mesh) or tree is None:
+        return tree
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: replicate(mesh, getattr(tree, f.name)) for f in dataclasses.fields(tree)
+            if f.init})
+    if isinstance(tree, dict):
+        return {k: replicate(mesh, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(replicate(mesh, v) for v in tree)
+    if hasattr(tree, "__dict__") and type(tree).__module__.startswith(__package__.split(".")[0]):
+        for k, v in list(vars(tree).items()):
+            setattr(tree, k, replicate(mesh, v))
+    return tree
+
+
+# The data-parallel sweep running now: (mesh, axis), or None.
+_DATA_PARALLEL = None
+
+
+def data_parallel_axis(mesh):
+    """The axis of ``mesh`` whose batch ``data_parallel_update`` has split
+    for the sweep running now, or None."""
+    if _DATA_PARALLEL is not None and _DATA_PARALLEL[0] is mesh:
+        return _DATA_PARALLEL[1]
+    return None
+
+
+@contextlib.contextmanager
+def _data_parallel(mesh, axis):
+    """Sums over the batch (``torchutils.batch_sum``) completed over
+    ``axis`` for the block."""
+    global _DATA_PARALLEL
+    saved = _DATA_PARALLEL, torchutils.BATCH_REDUCE
+    _DATA_PARALLEL = (mesh, axis)
+    torchutils.BATCH_REDUCE = lambda xs: mesh.all_reduce_many(xs, axis, "reduce")
+    try:
+        yield
+    finally:
+        _DATA_PARALLEL, torchutils.BATCH_REDUCE = saved
+
+
+def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
+                         batch_axis=None):
+    """Run the model's sweeps with the trajectory batch split over the
+    mesh's ``data`` axis.  Every rank calls it with the whole ``y`` (as a
+    JAX caller passes a global array) and the same model.
+
+    Works for LDS, MixLDS, DMBD, HMM and GMM: each rank takes its block of
+    ``y`` (``shard_batch``) and runs the model's own sweep, in which every
+    sum over the batch that feeds an M-step or the ELBO is completed by one
+    all_reduce over ``data`` where it is formed (``torchutils.batch_sum``,
+    tagged ``"reduce"``); nothing else crosses the mesh.  The ELBOs and the
+    parameters come out the same on every rank; per-sample state (a DMBD's
+    px, the assignments p) is this rank's block.  The models must start
+    equal on every rank: built from one seed, or put through ``replicate``.
+
+    ``batch_axis`` names the sample axis of ``y`` to split: 1 by default
+    (time-major ``(T, batch, ...)``: LDS, DMBD, HMM), 0 for sample-major
+    data such as GMM's ``(n, d)``.  A model with ``reshape_inputs`` and
+    ``_update_reshaped`` (LDS, DMBD) has its inputs reshaped first and each
+    of y, u and r split on that axis where it spans the batch.
+    """
+    if mesh is None:
+        mesh = make_mesh()
+    _check_mesh(mesh)
+    if batch_axis is None:
+        batch_axis = 1
+    if "data" not in mesh.shape:
+        raise ValueError(f"data_parallel_update splits the batch over a 'data' axis; "
+                         f"{mesh!r} has none")
+    with _data_parallel(mesh, "data"):
+        if hasattr(model, "_update_reshaped") and hasattr(model, "reshape_inputs"):
+            y, u, r = model.reshape_inputs(y, u, r)
+            n = y.shape[batch_axis]
+            y, u, r = (shard_batch(mesh, x, batch_axis) if x.shape[batch_axis] == n else x
+                       for x in (y, u, r))
+            # the model's own step dispatcher: the code path update() runs
+            model._update_reshaped(y, u, r, iters=iters, lr=lr)
+        else:
+            model.update(shard_batch(mesh, y, batch_axis), iters=iters, lr=lr)
+    return model

@@ -24,7 +24,7 @@ from ..utils.linalg import (
     psd_solve,
 )
 from ..utils.torchutils import (
-    Node, as_tensor, bcontract_pp, bweighted_sum, node, normal, replace,
+    Node, as_tensor, batch_sum, bcontract_pp, bweighted_sum, node, normal, replace,
 )
 
 
@@ -239,14 +239,21 @@ class MatrixNormalWishart(Node):
             SExx = bweighted_sum(pX.EXXT(), pv, ns)
             SEyy = bweighted_sum(pY.EXXT(), pv, ns)
             SEyx = bweighted_sum(pY.EX() @ mT(pX.EX()), pv, ns)
+        pad = ()
         if self.pad_X:
             if p is None:
-                SEx = pX.EX().sum(sdims)
-                SEy = pY.EX().sum(sdims)
+                pad = (pX.EX().sum(sdims), pY.EX().sum(sdims))
             else:
-                SEx = (pX.EX() * pv).sum(sdims)
-                SEy = (pY.EX() * pv).sum(sdims)
-            SExx, SEyx = self._pad_stats(SExx, SEyx, SEx, SEy, N)
+                pad = ((pX.EX() * pv).sum(sdims), (pY.EX() * pv).sum(sdims))
+        return self._ss_update_sums(SExx, SEyx, SEyy, N, pad, lr, beta)
+
+    def _ss_update_sums(self, SExx, SEyx, SEyy, N, pad, lr, beta):
+        """``ss_update`` from sums over the samples, completed over a batch
+        split across processes (``batch_sum``); ``pad`` holds the sums of X
+        and Y that the pad_X bias column needs, () without it."""
+        SExx, SEyx, SEyy, N, *pad = batch_sum(SExx, SEyx, SEyy, N, *pad)
+        if self.pad_X:
+            SExx, SEyx = self._pad_stats(SExx, SEyx, *pad, N)
         return self.ss_update(SExx, SEyx, SEyy, N, lr=lr, beta=beta)
 
     def _pad_stats(self, SExx, SEyx, SEx, SEy, N):
@@ -275,15 +282,13 @@ class MatrixNormalWishart(Node):
             SExx = (X * mT(X) * pv).sum(sdims)
             SEyy = (Y * mT(Y) * pv).sum(sdims)
             SEyx = (Y * mT(X) * pv).sum(sdims)
+        pad = ()
         if self.pad_X:
             if p is None:
-                SEx = X.sum(sdims)
-                SEy = Y.sum(sdims)
+                pad = (X.sum(sdims), Y.sum(sdims))
             else:
-                SEx = (X * pv).sum(sdims)
-                SEy = (Y * pv).sum(sdims)
-            SExx, SEyx = self._pad_stats(SExx, SEyx, SEx, SEy, N)
-        return self.ss_update(SExx, SEyx, SEyy, N, lr=lr, beta=beta)
+                pad = ((X * pv).sum(sdims), (Y * pv).sum(sdims))
+        return self._ss_update_sums(SExx, SEyx, SEyy, N, pad, lr, beta)
 
     # -- KL ------------------------------------------------------------------------
     def _quad_mu(self):

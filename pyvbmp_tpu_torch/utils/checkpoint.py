@@ -5,7 +5,8 @@ pyvbmp_tpu/utils/checkpoint.py).
 does: ``ELBO_save`` is skipped, tensors and parameter nodes (and lists of
 them) are kept, and nested stateful shells (an NLDS's MNLR transition, a
 MixLDS's inner LDS, a BayesNet's layers) are followed two levels down under
-dotted keys (``lds.x0``, ``layers.0.A``).  ``save`` writes them with
+dotted keys (``lds.x0``, ``layers.0.A``); a model's ``time_mesh`` is not
+followed.  ``save`` writes them with
 ``torch.save`` as nested dicts of tensors and plain values (a node under
 the name of its class in this package, no pickled objects), and ``load``
 reads the file back with ``torch.load(..., weights_only=True)`` and sets
@@ -39,8 +40,11 @@ def _is_state(v):
 
 
 def _is_shell(v):
-    """A model or transform object of this package holding state of its own."""
-    return (hasattr(v, "__dict__") and not isinstance(v, type) and not callable(v)
+    """A model or transform object of this package holding state of its own
+    (a model's ``time_mesh`` is placement, not state)."""
+    from ..parallel.api import Mesh
+
+    return (hasattr(v, "__dict__") and not isinstance(v, (type, Mesh)) and not callable(v)
             and type(v).__module__.startswith(_PACKAGE))
 
 

@@ -9,7 +9,10 @@ numpy arrays.
   ``mixlds_from_state`` (state, device, dtype) build this package's model from such a dict: built on the
   CPU in float64, then moved to ``device``, which defaults to the card
   (``torchutils.default_device``: with no card and no device they raise
-  before building anything).
+  before building anything).  These four and ``dhmm_from_state`` take a
+  ``time_mesh`` (a ``parallel.Mesh``) to build the model with; a mesh is
+  placement, not state, so no dict carries one (a JAX model's mesh is not
+  read).
 
 The chain models have the same pair of functions: ``arhmm_state`` (an
 ARHMM, ARHMM_prXY or ARHMM_prXRY, its class under ``kind``), ``dhmm_state``
@@ -179,13 +182,14 @@ def _load_p(model, state):
         model.p = torch.tensor(np.asarray(state["p"], np.float64))
 
 
-def dmbd_from_state(state, device=None, dtype=None):
-    """This package's DMBD holding ``state``, on ``device`` in ``dtype``."""
+def dmbd_from_state(state, device=None, dtype=None, time_mesh=None):
+    """This package's DMBD holding ``state``, on ``device`` in ``dtype``,
+    built with ``time_mesh``."""
     device = default_device(device)
     from ..models import DynamicMarkovBlanketDiscovery
 
     model = DynamicMarkovBlanketDiscovery(
-        **state["config"],
+        **state["config"], time_mesh=time_mesh,
         generator=torch.Generator().manual_seed(0),
         dtype=torch.float64, device="cpu",
     )
@@ -230,9 +234,9 @@ def hmm_state(model):
     return state
 
 
-def hmm_from_state(state, device=None, dtype=None):
+def hmm_from_state(state, device=None, dtype=None, time_mesh=None):
     """This package's HMM (NormalInverseWishart observations) holding
-    ``state``, on ``device`` in ``dtype``."""
+    ``state``, on ``device`` in ``dtype``, built with ``time_mesh``."""
     device = default_device(device)
     from ..dists import NormalInverseWishart
     from ..models import HMM
@@ -245,7 +249,7 @@ def hmm_from_state(state, device=None, dtype=None):
     model = HMM(
         load_state(obs, state["obs_dist"]),
         transition_mask=None if mask is None else torch.tensor(np.asarray(mask)),
-        ptemp=cfg["ptemp"], parallel_scan=cfg["parallel_scan"],
+        ptemp=cfg["ptemp"], parallel_scan=cfg["parallel_scan"], time_mesh=time_mesh,
         generator=g, dtype=torch.float64, device="cpu",
     )
     model.transition = load_state(model.transition, state["transition"])
@@ -255,8 +259,6 @@ def hmm_from_state(state, device=None, dtype=None):
 
 
 def _lds_nodes(lds):
-    if getattr(lds, "time_mesh", None) is not None:
-        raise ValueError("time_mesh is not ported")
     return {
         "x0": node_state(lds.x0),
         "A": node_state(lds.A),
@@ -320,15 +322,16 @@ def _obs_model(state, generator):
         generator=generator, dtype=torch.float64, device="cpu")
 
 
-def lds_from_state(state, device=None, dtype=None):
-    """This package's LDS holding ``state``, on ``device`` in ``dtype``."""
+def lds_from_state(state, device=None, dtype=None, time_mesh=None):
+    """This package's LDS holding ``state``, on ``device`` in ``dtype``,
+    built with ``time_mesh``."""
     device = default_device(device)
     from ..dists.mvn_vector_format import MultivariateNormal_vector_format
     from ..models import LinearDynamicalSystems
 
     g = torch.Generator().manual_seed(0)
     model = LinearDynamicalSystems(
-        **state["config"], obs_model=_obs_model(state, g),
+        **state["config"], obs_model=_obs_model(state, g), time_mesh=time_mesh,
         generator=g, dtype=torch.float64, device="cpu",
     )
     model.expand_to_batch = state["expand_to_batch"]
@@ -362,13 +365,14 @@ def mixlds_state(model):
     return state
 
 
-def mixlds_from_state(state, device=None, dtype=None):
-    """This package's MixLDS holding ``state``, on ``device`` in ``dtype``."""
+def mixlds_from_state(state, device=None, dtype=None, time_mesh=None):
+    """This package's MixLDS holding ``state``, on ``device`` in ``dtype``,
+    built with ``time_mesh``."""
     device = default_device(device)
     from ..models import MixtureofLinearDynamicalSystems
 
     model = MixtureofLinearDynamicalSystems(
-        **state["config"],
+        **state["config"], time_mesh=time_mesh,
         generator=torch.Generator().manual_seed(0),
         dtype=torch.float64, device="cpu",
     )
@@ -575,9 +579,9 @@ def dhmm_state(model):
     return state
 
 
-def dhmm_from_state(state, device=None, dtype=None):
+def dhmm_from_state(state, device=None, dtype=None, time_mesh=None):
     """This package's dHMM (NormalInverseWishart observations) holding
-    ``state``, on ``device`` in ``dtype``."""
+    ``state``, on ``device`` in ``dtype``, built with ``time_mesh``."""
     device = default_device(device)
     from ..dists import NormalInverseWishart
     from ..models import dHMM
@@ -587,8 +591,8 @@ def dhmm_from_state(state, device=None, dtype=None):
     obs = NormalInverseWishart.create(cfg["event_shape"], cfg["batch_shape"], generator=g,
                                       dtype=torch.float64, device="cpu")
     model = dHMM(load_state(obs, state["obs_dist"]), cfg["p"], ptemp=cfg["ptemp"],
-                 parallel_scan=cfg["parallel_scan"], generator=g, dtype=torch.float64,
-                 device="cpu")
+                 parallel_scan=cfg["parallel_scan"], time_mesh=time_mesh, generator=g,
+                 dtype=torch.float64, device="cpu")
     model.transition.beta = load_state(model.transition.beta, state["transition"])
     model.initial = load_state(model.initial, state["initial"])
     _load_p(model, state)

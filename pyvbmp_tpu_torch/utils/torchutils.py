@@ -208,6 +208,20 @@ def _scatter_dot(A, B, ns):
     return (A @ B).sum(0).reshape(rest + (d, d))
 
 
+# Completes a sum over a batch that parallel.data_parallel_update has split
+# across processes: set for the length of its sweeps, None otherwise.
+BATCH_REDUCE = None
+
+
+def batch_sum(*xs):
+    """Sums ``xs`` over this process's part of the batch, completed over
+    every part: inside ``parallel.data_parallel_update`` one all_reduce of
+    their flattened concatenation, outside it ``xs`` as they are.  Each
+    model calls it once where it forms a site's statistics, before an
+    M-step or the ELBO reads them."""
+    return xs if BATCH_REDUCE is None else BATCH_REDUCE(xs)
+
+
 def centered_scatter(X, pv, sdims):
     """Weighted scatter sums (SExx, SEx, N) in the two-pass centered form
     ``sum_s p_s (x-c)(x-c)^T + N c c^T``, which keeps float32 accurate for

@@ -68,3 +68,34 @@ def test_exception_lists_name_real_classes():
         assert name in _modules(sub)[0].__all__, (sub, name)
     for sub, name, attr in MISSING_ATTRIBUTES:
         assert attr in _public(getattr(_modules(sub)[0], name)), (sub, name, attr)
+
+
+def test_parallel_exports_match():
+    """``pyvbmp_tpu_torch.parallel`` exports every name of
+    ``pyvbmp_tpu.parallel.__all__`` and the public functions of its
+    ``seq_parallel``, with the JAX signatures; the port adds its ``Mesh``
+    (torch.distributed has no mesh of its own) and ``shard_pytree_batch``
+    (``pyvbmp_tpu.parallel.api`` has it, its ``__all__`` does not).
+    ``sharded_associative_scan``, ``shift_up`` and ``shift_down`` take the
+    mesh and its axis where the JAX functions, run inside ``shard_map``,
+    take an axis name."""
+    import inspect
+
+    import pyvbmp_tpu.parallel as jp
+    import pyvbmp_tpu.parallel.api as japi
+    import pyvbmp_tpu.parallel.seq_parallel as jsp
+    import pyvbmp_tpu_torch.parallel as tp
+
+    seq = {n for n, v in vars(jsp).items()
+           if inspect.isfunction(v) and not n.startswith("_") and v.__module__ == jsp.__name__}
+    assert seq == {"sharded_associative_scan", "shift_up", "shift_down",
+                   "time_sharded_forward_backward", "time_sharded_driven_forward_backward",
+                   "time_sharded_kalman_smoother"}
+    assert set(tp.__all__) - set(jp.__all__) - seq == {"Mesh", "shard_pytree_batch"}
+    for name in set(jp.__all__) | seq | {"shard_pytree_batch"}:
+        jax_fn = getattr(japi, name, None) or getattr(jsp, name)
+        params = list(inspect.signature(getattr(tp, name)).parameters)
+        if name in ("sharded_associative_scan", "shift_up", "shift_down"):
+            continue
+        assert params == list(inspect.signature(jax_fn).parameters), name
+    assert list(inspect.signature(tp.shift_up).parameters) == ["x", "mesh", "axis", "fill"]

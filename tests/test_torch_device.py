@@ -207,6 +207,44 @@ def test_from_state_without_a_device_builds_on_the_card(name):
     assert ts and all(t.device.type == "cuda" and t.dtype == torch.float32 for t in ts)
 
 
+# the converters whose model takes a time_mesh (parallel.Mesh)
+TIME_MESH = ("dmbd", "hmm", "lds", "mixlds", "dhmm")
+
+
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A 1-D mesh of the one rank of a gloo world of one, torn down after."""
+    import torch.distributed as dist
+
+    from pyvbmp_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        yield make_mesh(1, "seq")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", TIME_MESH)
+def test_from_state_builds_with_a_time_mesh(one_rank_mesh, name):
+    """``time_mesh=`` reaches the model (DMBD's and MixLDS's then take the
+    corrected cross-covariances), a checkpoint does not walk into it, and a
+    mesh that is not the port's is refused."""
+    from pyvbmp_tpu_torch.utils import checkpoint
+
+    from_state = getattr(convert, f"{name}_from_state")
+    state = CONVERTERS[name]()
+    m = from_state(state, "cpu", torch.float32, time_mesh=one_rank_mesh)
+    holder = m.lds if name == "mixlds" else m
+    assert holder.time_mesh is one_rank_mesh
+    if name in ("dmbd", "mixlds"):
+        assert holder.cross_cov_compat is False
+    assert not any("time_mesh" in k for k in checkpoint.model_state(m))
+    with pytest.raises(TypeError, match="time_mesh"):
+        from_state(state, "cpu", torch.float32, time_mesh="a JAX mesh")
+
+
 def test_rng_hands_out_cpu_generators_from_one_seeded_sequence(no_card):
     """``next_generator`` needs no card: it makes CPU generators by default,
     which is what every constructor draws from; a seed gives the sequence

@@ -155,7 +155,7 @@ def test_constructor_slots_and_the_driven_dispatch():
     assert m.transition.beta.mu.shape == (3, 2, 3, 1)  # (source, K-1, p+1, 1)
     assert smoother_dispatch(m, driven=True) is driven_forward_backward_parallel
     assert smoother_dispatch(TdHMM(obs, 2, device="cpu"), driven=True) is driven_forward_backward
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="time_mesh"):  # not the port's Mesh
         TdHMM(obs, 2, None, 1.0, False, "a mesh", device="cpu")
     with pytest.raises(TypeError):
         TdHMM(obs, 2, None, 1.0, False, None, g)

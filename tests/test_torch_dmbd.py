@@ -136,7 +136,9 @@ def test_unported_options_raise():
     # batch_shape fails in the JAX package itself, and the message says so
     with pytest.raises(NotImplementedError, match="JAX package's own update fails"):
         TDMBD((3, 2), (1, 2, 1), (2, 2, 2), batch_shape=(2,), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # time_mesh is ported (tests/test_torch_seq_parallel.py): a mesh that is
+    # not the port's is refused
+    with pytest.raises(TypeError, match="time_mesh"):
         TDMBD((3, 2), (1, 2, 1), (2, 2, 2), time_mesh="a mesh", device="cpu")
 
 

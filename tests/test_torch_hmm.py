@@ -127,7 +127,7 @@ def test_constructor_positional_slots():
     assert smoother_dispatch(m) is forward_backward_parallel
     assert THMM(obs, device="cpu").parallel_scan is False
     assert smoother_dispatch(THMM(obs, device="cpu")) is forward_backward
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="time_mesh"):  # not the port's Mesh
         THMM(obs, None, 1.0, False, "a mesh", device="cpu")
     with pytest.raises(TypeError):
         THMM(obs, None, 1.0, False, None, torch.Generator())

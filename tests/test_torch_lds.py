@@ -262,9 +262,11 @@ def test_lds_split_estep_mstep_matches_update():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="time_mesh"):
+    # time_mesh is ported (tests/test_torch_seq_parallel.py): a mesh that is
+    # not the port's (a JAX mesh by mistake) is refused
+    with pytest.raises(TypeError, match="time_mesh"):
         TLDS((3,), 2, time_mesh=object())
-    with pytest.raises(NotImplementedError, match="time_mesh"):
+    with pytest.raises(TypeError, match="time_mesh"):
         TMixLDS(3, (3,), 2, 0, 0, time_mesh=object())
 
 

@@ -1,0 +1,239 @@
+"""Rank-side code for tests/test_torch_seq_parallel.py and
+tests/test_torch_mesh_parallel.py.  It holds no tests, so pytest collects
+nothing from it, and it imports only torch, numpy and the port: the spawned
+ranks import this module, and a test module that imports jax would pull JAX
+into every rank.
+
+``spawn(world, workdir, jobs)`` (or ``start``, then ``join``) starts
+``world`` processes on gloo (the
+rendezvous a file in ``workdir``, so that test processes running at once do
+not compete for ports), each of which builds the meshes of ``_meshes``, runs
+every job of ``jobs`` (name -> (function of ``JOBS``, keyword arguments))
+and saves its results as a numpy file; it returns each rank's results.
+Every job resets the meshes' counts first and returns the elements its
+collectives moved, by tag."""
+import dataclasses
+import datetime
+import time
+import traceback
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_np(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _np(v) for k, v in x.items()}
+    return x
+
+
+def _t(x):
+    if isinstance(x, np.ndarray):
+        return torch.tensor(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_t(v) for v in x)
+    return x
+
+
+def _meshes(world):
+    """Every rank builds the same meshes in the same order."""
+    from pyvbmp_tpu_torch.parallel import Mesh, make_mesh
+
+    out = {"seq": make_mesh(world, "seq"), "data": make_mesh(world, "data")}
+    if world == 4:
+        out["seq_data"] = Mesh(np.arange(4).reshape(2, 2), ("seq", "data"))
+    return out
+
+
+def _counts(meshes):
+    tags = ("scan", "halo", "reduce", "gather", "replicate")
+    return {t: sum(m.elements(t) for m in meshes.values()) for t in tags}
+
+
+# -- jobs: each returns a dict of numpy values -------------------------------------
+def job_fb(meshes, mesh, trans, init, obs, ptemp=1.0, driven=False, batch_axis="auto",
+           ptemp_tensor=False):
+    """A time-sharded forward-backward (driven or not) on the inputs."""
+    from pyvbmp_tpu_torch.parallel import seq_parallel as sp
+
+    fn = (sp.time_sharded_driven_forward_backward if driven
+          else sp.time_sharded_forward_backward)
+    pt = torch.tensor(ptemp, dtype=torch.float64) if ptemp_tensor else ptemp
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            out = fn(_t(trans), _t(init), _t(obs), meshes[mesh], ptemp=pt,
+                     batch_axis=batch_axis)
+        except ValueError as e:
+            return {"error": str(e), "warnings": [str(w.message) for w in caught]}
+    return {"out": _np(out), "warnings": [str(w.message) for w in caught]}
+
+
+def job_scan_and_shifts(meshes, x):
+    """``sharded_associative_scan`` with a bare combine (addition, both
+    directions), ``shift_up`` and ``shift_down`` on this rank's chunk of
+    ``x`` (torch.tensor_split over the "seq" mesh): this rank's rows of
+    each."""
+    from pyvbmp_tpu_torch.parallel import shift_down, shift_up, sharded_associative_scan
+
+    mesh = meshes["seq"]
+    chunk = torch.tensor_split(_t(x), mesh.shape["seq"])[mesh.coords["seq"]]
+    return {
+        "prefix": _np(sharded_associative_scan(torch.add, chunk, mesh, "seq")),
+        "suffix": _np(sharded_associative_scan(torch.add, chunk, mesh, "seq", reverse=True)),
+        "up": _np(shift_up(chunk, mesh, "seq", fill=7.0)),
+        "down": _np(shift_down(chunk, mesh, "seq", torch.full(x.shape[1:], -1.0))),
+    }
+
+
+def job_kalman(meshes, mesh, state, y):
+    """The time-sharded Kalman smoother on an LDS's own parameters and
+    messages (the LDS from ``state``, data ``y``)."""
+    from pyvbmp_tpu_torch.parallel import time_sharded_kalman_smoother
+    from pyvbmp_tpu_torch.utils.convert import lds_from_state
+
+    lds = lds_from_state(state, device="cpu", dtype=torch.float64)
+    yv, uv, rv = lds.reshape_inputs(_t(y))
+    parms = lds._latent_parms(lds.A)
+    like = lds.log_likelihood_function(lds.obs_model, yv, rv)
+    out = time_sharded_kalman_smoother(parms, lds.x0, like, uv, meshes[mesh])
+    return {"out": _np(out)}
+
+
+def _build(kind, state, time_mesh):
+    from pyvbmp_tpu_torch.utils import convert
+
+    kw = {} if time_mesh is None else dict(time_mesh=time_mesh)
+    return getattr(convert, f"{kind}_from_state")(state, device="cpu", dtype=torch.float64,
+                                                   **kw)
+
+
+def _summary(kind, m):
+    """What a fit is compared on, besides its ELBO trajectory."""
+    if kind == "hmm":
+        return {"alpha": m.transition.alpha, "p": m.p}
+    if kind == "dhmm":
+        return {"p": m.p}
+    if kind == "lds":
+        return {"A_mu": m.A.mu, "px_mu": m.px.mu}
+    if kind == "mixlds":
+        return {"A_mu": m.lds.A.mu, "p": m.p}
+    if kind == "dmbd":
+        return {"A_mu": m.A.mu, "p": m.obs_model.p, "px_mu": m.px.mu}
+    return {"mu": m.dist.mu if hasattr(m.dist, "mu") else m.dist.alpha,
+            "pi": m.pi.alpha}  # a mixture
+
+
+def _fit(m, kind, data, sweeps):
+    if kind == "dhmm":
+        m.raw_update(*_t(data), iters=sweeps)
+    else:
+        m.update(*_t(data), iters=sweeps)
+
+
+def job_fit(meshes, kind, state, data, sweeps, mesh=None):
+    """A model from ``state`` with ``time_mesh`` = meshes[mesh], fitted."""
+    m = _build(kind, state, None if mesh is None else meshes[mesh])
+    _fit(m, kind, data, sweeps)
+    return {"elbo": np.asarray(m.ELBO_save), **_np(_summary(kind, m))}
+
+
+def job_data_parallel(meshes, kind, state, data, sweeps, mesh="data", batch_axis=None,
+                      time_mesh=None):
+    """``data_parallel_update`` of a model from ``state`` over meshes[mesh]
+    (with ``time_mesh`` = meshes[time_mesh] too, when given)."""
+    from pyvbmp_tpu_torch.parallel import data_parallel_update
+
+    m = _build(kind, state, None if time_mesh is None else meshes[time_mesh])
+    y = _t(data[0])
+    data_parallel_update(m, y, mesh=meshes[mesh], iters=sweeps, batch_axis=batch_axis)
+    s = _summary(kind, m)
+    s.pop("p", None), s.pop("px_mu", None)  # per-sample state stays this rank's block
+    return {"elbo": np.asarray(m.ELBO_save), **_np(s)}
+
+
+def job_replicate(meshes, state):
+    """``replicate`` of a DMBD whose ranks started from different states:
+    every rank ends with rank 0's."""
+    from pyvbmp_tpu_torch.parallel import replicate
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state
+
+    m = dmbd_from_state(state, device="cpu", dtype=torch.float64)
+    m.A = dataclasses.replace(m.A, mu=m.A.mu + dist.get_rank())
+    replicate(meshes["data"], m)
+    return {"A_mu": _np(m.A.mu), "x0_mu": _np(m.x0.mu)}
+
+
+def job_shard_shapes(meshes, shapes):
+    """This rank's block of zeros of each (shape, batch_axis)."""
+    from pyvbmp_tpu_torch.parallel import shard_batch
+
+    return {"shapes": [tuple(shard_batch(meshes["data"], torch.zeros(sh), ax).shape)
+                       for sh, ax in shapes]}
+
+
+JOBS = {name[4:]: fn for name, fn in globals().items() if name.startswith("job_")}
+
+
+def _main(rank, world, workdir):
+    torch.set_num_threads(1)
+    torch.set_default_dtype(torch.float64)
+    # a rank that fails stops the others at their next collective, not after
+    # gloo's default half hour
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {}
+    try:
+        jobs = np.load(Path(workdir) / "jobs.npy", allow_pickle=True).item()
+        meshes = _meshes(world)
+        for key, (fn, kw) in jobs.items():
+            for m in meshes.values():
+                m.reset_counts()
+            try:
+                res = JOBS[fn](meshes, **kw)
+            except Exception:
+                res = {"traceback": traceback.format_exc()}
+            res["counts"] = _counts(meshes)
+            out[key] = res
+    finally:
+        np.save(Path(workdir) / f"out{rank}.npy", out, allow_pickle=True)
+        dist.destroy_process_group()
+
+
+def start(world, workdir, jobs):
+    """Start ``jobs`` on ``world`` gloo ranks without waiting for them;
+    ``join`` waits and returns their results."""
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    np.save(workdir / "jobs.npy", jobs, allow_pickle=True)
+    ctx = mp.start_processes(_main, args=(world, str(workdir)), nprocs=world, join=False,
+                             start_method="spawn")
+    return ctx, world, workdir
+
+
+def join(started, timeout=600):
+    """Each rank's results (a list by rank of dicts: job name -> results);
+    ranks still running after ``timeout`` seconds are ended and the wait
+    fails."""
+    ctx, world, workdir = started
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            raise TimeoutError(f"{world} ranks still running after {timeout} s")
+    return [np.load(workdir / f"out{r}.npy", allow_pickle=True).item() for r in range(world)]
+
+
+def spawn(world, workdir, jobs):
+    """Run ``jobs`` on ``world`` gloo ranks and return their results."""
+    return join(start(world, workdir, jobs))
