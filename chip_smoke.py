@@ -31,7 +31,8 @@ prints no result:
    T=200 N=10; phase 39's chunks, each rank's: logsemiring K=4 and plane
    H=6 at T=100 and 99 (N=300, 100), T=399 (N=75, 25) and T=200 (N=150,
    50), lane H=2 T=25 N=4000, logsemiring K=8 T=50 N=200, one transition
-   and per time);
+   and per time; leg (f)'s logsemiring K=4 N=300 and plane H=6 N=100 at
+   T=998 and 997);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -252,7 +253,14 @@ prints no result:
    each within relative 1e-4 of its single-process card run; every rank
    launches each scan of its path 2 times a sweep and runs no plain scan;
    (c)'s "reduce" elements a sweep the same at batch 400, and no
-   "gather"; sweeps/s and the collectives' bytes a sweep for each leg.
+   "gather"; sweeps/s and the collectives' bytes a sweep for each leg;
+   the time-sharded legs ((b), (d), (e), (f)) keep each rank's chunk and
+   gather 0 bytes a sweep, every leg prints each rank's peak
+   allocation on the card beside the single process's, and (f) fits
+   DMBD-Lorenz at T=3990 (ten times bench.py's T; 998, 998, 997, 997 rows a
+   rank) within 1e-4 of the single process at that T, each rank's peak
+   under half of the single process's, its collectives' elements a sweep
+   equal to (b)'s.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -774,6 +782,12 @@ def phase_kernels(card, base=None):
         cases.append((scan.LOGSEMIRING, f"K=4 T={T} N={b * lanes} (39{leg})",
                       (semiring_elems(rs, T, 4, b * lanes),)))
         cases.append((scan.KALMAN_PLANE, f"H=6 T={T} N={b} (39{leg})", kalman_elems(rs, T, 6, b)))
+    # leg (f): T=3990 over 4 ranks, 998, 998, 997 and 997 rows
+    for T in (-(-MESH_LONG_T // MESH_WORLD), MESH_LONG_T // MESH_WORLD):
+        cases.append((scan.LOGSEMIRING, f"K=4 T={T} N={N_roles} (39f)",
+                      (semiring_elems(rs, T, 4, N_roles),)))
+        cases.append((scan.KALMAN_PLANE, f"H=6 T={T} N={CFG['batch']} (39f)",
+                      kalman_elems(rs, T, 6, CFG["batch"])))
     cases.append((scan.KALMAN_LANE, f"H=2 T={MIX['T'] // 4} N={N_mix} (39e MixLDS)",
                   lane_elems(rs, MIX["T"] // 4, 2, N_mix)))
     cases.append((scan.LOGSEMIRING, f"K={hc['K']} T={hc['T'] // 4} N={hc['batch']} (39e HMM-core)",
@@ -818,14 +832,14 @@ def phase_kernels(card, base=None):
     return record
 
 
-def lorenz_data(dtype, device):
+def lorenz_data(dtype, device, T=CFG["T"]):
     from pyvbmp_tpu_torch.simulations import Lorenz
 
     sim = Lorenz()
-    sim.num_steps = CFG["T"] * 5 + 6
+    sim.num_steps = T * 5 + 6
     g = torch.Generator().manual_seed(CFG["seed"])
     # integrated on the CPU, so every phase fits the same data
-    data = sim.simulate(CFG["batch"], generator=g, device="cpu")[: CFG["T"]]
+    data = sim.simulate(CFG["batch"], generator=g, device="cpu")[:T]
     return data.to(device=device, dtype=dtype)
 
 
@@ -3319,6 +3333,8 @@ def phase_examples(card):
 MESH_SWEEPS = 3  # timed sweeps a leg, after a warm-up sweep
 MESH_WORLD = 4
 MESH_BIG_BATCH = 400  # leg (c)'s reductions at 4 times DMBD-Lorenz's batch
+MESH_LONG_T = 10 * CFG["T"]  # leg (f): ten times bench.py's T
+MESH_MEM_SHARE = 0.5  # leg (f): each rank's peak allocation under this share of the single's
 WORLD1_TOL = 1e-6  # leg (a): one rank against the single process
 
 
@@ -3327,6 +3343,7 @@ def _mesh_inputs(workdir):
     y = lorenz_data(torch.float32, "cpu").numpy()
     inputs = dict(
         lorenz=y, lorenz_big=np.concatenate([y] * (MESH_BIG_BATCH // CFG["batch"]), 1),
+        lorenz_long=lorenz_data(torch.float32, "cpu", MESH_LONG_T).numpy(),
         mix=mixlds_data(), hmm=hmm_data().float().numpy(),
         dhmm_u=dhmm_inputs().float().numpy(),
         dmbd_state=dmbd_state0(), mix_state=mixlds_state0(MIX["seed"]),
@@ -3348,8 +3365,9 @@ MESH_LEGS = {
     "a_time": ("dmbd", "time"), "a_data": ("dmbd", "data"),
     "b": ("dmbd", "time"), "c": ("dmbd", "data"), "c_big": ("dmbd_big", "data"),
     "d": ("dmbd", "both"), "e_mixlds": ("mixlds", "time"), "e_hmm": ("hmm", "time"),
-    "e_dhmm": ("dhmm", "time"),
+    "e_dhmm": ("dhmm", "time"), "f": ("dmbd_long", "time"),
 }
+FOUR_LEGS = ["b", "c", "c_big", "d", "e_mixlds", "e_hmm", "e_dhmm", "f"]
 
 
 def _mesh_model(name, inputs, time_mesh):
@@ -3358,6 +3376,7 @@ def _mesh_model(name, inputs, time_mesh):
     kind, state, data = {
         "dmbd": ("dmbd", "dmbd_state", ("lorenz",)),
         "dmbd_big": ("dmbd", "dmbd_state", ("lorenz_big",)),
+        "dmbd_long": ("dmbd", "dmbd_state", ("lorenz_long",)),
         "mixlds": ("mixlds", "mix_state", ("mix",)),
         "hmm": ("hmm", "hmm_state", ("hmm",)),
         "dhmm": ("dhmm", "dhmm_state", ("dhmm_u", "hmm")),
@@ -3370,7 +3389,9 @@ def _mesh_model(name, inputs, time_mesh):
 
 def _mesh_leg(leg, inputs, meshes):
     """One leg on this rank: (ELBOs, seconds of the timed sweeps, kernel
-    launches and plain calls, collective elements and bytes by tag)."""
+    launches and plain calls, collective elements and bytes by tag, the
+    peak of the bytes allocated on the card over the leg, its data
+    included)."""
     import torch.distributed as dist
 
     from pyvbmp_tpu_torch.parallel import data_parallel_update
@@ -3378,6 +3399,7 @@ def _mesh_leg(leg, inputs, meshes):
     name, how = MESH_LEGS[leg]
     seq = meshes["seq_data" if how == "both" else "seq"]
     data_mesh = meshes["seq_data" if how == "both" else "data"]
+    base = _peak_reset()
     make, data = _mesh_model(name, inputs, None if how == "data" else seq)
     sweeps = 1 if leg == "c_big" else MESH_SWEEPS
 
@@ -3402,7 +3424,16 @@ def _mesh_leg(leg, inputs, meshes):
     return dict(elbo=list(model.ELBO_save), seconds=dt, sweeps=sweeps, launches=launches,
                 plain=plain,
                 elements={t: sum(m.elements(t) for m in meshes.values()) for t in tags},
-                nbytes={t: sum(m.nbytes(t) for m in meshes.values()) for t in tags})
+                nbytes={t: sum(m.nbytes(t) for m in meshes.values()) for t in tags},
+                peak=torch.cuda.max_memory_allocated() - base)
+
+
+def _peak_reset():
+    """Start counting the card's peak allocation: the bytes allocated now,
+    which a leg's peak is taken above."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def _mesh_rank(rank, world, workdir, backend, legs):
@@ -3442,11 +3473,19 @@ def _spawn_ranks(world, workdir, backend, legs):
 
 
 def _single(name, inputs):
-    """The single-process card run of a leg's model: its ELBOs."""
+    """The single-process card run of a leg's model, after a warm-up sweep
+    on a second copy: its ELBOs, sweeps/s and peak allocation over the
+    run (its data included)."""
+    base = _peak_reset()
     make, data = _mesh_model(name, inputs, None)
+    make().update(*data, iters=1)
     model = make()
+    t0 = time.perf_counter()
     model.update(*data, iters=MESH_SWEEPS)
-    return np.asarray(model.ELBO_save, np.float64)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(elbo=np.asarray(model.ELBO_save, np.float64), rate=MESH_SWEEPS / dt,
+                peak=torch.cuda.max_memory_allocated() - base)
 
 
 def phase_mesh(card):
@@ -3468,26 +3507,35 @@ def phase_mesh(card):
     (d) a 2 x 2 (seq x data) mesh: DMBD-Lorenz with time_mesh and
         data_parallel_update both: the ELBO within 1e-4;
     (e) 4 ranks: MixLDS, HMM-core and dHMM with time_mesh, each within 1e-4
-        of its single-process run; 2 launches a sweep of their scan.
+        of its single-process run; 2 launches a sweep of their scan;
+    (f) 4 ranks: DMBD-Lorenz at T=3990 (ten times bench.py's T), batch
+        100, time cut over the 4 (998, 998, 997, 997 rows): the ELBO within
+        1e-4 of the single process at the same T, and each rank's peak
+        allocation under half of the single process's.
 
-    Prints sweeps/s and the collectives' bytes a sweep for each leg.
-    Returns the launches of every rank of every leg, by kernel."""
+    A time-sharded leg ((b), (d), (e), (f)) keeps each rank's chunk: it
+    must gather nothing ("gather" bytes 0 a sweep).  Prints sweeps/s, the
+    collectives' bytes a sweep by tag and each rank's peak allocation on
+    the card (its data included) beside the single process's, for each
+    leg.  Returns the launches of every rank of every leg, by kernel."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d4:
         inputs = _mesh_inputs(d1)
         np.save(Path(d4) / "inputs.npy", inputs, allow_pickle=True)
         one, t1 = _spawn_ranks(1, d1, "nccl", ["a_time", "a_data"])
-        four, t4 = _spawn_ranks(MESH_WORLD, d4, "gloo",
-                                ["b", "c", "c_big", "d", "e_mixlds", "e_hmm", "e_dhmm"])
+        four, t4 = _spawn_ranks(MESH_WORLD, d4, "gloo", FOUR_LEGS)
     print(f"phase 39 parallel layer: spawned 1 rank (NCCL) in {t1:.1f} s and "
           f"{MESH_WORLD} ranks on one card (gloo, tensors on the card) in {t4:.1f} s; "
           f"card {card}")
-    refs = {name: _single(name, inputs) for name in ("dmbd", "mixlds", "hmm", "dhmm")}
+    refs = {name: _single(name, inputs)
+            for name in ("dmbd", "mixlds", "hmm", "dhmm", "dmbd_long")}
+    for name, ref in refs.items():
+        print(f"  single process {name}: {ref['rate']:.3f} sweeps/s, peak allocation "
+              f"{ref['peak']} bytes; card {card}")
     total = {k.name: 0 for k in kernel_counts()}
     a_sweep = lambda n, sweeps: {k: v // sweeps for k, v in n.items()}
-    for ranks, legs in ((one, ("a_time", "a_data")),
-                        (four, ("b", "c", "c_big", "d", "e_mixlds", "e_hmm", "e_dhmm"))):
+    for ranks, legs in ((one, ("a_time", "a_data")), (four, FOUR_LEGS)):
         for leg in legs:
             name, how = MESH_LEGS[leg]
             res = ranks[0][leg]
@@ -3499,20 +3547,32 @@ def phase_mesh(card):
             sweeps = res["sweeps"]
             secs = max(r[leg]["seconds"] for r in ranks)
             label = f"({leg[0]}) {name} {how} on {len(ranks)} rank{'s' * (len(ranks) > 1)}"
-            print(f"  {label}: {sweeps / secs:.3f} sweeps/s ({secs:.3f} s); collective "
+            print(f"  {label}: {sweeps / secs:.3f} sweeps/s ({secs:.3f} s; each rank "
+                  f"{[round(sweeps / r[leg]['seconds'], 3) for r in ranks]}); collective "
                   f"bytes a sweep (rank 0) {a_sweep(res['nbytes'], sweeps)}, elements "
                   f"{a_sweep(res['elements'], sweeps)}; card {card}")
             if leg == "c_big":
                 continue
-            ref = refs[name]
+            peaks = [r[leg]["peak"] for r in ranks]
+            print(f"    peak allocation on each rank {peaks} bytes; single process "
+                  f"{refs[name]['peak']} ({max(peaks) / refs[name]['peak']:.3f} of it)")
+            if how != "data":
+                for i, r in enumerate(ranks):
+                    if r[leg]["nbytes"]["gather"]:
+                        fail(f"phase 39 ({leg}) rank {i}: a time-sharded sweep gathered "
+                             f"{r[leg]['nbytes']['gather']} bytes")
+            if leg == "f" and not max(peaks) < MESH_MEM_SHARE * refs[name]["peak"]:
+                fail(f"phase 39 (f): a rank's peak allocation {max(peaks)} is not under "
+                     f"{MESH_MEM_SHARE} of the single process's {refs[name]['peak']}")
+            ref = refs[name]["elbo"]
             dev = float(np.max(np.abs(np.asarray(res["elbo"]) - ref) / np.abs(ref)))
             tol = WORLD1_TOL if leg.startswith("a") else REL_TOL
             print(f"    ELBO {res['elbo']}; single process {ref.tolist()}; max rel dev "
                   f"{dev:.3e} (want <= {tol:g})")
             if not dev <= tol:
                 fail(f"phase 39 ({leg}): {name} differs from the single process by {dev:.3e}")
-            want = {"dmbd": SCAN_PAIR_WANT, "mixlds": LANE_WANT, "hmm": ROLE_SCAN_WANT,
-                    "dhmm": ROLE_SCAN_WANT}[name]
+            want = {"dmbd": SCAN_PAIR_WANT, "dmbd_long": SCAN_PAIR_WANT, "mixlds": LANE_WANT,
+                    "hmm": ROLE_SCAN_WANT, "dhmm": ROLE_SCAN_WANT}[name]
             want = per_sweep(want, sweeps)
             print(f"    kernel launches on each rank {res['launches']} (want {want})")
             for i, r in enumerate(ranks):
@@ -3527,6 +3587,10 @@ def phase_mesh(card):
         fail("phase 39 (c): the reductions grow with the batch")
     if c["elements"]["gather"] or big["elements"]["gather"]:
         fail("phase 39 (c): a data-parallel sweep gathered")
+    b, f = (a_sweep(four[0][leg]["elements"], four[0][leg]["sweeps"]) for leg in ("b", "f"))
+    print(f"  (b) and (f) elements a sweep: T={CFG['T']} {b}, T={MESH_LONG_T} {f}")
+    if any(b[t] != f[t] for t in ("scan", "halo", "reduce")):
+        fail("phase 39 (f): the collectives of a time-sharded sweep grow with T")
     return total
 
 

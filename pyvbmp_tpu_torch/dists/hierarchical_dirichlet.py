@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from .dirichlet import Dirichlet
-from ..utils.torchutils import Node, node, replace, sum_leading
+from ..utils.torchutils import Node, batch_sum, node, replace, sum_leading
 
 
 @node
@@ -65,9 +65,13 @@ class Hierarchical_Dirichlet(Node):
         return replace(self, dists=dists, NA=NA)
 
     def raw_update(self, X, p=None, lr=1.0, beta=None):
+        """Update from counts X (sample + batch + event), weighted by p
+        (sample + batch) when given; the sum over the samples is completed
+        over processes that split them (``batch_sum``)."""
         if p is not None:
             X = X * p.reshape(p.shape + (1,) * self.event_dim)
-        return self.ss_update(sum_leading(X, self.batch_dim + self.event_dim), lr, beta)
+        NA, = batch_sum(sum_leading(X, self.batch_dim + self.event_dim))
+        return self.ss_update(NA, lr, beta)
 
     update = raw_update
 

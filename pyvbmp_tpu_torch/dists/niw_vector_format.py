@@ -17,7 +17,7 @@ from .wishart import Wishart
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv_and_logdet
 from ..utils.torchutils import (
-    Node, as_tensor, bquad, bweighted_sum, default_device, node, replace,
+    Node, as_tensor, batch_sum, bquad, bweighted_sum, default_device, node, replace,
 )
 
 
@@ -73,10 +73,11 @@ class _NIWvfMoments:
                        batch_shape=self.batch_shape[:-n])
 
     def raw_update(self, X, p=None, lr=1.0, beta=0.0):
-        return self.ss_update(*_moment_stats(self, X, X @ mT(X), p), lr, beta)
+        return self.ss_update(*batch_sum(*_moment_stats(self, X, X @ mT(X), p)), lr, beta)
 
     def update(self, pX, p=None, lr=1.0, beta=0.0):
-        return self.ss_update(*_moment_stats(self, pX.mean(), pX.EXXT(), p), lr, beta)
+        return self.ss_update(*batch_sum(*_moment_stats(self, pX.mean(), pX.EXXT(), p)),
+                              lr, beta)
 
     def Elog_like(self, X):
         # x' <Sigma^-1> x as one matmul over the samples (bquad) where X

@@ -8,7 +8,11 @@ logits and per-time pairwise statistics: the sequential
 with ``parallel_scan=True`` ``ops.parallel_hmm.driven_forward_backward_parallel``
 (the logsemiring scan pair, the CUDA kernel for tensors on the card), or
 with a ``time_mesh`` (a ``parallel.Mesh``) that smoother with its time axis
-cut across the mesh's ranks.
+cut across the mesh's ranks.  ``raw_update`` then runs the sweep on this
+rank's rows of T: p and the per-time SEzz are its rows (``CHUNK_STATE``),
+and the sums over time and samples are completed where they are formed
+(``batch_sum``: the E-step's, the MNLR transition's at each of its
+iterations, the observation node's).
 """
 from __future__ import annotations
 
@@ -16,9 +20,16 @@ import numpy as np
 import torch
 
 from ..dists import Dirichlet
+from ..parallel.seq_parallel import time_sweep
 from ..transforms.mnlr import MultiNomialLogisticRegression
 from ..utils import math as um
-from ..utils.torchutils import default_device, replace, sum_leading
+from ..utils.torchutils import (
+    batch_sum,
+    completes_sums,
+    default_device,
+    replace,
+    sum_leading,
+)
 
 
 def driven_forward_backward(trans_logits, init_logits, obs_logits, ptemp=1.0):
@@ -69,6 +80,8 @@ class dHMM:
     transition batched over source states and a Dirichlet initial state
     pinned to its prior."""
 
+    CHUNK_STATE = {"p": "time", "SEzz": "time"}
+
     def __init__(self, obs_dist, p, transition_mask=None, ptemp=1.0,
                  parallel_scan=False, time_mesh=None, *, generator=None, dtype=None,
                  device=None):
@@ -80,6 +93,7 @@ class dHMM:
         from ..parallel.api import as_time_mesh
 
         self.time_mesh = as_time_mesh(time_mesh)
+        self.time_chunk = self._sweep_chunk = None
         obs_dist = obs_dist.to(default_device(device), dtype)
         like = obs_dist.mu
         self.obs_dist = obs_dist
@@ -131,17 +145,22 @@ class dHMM:
             self.transition_logits(X), self.initial.loggeomean(), self.obs_logits(Y),
             self.ptemp,
         )
+        if self._sweep_chunk is None:
+            self.time_chunk = None  # p and SEzz are whole
         keep = self.batch_dim + self.event_dim
-        self.SEz0 = sum_leading(SEz0, keep)
-        self.NA = sum_leading(self.p.sum(0), keep)
-        self.sumlogZ = sum_leading(self.logZ, self.batch_dim)
+        # the E-step's sums over the samples (and time), for the M-steps and
+        # the ELBO
+        self.SEz0, self.NA, self.sumlogZ = batch_sum(
+            sum_leading(SEz0, keep), sum_leading(self.p.sum(0), keep),
+            sum_leading(self.logZ, self.batch_dim))
 
     def raw_update_markov_parms(self, X, lr=1.0):
         self.transition.raw_update(X, self.SEzz, iters=4, lr=lr)
         self.initial = self.initial.ss_update(self.SEz0, lr)
 
     def raw_update_obs_parms(self, Y, lr=1.0):
-        self.obs_dist = self.obs_dist.raw_update(Y, self.p, lr)
+        with completes_sums(self.obs_dist):
+            self.obs_dist = self.obs_dist.raw_update(Y, self.p, lr)
 
     def _vb_step(self, X, Y, lr):
         """One VB sweep: E-step, the three M-steps, and the sweep's ELBO
@@ -158,9 +177,13 @@ class dHMM:
         observations Y (T,) + sample + batch + event."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
-        Y = Y[..., None, :]
-        X = X[..., None, :]
-        ELBOs = torch.stack([self._vb_step(X, Y, lr) for _ in range(iters)])
+        n_seq = Y.shape[1] if Y.ndim > 1 + self.batch_dim + self.event_dim else None
+        with time_sweep(self, Y, n_seq) as chunk:
+            if chunk is not None:
+                X, Y = chunk.take(X), chunk.take(Y)
+            Y = Y[..., None, :]
+            X = X[..., None, :]
+            ELBOs = torch.stack([self._vb_step(X, Y, lr) for _ in range(iters)])
         self.logZ = self.sumlogZ
         ELBO_last = -np.inf
         for ELBO in ELBOs.cpu().numpy():  # one host fetch for the whole trajectory

@@ -22,7 +22,12 @@ from fresh role and latent E-steps; ``plot_observation`` and
 A ``time_mesh`` (a ``parallel.Mesh`` with a "seq" axis) cuts the time axis
 of both smoothers, the role chain's and the latent chain's, across the
 mesh's ranks (``parallel/seq_parallel.py``), with the corrected
-cross-covariances, as in the JAX package.  A non-empty ``batch_shape``
+cross-covariances, as in the JAX package.  ``update`` then runs every
+step of the sweep on this rank's rows of T: the role logits, the
+role-averaged messages and the statistics are its rows and parts, the
+``batch_sum`` sites complete them, and px and the roles p stay this
+rank's rows (``CHUNK_STATE``); logZ is completed over time when the update
+ends.  A non-empty ``batch_shape``
 raises ``NotImplementedError``; the JAX package's own update fails on it (a
 broadcasting error in its role E-step), so there is nothing to port
 against.
@@ -44,6 +49,7 @@ from ..utils.torchutils import (
     replace,
     sum_leading,
 )
+from ..parallel.seq_parallel import time_sweep
 from .arhmm import ARHMM_prXRY
 from .hmm import smoother_dispatch
 from .lds import LinearDynamicalSystems
@@ -192,6 +198,8 @@ def n_object_mask(n, hidden_dims, role_dims, control_dim, obs_dim, regression_di
 
 
 class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
+    CHUNK_STATE = {"px": "time", "obs_model.p": "time", "logZ": "seq"}
+
     def __init__(
         self,
         obs_shape,
@@ -223,6 +231,7 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         from ..parallel.api import as_time_mesh
 
         self.time_mesh = as_time_mesh(time_mesh)
+        self.time_chunk = self._sweep_chunk = None
         device = default_device(device)
         dtype = dtype or torch.get_default_dtype()
         control_dim = control_dim + 1
@@ -459,17 +468,23 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
 
     def _update_reshaped(self, y, u, r, iters=1, latent_iters=1, lr=1.0, verbose=False):
         """VB sweeps on already-reshaped inputs: the step dispatcher that
-        ``update`` and ``parallel.data_parallel_update`` share."""
+        ``update`` and ``parallel.data_parallel_update`` share.  With a
+        ``time_mesh`` the sweeps run on this rank's rows."""
         om = self.obs_model
-        px = self._init_px(r) if self.px is None else self.px
         x0, A = self.x0, self.A
         transition, initial, B = om.transition, om.initial, om.obs_dist
         ELBOs = []
-        for _ in range(iters):
-            x0, A, transition, initial, B, px, p, logZ, ELBO = self._dmbd_step(
-                x0, A, transition, initial, B, px, y, u, r, lr, latent_iters
-            )
-            ELBOs.append(ELBO)
+        with time_sweep(self, y, self._n_seq(y)) as chunk:
+            if chunk is not None:
+                y, u, r = chunk.take(y), chunk.take(u), chunk.take(r)
+            px = self._init_px(r) if self.px is None else self.px
+            for _ in range(iters):
+                x0, A, transition, initial, B, px, p, logZ, ELBO = self._dmbd_step(
+                    x0, A, transition, initial, B, px, y, u, r, lr, latent_iters
+                )
+                ELBOs.append(ELBO)
+            if chunk is not None:  # each sequence's logZ, whole over time
+                logZ, = chunk.complete_time(logZ)
         self.x0, self.A = x0, A
         om.transition, om.initial, om.obs_dist = transition, initial, B
         om.p, self.px, self.logZ = p, px, logZ

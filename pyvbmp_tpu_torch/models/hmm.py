@@ -16,15 +16,28 @@ With ``driven=True`` the dispatch gives the input-driven forms of the two
 ``ops.parallel_hmm.driven_forward_backward_parallel``).  A ``time_mesh`` (a
 ``parallel.Mesh`` with a "seq" axis) comes first: the scan smoother with
 its time axis cut across the mesh's ranks (``parallel/seq_parallel.py``).
+``HMM.update`` then runs the sweep on this rank's rows of T: p is its rows,
+and the E-step's ``batch_sum`` and the observation node's complete the
+sums.  The node's update must form its sums through ``batch_sum``, as the
+port's nodes do; one that does not raises in such a sweep
+(``torchutils.completes_sums``).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..dists import Dirichlet
+from ..ops.parallel_hmm import driven_forward_backward_parallel, forward_backward_parallel
+from ..parallel.seq_parallel import (
+    time_sharded_driven_forward_backward,
+    time_sharded_forward_backward,
+    time_sweep,
+)
 from ..utils import math as um
-from ..utils.torchutils import batch_sum, default_device, sum_leading
+from ..utils.torchutils import batch_sum, completes_sums, default_device, sum_leading
 
 
 def forward_backward(trans_logits, init_logits, obs_logits, ptemp=1.0):
@@ -81,14 +94,12 @@ def smoother_dispatch(model, driven=False):
     scan-based smoother when ``model.parallel_scan`` is set, else the
     sequential one; with ``driven`` their input-driven forms (per-time
     transition logits, per-time SEzz).  Returns ``fb(trans_logits,
-    init_logits, obs_logits, ptemp)``."""
+    init_logits, obs_logits, ptemp)``.  In a time-sharded sweep of the
+    model (``seq_parallel.time_sweep``) it is the scan-based smoother on
+    the sweep's chain: this rank's rows in, its rows and parts out."""
     mesh = getattr(model, "time_mesh", None)
-    if mesh is not None:
-        from ..parallel.seq_parallel import (
-            time_sharded_driven_forward_backward,
-            time_sharded_forward_backward,
-        )
-
+    chunk = getattr(model, "_sweep_chunk", None)
+    if mesh is not None and chunk is None:
         sharded = (time_sharded_driven_forward_backward if driven
                    else time_sharded_forward_backward)
 
@@ -96,13 +107,9 @@ def smoother_dispatch(model, driven=False):
             return sharded(trans, init, obs, mesh, ptemp=ptemp)
 
         return fb
-    if getattr(model, "parallel_scan", False):
-        from ..ops.parallel_hmm import (
-            driven_forward_backward_parallel,
-            forward_backward_parallel,
-        )
-
-        return driven_forward_backward_parallel if driven else forward_backward_parallel
+    if chunk is not None or getattr(model, "parallel_scan", False):
+        fb = driven_forward_backward_parallel if driven else forward_backward_parallel
+        return fb if chunk is None else functools.partial(fb, chain=chunk)
     if driven:
         from .dhmm import driven_forward_backward
 
@@ -112,6 +119,8 @@ def smoother_dispatch(model, driven=False):
 
 class HMM:
     """Stateful shell around immutable parameter nodes."""
+
+    CHUNK_STATE = {"p": "time"}
 
     def __init__(self, obs_dist, transition_mask=None, ptemp=1.0, parallel_scan=False,
                  time_mesh=None, *, generator=None, dtype=None, device=None):
@@ -123,6 +132,7 @@ class HMM:
         from ..parallel.api import as_time_mesh
 
         self.time_mesh = as_time_mesh(time_mesh)
+        self.time_chunk = self._sweep_chunk = None
         obs_dist = obs_dist.to(default_device(device), dtype)
         like = obs_dist.mu
         self.obs_dist = obs_dist
@@ -198,7 +208,8 @@ class HMM:
         p, SEzz, SEz0, NA, logZ = self._estep(transition, initial, obs_dist, X)
         transition = transition.ss_update(SEzz, lr=lr, beta=beta)
         initial = initial.ss_update(SEz0, lr=lr, beta=beta)
-        obs_dist = self._obs_update(obs_dist, X, p, lr, beta)
+        with completes_sums(obs_dist):
+            obs_dist = self._obs_update(obs_dist, X, p, lr, beta)
         # the ELBO pairs the post-M-step KL with the E-step logZ, as the JAX
         # package and the reference do
         KL = self._obs_KL(obs_dist) + transition.KLqprior().sum(-1) + initial.KLqprior()
@@ -212,6 +223,7 @@ class HMM:
         self.p, SEzz, SEz0, NA, logZ = self._estep(
             self.transition, self.initial, self.obs_dist, X
         )
+        self.time_chunk = None  # p is whole (a time_mesh's whole-output smoother)
         self.NA = NA
         self.logZ = logZ
         return SEzz, SEz0, NA, logZ
@@ -224,14 +236,21 @@ class HMM:
         self.obs_dist = self._obs_update(self.obs_dist, X, self.p, lr, beta)
 
     def update(self, X, iters=1, T=None, lr=1.0, beta=None, verbose=False):
-        """``iters`` VB-EM sweeps on X: (T,) + sample + batch + event."""
+        """``iters`` VB-EM sweeps on X: (T,) + sample + batch + event; with
+        a ``time_mesh``, on this rank's rows of T."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         ELBOs = []
-        for _ in range(iters):
-            (self.transition, self.initial, self.obs_dist, self.p, self.NA, self.logZ,
-             ELBO) = self._vb_step(self.transition, self.initial, self.obs_dist, X, lr, beta)
-            ELBOs.append(ELBO)
+        n_seq = (X.shape[1] if self.time_mesh is not None
+                 and X.ndim > 1 + self.batch_dim + self.obs_dist.event_dim else None)
+        with time_sweep(self, X, n_seq) as chunk:
+            if chunk is not None:
+                X = chunk.take(X)
+            for _ in range(iters):
+                (self.transition, self.initial, self.obs_dist, self.p, self.NA, self.logZ,
+                 ELBO) = self._vb_step(self.transition, self.initial, self.obs_dist, X, lr,
+                                       beta)
+                ELBOs.append(ELBO)
         # one host fetch for the whole trajectory
         for ELBO in torch.stack(ELBOs).cpu().numpy():
             if verbose:

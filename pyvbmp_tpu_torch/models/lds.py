@@ -20,8 +20,14 @@ Two smoothers, picked by ``parallel_scan``:
 A ``time_mesh`` (a ``parallel.Mesh`` with a "seq" axis) comes before both:
 the scan-based smoother with its time axis cut across the mesh's ranks
 (``parallel/seq_parallel.py``), whatever ``cross_cov_compat`` says, as in
-the JAX package.  DMBD subclasses this class for the latent-chain
-machinery.
+the JAX package.  ``update`` then runs the whole sweep on this rank's rows
+of T (``seq_parallel.time_sweep``): the smoother's outputs, the
+messages and the sufficient statistics are its rows and parts, and
+``_ss_update``'s ``batch_sum`` completes the statistics over the ranks;
+px stays this rank's rows (``CHUNK_STATE``; whole through
+``seq_parallel.gather_posterior``) and each sequence's logZ is completed
+over time when the update ends, so that ``ELBO()`` holds on every rank.
+DMBD subclasses this class for the latent-chain machinery.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ import torch
 
 from ..dists import NormalInverseWishart
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
+from ..ops.parallel_kalman import kalman_smoother_rows, parallel_kalman_smoother
+from ..parallel.seq_parallel import time_sharded_kalman_smoother, time_sweep
 from ..transforms import MatrixNormalGamma, MatrixNormalWishart
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv, psd_inv_and_logdet
@@ -37,6 +45,10 @@ from ..utils.torchutils import batch_sum, default_device, sum_leading
 
 
 class LinearDynamicalSystems:
+    # the state a time-sharded update leaves as this rank's (seq_parallel):
+    # its rows of time, and its block of the batch where the sweep splits it
+    CHUNK_STATE = {"px": "time", "logZ": "seq"}
+
     def __init__(
         self,
         obs_shape,
@@ -58,6 +70,7 @@ class LinearDynamicalSystems:
         from ..parallel.api import as_time_mesh
 
         self.time_mesh = as_time_mesh(time_mesh)
+        self.time_chunk = self._sweep_chunk = None
         device = default_device(device)
         dtype = dtype or torch.get_default_dtype()
         control_dim = control_dim + 1
@@ -330,14 +343,18 @@ class LinearDynamicalSystems:
         """Dispatch, in the JAX package's order: the time-sharded smoother
         over ``time_mesh`` when it is set, else the scan-based smoother when
         ``parallel_scan`` is set (both with the corrected
-        cross-covariances), else the sequential loops."""
-        if self.time_mesh is not None:
-            from ..parallel.seq_parallel import time_sharded_kalman_smoother
-
+        cross-covariances), else the sequential loops.  In a time-sharded
+        sweep (``seq_parallel.time_sweep``) the scan-based smoother runs on
+        the sweep's chain and keeps this rank's rows: Sigma_cross holds its
+        rows of Sigma_{t-1,t} (the x_{-1} cross in the chain's row 0) and
+        Sigma_x0_cross is None."""
+        chunk = self._sweep_chunk
+        if chunk is not None:
+            marginals, Sigma_cross, *ends = kalman_smoother_rows(parms, x0, like, u, chunk)
+            out = (marginals, Sigma_cross, None, *ends)
+        elif self.time_mesh is not None:
             out = time_sharded_kalman_smoother(parms, x0, like, u, self.time_mesh)
         elif self.parallel_scan:
-            from ..ops.parallel_kalman import parallel_kalman_smoother
-
             out = parallel_kalman_smoother(parms, x0, like, u)
         else:
             return self.forward_backward_loop(parms, x0, like, u)
@@ -348,7 +365,12 @@ class LinearDynamicalSystems:
     # ----------------------------------------------------------- suff statistics
     def _latent_suffstats(self, px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0,
                           SE_x0, y, u, r, logZ):
-        """Time-integrated sufficient statistics."""
+        """Time-integrated sufficient statistics.  In a time-sharded sweep
+        they are this rank's part: sums over its rows, the pairs (x_{t-1},
+        x_t) of its rows t with x_{start-1} from the rank before (one halo
+        row), and the x_{-1} and x_{T-1} terms (N included) on the ranks
+        holding those rows, zeros on the others."""
+        chunk = self._sweep_chunk
         mu = px.mu
         Sigma = px.Sigma
         SE_x0_x0 = Sigma_x0_x0 + SE_x0 @ mT(SE_x0)
@@ -361,11 +383,18 @@ class LinearDynamicalSystems:
             return torch.einsum("t...io,t...jo->...ij", a, b)
 
         SE_x_x = tsum_outer(mu, mu) + Sigma.sum(0)
-        SE_xp_xp = SE_x_x - (mu[-1] @ mT(mu[-1]) + Sigma[-1]) + SE_x0_x0
         SE_x_u = tsum_outer(mu, u)
-        SE_xp_u = tsum_outer(mu[:-1], u[1:]) + SE_x0 @ mT(u[0])
-        SE_xp_x = tsum_outer(mu[:-1], mu[1:]) + Sigma_cross.sum(0)
-        SE_xp_x = SE_xp_x + SE_x0 @ mT(mu[0]) + Sigma_x0_cross
+        if chunk is None:
+            SE_xp_xp = SE_x_x - (mu[-1] @ mT(mu[-1]) + Sigma[-1]) + SE_x0_x0
+            SE_xp_u = tsum_outer(mu[:-1], u[1:]) + SE_x0 @ mT(u[0])
+            SE_xp_x = tsum_outer(mu[:-1], mu[1:]) + Sigma_cross.sum(0)
+            SE_xp_x = SE_xp_x + SE_x0 @ mT(mu[0]) + Sigma_x0_cross
+        else:
+            mu_T, Sigma_T = chunk.last(mu, Sigma)
+            SE_xp_xp = SE_x_x - chunk.held(mu_T @ mT(mu_T) + Sigma_T) + SE_x0_x0
+            mu_prev, = chunk.shift((mu,), up=False, edge=(SE_x0,))
+            SE_xp_u = tsum_outer(mu_prev, u)
+            SE_xp_x = tsum_outer(mu_prev, mu) + Sigma_cross.sum(0)
         SE_x_r = tsum_outer(mu, r)
         SE_x_y = tsum_outer(mu, y)
         SE_u_u = tsum_outer(u, u)
@@ -388,7 +417,7 @@ class LinearDynamicalSystems:
 
         lead = sample_shape + self.batch_shape + self.offset
         T = y.new_full(lead, float(y.shape[0]))
-        N = y.new_ones(lead)
+        N = y.new_full(lead, 1.0 if chunk is None or chunk.holds_first else 0.0)
         SE_y_xr = torch.cat([mT(SE_x_y), SE_y_r], -1)
         SE_xpu_xpu = torch.cat(
             [
@@ -504,18 +533,30 @@ class LinearDynamicalSystems:
         y, u, r = self.reshape_inputs(y, u, r)
         self._update_reshaped(y, u, r, p=p, iters=iters, lr=lr, verbose=verbose)
 
+    def _n_seq(self, y):
+        """The width of a reshaped ``y``'s sample axis (axis 1), or None."""
+        sample_shape = y.shape[1: y.ndim - self.event_dim - self.batch_dim - 1]
+        return sample_shape[0] if len(sample_shape) else None
+
     def _update_reshaped(self, y, u, r, p=None, iters=1, lr=1.0, verbose=False):
         """VB sweeps on already-reshaped inputs.  ``p`` (sample x batch
-        assignment weights) weights the M-step sufficient statistics."""
-        if iters == 1:
-            self.x0, self.A, self.obs_model, self.px, self.logZ, L = self._vb_step(
-                self.x0, self.A, self.obs_model, y, u, r, lr, p
-            )
-            Ls = [L]
-        else:
-            self.x0, self.A, self.obs_model, self.px, self.logZ, Ls = self._vb_multi(
-                self.x0, self.A, self.obs_model, y, u, r, lr, iters, p
-            )
+        assignment weights) weights the M-step sufficient statistics.  With
+        a ``time_mesh`` the sweeps run on this rank's rows."""
+        with time_sweep(self, y, self._n_seq(y)) as chunk:
+            if chunk is not None:
+                y, u, r = chunk.take(y), chunk.take(u), chunk.take(r)
+                p = None if p is None else chunk.take_samples(p)
+            if iters == 1:
+                self.x0, self.A, self.obs_model, self.px, self.logZ, L = self._vb_step(
+                    self.x0, self.A, self.obs_model, y, u, r, lr, p
+                )
+                Ls = [L]
+            else:
+                self.x0, self.A, self.obs_model, self.px, self.logZ, Ls = self._vb_multi(
+                    self.x0, self.A, self.obs_model, y, u, r, lr, iters, p
+                )
+            if chunk is not None:  # each sequence's logZ, whole over time
+                self.logZ, = chunk.complete_time(self.logZ)
         # one host fetch for the whole trajectory
         for L in torch.stack(Ls).cpu().tolist():
             if verbose:
@@ -525,6 +566,7 @@ class LinearDynamicalSystems:
 
     def update_latents(self, y, u, r, p=None, lr=1.0):
         self.px, ss = self._update_latents(self.x0, self.A, self.obs_model, y, u, r)
+        self.time_chunk = None  # px is whole (a time_mesh's whole-output smoother)
         self._ss = ss
         self.logZ = ss["logZ"]
         # expose stats with the reference's attribute names

@@ -7,18 +7,24 @@ CUDA kernel, two launches per sweep) with the corrected cross-covariances;
 the default is the sequential smoother with the reference's
 cross-covariance quirk.  A ``time_mesh`` (a ``parallel.Mesh``) cuts the
 smoother's time axis across the mesh's ranks, also with the corrected
-cross-covariances.
+cross-covariances, and ``update`` runs the sweep on this rank's rows of
+T: each sequence's logZ is completed over the time axis (one all_reduce)
+before the responsibilities' softmax, and the components' px stay this
+rank's rows (``CHUNK_STATE``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..dists import Dirichlet
+from ..parallel.seq_parallel import time_sweep
 from ..utils.torchutils import batch_sum, sum_leading
 from .lds import LinearDynamicalSystems
 
 
 class MixtureofLinearDynamicalSystems:
+    CHUNK_STATE = {"lds.px": "time", "p": "seq", "logZ": "seq"}
+
     def __init__(self, num_systems, obs_shape, hidden_dim, control_dim,
                  regression_dim, parallel_scan=False, time_mesh=None,
                  generator=None, dtype=None, device=None):
@@ -58,14 +64,22 @@ class MixtureofLinearDynamicalSystems:
 
     def _vb_step(self, x0, A, obs_model, pi, y, u, r, lr):
         lds = self.lds
-        _, ss = lds._update_latents(x0, A, obs_model, y, u, r)
-        log_p = ss["logZ"] + pi.loggeomean()
+        px, ss = lds._update_latents(x0, A, obs_model, y, u, r)
+        chunk = lds._sweep_chunk
+        logZ_seq = ss["logZ"]
+        if chunk is not None:
+            # the softmax needs each sequence's whole logZ: complete it over
+            # time first; the sums of p and logZ below, alike on every rank of
+            # the time line, then count on its first rank alone
+            logZ_seq, = chunk.complete_time(logZ_seq)
+        log_p = logZ_seq + pi.loggeomean()
         shift = log_p.max(-1, keepdim=True).values
         log_p = log_p - shift
         logZ = (torch.logsumexp(log_p, -1, keepdim=True) + shift)[..., 0]
         p = torch.exp(log_p)
         p = p / p.sum(-1, keepdim=True)
-        NA, data = batch_sum(sum_leading(p, 1), logZ.sum())
+        sums = (sum_leading(p, 1), logZ.sum())
+        NA, data = batch_sum(*(sums if chunk is None else chunk.once(*sums)))
         KL = pi.KLqprior() + lds._KL(x0, A, obs_model).sum(-1)
         ELBO = data - KL
         pi = pi.ss_update(NA, lr=lr)
@@ -73,7 +87,7 @@ class MixtureofLinearDynamicalSystems:
         obs_model = obs_model.ss_update(
             stats["SE_xr_xr"], stats["SE_y_xr"], stats["SE_y_y"], stats["T"], lr
         )
-        return x0, A, obs_model, pi, p, NA, logZ, ELBO
+        return x0, A, obs_model, pi, px, p, NA, logZ, ELBO
 
     def update(self, y, u=None, r=None, iters=1, lr=1.0, verbose=False):
         """``iters`` VB-EM sweeps (one smoother pass each) on data y:
@@ -84,12 +98,15 @@ class MixtureofLinearDynamicalSystems:
         y, u, r = lds.reshape_inputs(y, u, r)
         x0, A, obs_model, pi = lds.x0, lds.A, lds.obs_model, self.pi
         ELBOs = []
-        for _ in range(iters):
-            x0, A, obs_model, pi, p, NA, logZ, ELBO = self._vb_step(
-                x0, A, obs_model, pi, y, u, r, lr
-            )
-            ELBOs.append(ELBO)
-        lds.x0, lds.A, lds.obs_model = x0, A, obs_model
+        with time_sweep(lds, y, lds._n_seq(y), self) as chunk:
+            if chunk is not None:
+                y, u, r = chunk.take(y), chunk.take(u), chunk.take(r)
+            for _ in range(iters):
+                x0, A, obs_model, pi, px, p, NA, logZ, ELBO = self._vb_step(
+                    x0, A, obs_model, pi, y, u, r, lr
+                )
+                ELBOs.append(ELBO)
+        lds.x0, lds.A, lds.obs_model, lds.px = x0, A, obs_model, px
         self.pi, self.p, self.logZ = pi, p, logZ
         # one host fetch for the whole trajectory
         ELBO_last = float(self.ELBO_save[-1]) if self.ELBO_save else -float("inf")

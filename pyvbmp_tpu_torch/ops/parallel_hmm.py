@@ -71,8 +71,8 @@ def _hmm_plane_core(M, init_logits, ptemp, offset, chain=scan.CHAIN):
     suffix, = chain.scan(scan.LOGSEMIRING, (Mp,), reverse=True)
 
     alpha = um.stable_logsumexp(ivec[None, :, None, :] + prefix, -3)  # (T, K, N)
-    logZ = um.stable_logsumexp(chain.last(alpha)[0], 0)  # (N,)
-    offset, = chain.reduce(c[:, 0].sum(0, dtype=torch.float64) + offset.reshape(-1))
+    logZ = chain.held(um.stable_logsumexp(chain.last(alpha)[0], -2))  # (N,)
+    offset = c[:, 0].sum(0, dtype=torch.float64) + offset.reshape(-1)
     logZ = (logZ.double() + offset).to(logZ.dtype)
 
     beta = um.stable_logsumexp(suffix, -2)  # (T, K, N)
@@ -99,28 +99,19 @@ def _hmm_plane_core(M, init_logits, ptemp, offset, chain=scan.CHAIN):
 
     p_d = p.permute(0, 2, 1).reshape((T,) + bshape + (K,))
     xi_d = xi.permute(0, 3, 1, 2).reshape((T,) + bshape + (K, K))
-    SEz0 = chain.first(xi_d)[0].sum(-1)
+    SEz0 = chain.held(chain.first(xi_d)[0].sum(-1))
     logZ_d = logZ.reshape(bshape)
     return p_d, xi_d, SEz0, logZ_d
 
 
 def _forward_backward(trans_logits, init_logits, obs_logits, ptemp, driven, chain):
-    """The two smoothers below on ``chain``: this process's rows of the
-    inputs, the whole outputs."""
-    obs_logits = chain.local(obs_logits)
-    if driven:
-        trans_logits = chain.local(trans_logits)
+    """The two smoothers below on ``chain``'s rows (a ``ShardedChain``'s:
+    this process's rows in, its rows and parts out)."""
     obs_logits, offset = _shift_obs(obs_logits)
     M = trans_logits + obs_logits[..., None, :]
     p, xi, SEz0, logZ = _hmm_plane_core(M, init_logits, ptemp,
                                         offset.expand(M.shape[1:-2]), chain)
-    if driven:
-        p, xi = chain.gather(p, xi)
-    else:
-        p, = chain.gather(p)
-        xi, = chain.gather(*chain.reduce(xi.sum(0)), time=False)
-    SEz0, logZ = chain.gather(SEz0, logZ, time=False)
-    return p, xi, SEz0, logZ
+    return p, (xi if driven else xi.sum(0)), SEz0, logZ
 
 
 def forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0,
@@ -132,6 +123,12 @@ def forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0,
     obs_logits:   (T,) + sample + batch + (K,)
     Returns (p (T,)+sample+batch+(K,), SEzz sample+batch+(K,K),
     SEz0 sample+batch+(K,), logZ sample+batch).
+
+    chain: the whole time axis by default; a ``ShardedChain``
+    (``parallel/seq_parallel.py``) takes this process's rows of obs_logits
+    and returns its rows of p, its part of SEzz and logZ (sums over its
+    rows) and SEz0 where it holds row 0, zeros elsewhere: one all_reduce
+    over the time axis completes all three.
     """
     return _forward_backward(trans_logits, init_logits, obs_logits, ptemp, False, chain)
 
@@ -147,6 +144,8 @@ def driven_forward_backward_parallel(trans_logits, init_logits, obs_logits, ptem
     obs_logits:   (T,) + sample + batch + (K,)
     Returns (p (T,)+sample+batch+(K,), SEzz (T,)+sample+batch+(K,K),
     SEz0 sample+batch+(K,), logZ sample+batch).  The pairwise statistics
-    stay per time step: the MNLR transition's M-step needs SEzz[t].
+    stay per time step: the MNLR transition's M-step needs SEzz[t].  With a
+    ``ShardedChain`` (as for ``forward_backward_parallel``) trans_logits
+    are this process's rows too, and SEzz is its rows.
     """
     return _forward_backward(trans_logits, init_logits, obs_logits, ptemp, True, chain)

@@ -57,9 +57,10 @@ def element_batch_shape(parms, like):
     return bshape, invQ.shape[-1]
 
 
-def _build_elements(parms, x0, like, u):
+def _build_elements(parms, x0, like, u, prior=True):
     """Dense pairwise potentials (Jaa, Jab, Jbb, ha, hb, logw), broadcast to
-    (T,) + bshape, with the x_{-1} prior folded into element 0."""
+    (T,) + bshape, with the x_{-1} prior folded into element 0 (``prior``:
+    the rows begin the chain)."""
     iS_like, iSm_like, Res_like = like
     T = iS_like.shape[0]
     invQ = parms["invQ"]
@@ -82,6 +83,8 @@ def _build_elements(parms, x0, like, u):
     )
     logw = logw.expand((T,) + tuple(bshape[:-2]))
 
+    if not prior:
+        return (Jaa, Jab, Jbb, ha, hb, logw), bshape, T, hdim
     J0 = x0.EinvSigma()
     h0 = x0.EinvSigmamu()[..., None]
     R0 = (
@@ -262,7 +265,8 @@ def _dense_smoother(elems, bshape, T, hdim, chain=scan.CHAIN):
     # prior-side marginal q(x_{-1})
     Jb0, hvb0 = chain.first(Jb_all, hvb_all)
     Sigma_x0_x0 = psd_inv(Jb0)
-    mu_x0 = Sigma_x0_x0 @ hvb0
+    mu_x0 = chain.held(Sigma_x0_x0 @ hvb0)
+    Sigma_x0_x0 = chain.held(Sigma_x0_x0)
 
     # pairwise cross-covariances Sigma_{t-1,t}
     A = chain.shift((Ja,), up=False)[0] + Jaa
@@ -274,7 +278,7 @@ def _dense_smoother(elems, bshape, T, hdim, chain=scan.CHAIN):
     # total logZ from the last filtered potential
     Ja_T, hva_T, logca_T = chain.last(Ja, hva, logca)
     sol, logdetJ = psd_solve_and_logdet(Ja_T, hva_T)
-    logZ_total = (
+    logZ_total = chain.held(
         logca_T
         + 0.5 * (hva_T * sol).sum((-1, -2))
         - 0.5 * logdetJ
@@ -358,7 +362,8 @@ def _lane_smoother(elems, bshape, T, h, chain=scan.CHAIN):
     # prior-side marginal q(x_{-1})
     Jb0, hvb0 = chain.first(Jb_all, hvb_all)
     Sigma_x0_x0, _ = sm.sym_inv_and_logdet(h, Jb0)
-    mu_x0 = sm.mv(h, Sigma_x0_x0, hvb0, sym_a=True)
+    mu_x0 = chain.held(sm.mv(h, Sigma_x0_x0, hvb0, sym_a=True))
+    Sigma_x0_x0 = chain.held(Sigma_x0_x0)
 
     # pairwise cross-covariances Sigma_{t-1,t}
     A = sm.sym_add(chain.shift((Ja,), up=False)[0], Jaa)
@@ -373,7 +378,7 @@ def _lane_smoother(elems, bshape, T, h, chain=scan.CHAIN):
     Ja_T, hva_T, logca_T = chain.last(Ja, hva, logca)
     JaInv, logdetJ = sm.sym_inv_and_logdet(h, Ja_T)
     sol = sm.mv(h, JaInv, hva_T, sym_a=True)
-    logZ_total = (
+    logZ_total = chain.held(
         logca_T
         + 0.5 * sm.vdot(hva_T, sol)
         - 0.5 * logdetJ
@@ -421,7 +426,8 @@ def _plane_smoother(elems, bshape, T, h, chain=scan.CHAIN):
     # prior-side marginal q(x_{-1})
     Jb0, hvb0 = chain.first(Jb_all, hvb_all)
     Sigma_x0_x0, _ = pm.bsym_inv_and_logdet(Jb0)
-    mu_x0 = pm.bmv(Sigma_x0_x0, hvb0)
+    mu_x0 = chain.held(pm.bmv(Sigma_x0_x0, hvb0))
+    Sigma_x0_x0 = chain.held(Sigma_x0_x0)
 
     # pairwise cross-covariances Sigma_{t-1,t}
     A = chain.shift((Ja,), up=False)[0] + Jaa
@@ -435,7 +441,7 @@ def _plane_smoother(elems, bshape, T, h, chain=scan.CHAIN):
     Ja_T, hva_T, logca_T = chain.last(Ja, hva, logca)
     JaInv, logdetJ = pm.bsym_inv_and_logdet(Ja_T)
     sol = pm.bmv(JaInv, hva_T)
-    logZ_total = (
+    logZ_total = chain.held(
         logca_T
         + 0.5 * pm.bvdot(hva_T, sol)
         - 0.5 * logdetJ
@@ -455,8 +461,7 @@ def _plane_smoother(elems, bshape, T, h, chain=scan.CHAIN):
     )
 
 
-def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None,
-                             chain=scan.CHAIN):
+def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None):
     """Same contract as pyvbmp_tpu.ops.parallel_kalman.parallel_kalman_smoother:
     returns ((Sigma, mu, Js, hs), Sigma_cross, Sigma_x0_cross, Sigma_x0_x0,
     mu_x0, logZ_total).
@@ -467,11 +472,23 @@ def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None
     lane_form: force the component layout on/off (default: h <= 3).
     plane_form: force the plane layout on/off (default: 3 < h <= 32 when
         the lane form is not taken); with both off, the dense form.
-    chain: the steps across time (``ops.scan.Chain``): the whole time axis
-        by default; ``parallel/seq_parallel.py`` passes a time axis cut
-        across processes, which builds the elements whole, smooths its own
-        rows and gathers the outputs.
     """
+    marginals, Sigma_cross, *ends = kalman_smoother_rows(parms, x0, like, u, scan.CHAIN,
+                                                         lane_form, plane_form)
+    return (marginals, Sigma_cross[1:], Sigma_cross[0], *ends)
+
+
+def kalman_smoother_rows(parms, x0, like, u, chain, lane_form=None, plane_form=None):
+    """The smoother on ``chain``'s rows of ``like`` and ``u``: ((Sigma, mu,
+    Js, hs), Sigma_cross, Sigma_x0_x0, mu_x0, logZ_total), Sigma_cross's
+    row t the cross-covariance Sigma_{t-1,t} (the chain's row 0 that of
+    x_{-1} and x_0).  On the whole chain (``ops.scan.CHAIN``) that is
+    ``parallel_kalman_smoother``'s result with its two crosses side by
+    side.  On a ``ShardedChain`` (``parallel/seq_parallel.py``) the rows
+    are this process's, the x_{-1} prior folds into the element of the
+    process holding row 0, and the x_{-1} marginal (there) and logZ_total
+    (on the process holding the last row) are zeros elsewhere, so that one
+    all_reduce over the time axis completes them."""
     hdim = parms["invQ"].shape[-1]
     if lane_form is None:
         lane_form = hdim <= LANE_KALMAN_MAX_H and plane_form is not True
@@ -479,22 +496,12 @@ def parallel_kalman_smoother(parms, x0, like, u, lane_form=None, plane_form=None
         raise ValueError(f"the lane form serves h <= {LANE_KALMAN_MAX_H}, got h={hdim}")
     if not lane_form and plane_form is None:
         plane_form = hdim <= PLANE_KALMAN_MAX_H
-    elems, bshape, T, hdim = _build_elements(parms, x0, like, u)
-    elems = tuple(chain.local(e) for e in elems)
-    bshape, T = tuple(elems[0].shape[1:]), elems[0].shape[0]
+    elems, bshape, T, hdim = _build_elements(parms, x0, like, u, prior=chain.holds_first)
     if lane_form:
         out = _lane_smoother(elems, bshape, T, hdim, chain)
     elif plane_form:
         out = _plane_smoother(elems, bshape, T, hdim, chain)
     else:
         out = _dense_smoother(elems, bshape, T, hdim, chain)
-    Sigma, mu, Js, hs, Sigma_cross = chain.gather(*out[:5])
-    Sigma_x0_x0, mu_x0, logZ_total = chain.gather(*out[5:], time=False)
-    return (
-        (Sigma, mu, Js, hs),
-        Sigma_cross[1:],
-        Sigma_cross[0],
-        Sigma_x0_x0,
-        mu_x0,
-        logZ_total,
-    )
+    Sigma, mu, Js, hs, Sigma_cross, Sigma_x0_x0, mu_x0, logZ_total = out
+    return (Sigma, mu, Js, hs), Sigma_cross, Sigma_x0_x0, mu_x0, logZ_total

@@ -346,12 +346,14 @@ FOLDED_SCANS = tuple(s.folded for s in SCANS)
 class Chain:
     """The smoothers' steps across the time axis, with the whole axis in
     this process.  ``parallel.seq_parallel.ShardedChain`` holds the same
-    steps for a time axis cut across the ranks of a mesh.  Every method
-    that takes tensors ``*xs`` returns a tuple."""
+    steps for a time axis cut across the ranks of a mesh: there the
+    smoothers' inputs and outputs are this process's rows, and their sums
+    over time this process's part, for the caller to complete.  Every
+    method that takes tensors ``*xs`` returns a tuple.  ``holds_first``
+    and ``holds_last`` say whether this process holds the chain's first
+    and last rows."""
 
-    def local(self, x):
-        """The rows of a time-leading input that this process smooths."""
-        return x
+    holds_first = holds_last = True
 
     def scan(self, s, leaves, reverse=False):
         """Inclusive scan of ``leaves`` by ``s`` (a ``Scan``, or any
@@ -370,19 +372,21 @@ class Chain:
         return tuple(torch.cat([e, x[:-1]], 0) for x, e in zip(xs, edge))
 
     def first(self, *xs):
-        return tuple(x[0] for x in xs)
+        """The chain's row 0 of each of ``xs``, as a leading axis of one
+        row where this process holds it and of none where it does not.  A
+        value computed from these rows goes through ``held``."""
+        return tuple(x[:1] for x in xs)
 
     def last(self, *xs):
-        return tuple(x[-1] for x in xs)
+        """The chain's last row, as ``first`` gives row 0."""
+        return tuple(x[-1:] for x in xs)
 
-    def reduce(self, *xs):
-        """Sums over the time rows of this process, completed over all."""
-        return xs
-
-    def gather(self, *xs, time=True):
-        """Outputs over the whole axis (``time``: time-leading, else one
-        per sequence)."""
-        return xs
+    @staticmethod
+    def held(x):
+        """A value computed on the rows of ``first`` or ``last`` (its
+        leading axis theirs): the value, or zeros where this process
+        holds no such row."""
+        return x[0] if x.shape[0] else x.new_zeros(x.shape[1:])
 
 
 CHAIN = Chain()

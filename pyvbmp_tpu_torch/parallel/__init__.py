@@ -1,7 +1,9 @@
 """The parallel layer on ``torch.distributed`` (counterpart of
 pyvbmp_tpu/parallel): a ``Mesh`` of ranks, data-parallel VB sweeps
 (``data_parallel_update``) and the time-sharded smoothers
-(``seq_parallel``), which the models reach through ``time_mesh=``."""
+(``seq_parallel``), which the models reach through ``time_mesh=``: a
+time-sharded sweep keeps each rank's chunk, and ``gather_posterior``
+makes a fitted model's per-time state whole."""
 from .api import (
     Mesh,
     data_parallel_update,
@@ -11,6 +13,7 @@ from .api import (
     shard_pytree_batch,
 )
 from .seq_parallel import (
+    gather_posterior,
     sharded_associative_scan,
     shift_down,
     shift_up,
@@ -22,6 +25,7 @@ from .seq_parallel import (
 __all__ = [
     "Mesh",
     "data_parallel_update",
+    "gather_posterior",
     "make_mesh",
     "replicate",
     "shard_batch",

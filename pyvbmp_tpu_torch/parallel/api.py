@@ -18,7 +18,12 @@ a call this package makes:
   ``all_reduce`` over the mesh's ``data`` axis at the point where the model
   forms it (``utils.torchutils.batch_sum``).  The parameters stay
   replicated, because every rank computes the same update from the same
-  sums; per-sample state (a DMBD's px, the assignments p) stays local.
+  sums; per-sample state (a DMBD's px, the assignments p) stays local;
+- a model with ``time_mesh`` runs its sweep the same way on its rows of
+  the time axis (``seq_parallel.time_sweep``): ``_time_sharded`` completes
+  the same ``batch_sum`` sites over the time axis, or over time and batch
+  on a 2-D mesh, in one all_reduce, and per-time state stays this rank's
+  chunk.
 
 The process group and its backend are the caller's.  NCCL is the backend
 on several cards; NCCL refuses two ranks on one device, so several ranks
@@ -110,8 +115,18 @@ class Mesh:
         return self._total("bytes", tag, kind)
 
     def _line(self, axis):
+        """(group, ranks) of this rank's line of ``axis``; a tuple of axes
+        names one axis, or every axis of the mesh (the whole mesh)."""
         if self.coords is None:
             raise RuntimeError(f"rank {self.rank} is not in {self!r}")
+        if isinstance(axis, tuple):
+            if len(axis) == 1:
+                axis = axis[0]
+            elif sorted(axis) == sorted(self.axis_names):
+                return self._all
+            else:
+                raise ValueError(f"{self!r}: a collective runs over one axis or all of "
+                                 f"them, not {axis}")
         if axis not in self._lines:
             raise ValueError(f"{self!r} has no axis {axis!r}")
         return self._lines[axis]
@@ -124,7 +139,8 @@ class Mesh:
     # -- the three collectives ----------------------------------------------------
     def all_reduce(self, x, axis, tag):
         """The sum of ``x`` over the ranks of this rank's line of ``axis``
-        (a new tensor; ``x`` is left as it was).  Counts x's elements."""
+        (a new tensor; ``x`` is left as it was).  ``axis`` may be a tuple of
+        every axis: the sum over the whole mesh.  Counts x's elements."""
         group, line = self._line(axis)
         if len(line) == 1:
             return x
@@ -288,6 +304,30 @@ def _data_parallel(mesh, axis):
         _DATA_PARALLEL, torchutils.BATCH_REDUCE = saved
 
 
+@contextlib.contextmanager
+def _time_sharded(mesh, axes):
+    """Sums over the samples and time rows (``torchutils.batch_sum``)
+    completed over ``axes`` of ``mesh`` (the time axis, and the axis the
+    batch is split over when it is) for the block.  Inside
+    ``data_parallel_update`` over the same mesh the data axis joins them,
+    so that one all_reduce covers both; a data-parallel sweep over another
+    mesh completes the sums after, with its own."""
+    saved = torchutils.BATCH_REDUCE
+    dp = data_parallel_axis(mesh)
+    outer = saved if dp is None else None
+    axes = tuple(axes) + ((dp,) if dp is not None and dp not in axes else ())
+
+    def reduce(xs):
+        xs = mesh.all_reduce_many(xs, axes, "reduce")
+        return xs if outer is None else outer(xs)
+
+    torchutils.BATCH_REDUCE = reduce
+    try:
+        yield
+    finally:
+        torchutils.BATCH_REDUCE = saved
+
+
 def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
                          batch_axis=None):
     """Run the model's sweeps with the trajectory batch split over the
@@ -302,6 +342,9 @@ def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
     parameters come out the same on every rank; per-sample state (a DMBD's
     px, the assignments p) is this rank's block.  The models must start
     equal on every rank: built from one seed, or put through ``replicate``.
+    A model that also has a ``time_mesh`` over the same mesh runs on its
+    rows of T as well, and one all_reduce over the whole mesh completes
+    each site; its per-time state is then this rank's rows of its block.
 
     ``batch_axis`` names the sample axis of ``y`` to split: 1 by default
     (time-major ``(T, batch, ...)``: LDS, DMBD, HMM), 0 for sample-major

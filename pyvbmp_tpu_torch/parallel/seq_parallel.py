@@ -8,11 +8,8 @@ every rank folds the totals of its predecessors into a carry-in and
 combines it with each of its rows.  That is the three-phase block scan of
 the time fold (``ops/scan.py:FoldedScan``) with the chunks on different
 ranks.  The steps by one row across a chunk edge (the backward message
-shift, alpha_{t-1} for the pairwise statistics) are halo rows, the first
-and last rows of the chain (SEz0 and the x_{-1} marginal; logZ) come from
-the ranks that hold them, and the sums over time are all_reduced.  Per
-call that is O(D) elements, whatever T; only the gathering of the
-time-leading outputs grows with T.
+shift, alpha_{t-1} for the pairwise statistics) are halo rows.  Per call
+that is O(D) elements, whatever T.
 
 Chunks follow ``torch.tensor_split``: rank d of the time axis holds rows
 [start_d, end_d), the lengths differing by at most one, so any T works
@@ -20,27 +17,54 @@ without padding.  Where T < D the last ranks hold no rows: their totals and
 halo rows are skipped by a flag gathered beside them, which the host reads.
 
 The smoothers themselves are the single-process ones
-(``ops.parallel_hmm``, ``ops.parallel_kalman``) given a ``ShardedChain``:
-the local scans go through the same dispatch (the CUDA kernels on the card,
-each rank on its own chunk); the carry-in combine is the plain torch
-combine batched over the rows.
+(``ops.parallel_hmm``, ``ops.parallel_kalman.kalman_smoother_rows``) given
+a ``ShardedChain``: the local scans go through the same dispatch (the CUDA
+kernels on the card, each rank on its own chunk); the carry-in combine is
+the plain torch combine batched over the rows.  On a chain they take this
+rank's rows of the time-leading inputs (``ShardedChain.take``) and return
+its rows of the time-leading outputs (HMM p and the driven form's per-time
+SEzz; the Kalman marginals and cross-covariances), its part of every sum
+over time, and each chain-end value (SEz0, the x_{-1} marginal, logZ) on
+the rank holding that row, zeros on the others: one all_reduce over the
+time axis completes sums and chain-end values alike.
 
-Every rank passes the whole, replicated inputs and gets back the whole
-outputs with the JAX package's shapes: the time-leading outputs gathered
-over the time axis (tag ``"gather"``), the reductions replicated.  On a 2-D
-(seq x data) mesh ``batch_axis`` ("auto": the first non-time axis) also
-splits the batch (axis 1 of the time-leading inputs); the outputs are
-gathered over it too.
+A model with ``time_mesh`` runs its whole sweep that way, as the JAX
+package's sweep runs on the shards that its smoothers return:
+``time_sweep`` cuts ``y`` (and u, r, and any whole per-time state it is
+given) to this rank's rows [start, end) once, when the sweep starts, and
+the model forms its observation logits, messages and sufficient
+statistics on its rows.  Every sum that an M-step or the ELBO reads is
+completed where it is formed (``torchutils.batch_sum``): one all_reduce
+over the time axis, over time and batch on a 2-D mesh (tag ``"reduce"``).
+A sweep gathers nothing; the parameters and ELBOs come out the same on
+every rank, and the per-time state (each model's ``CHUNK_STATE``: a DMBD's
+px and p, an HMM's p, a dHMM's p and SEzz, an LDS's px, a MixLDS's px)
+stays this rank's chunk, as ``data_parallel_update`` leaves per-sample
+state as this rank's block; logZ is completed over time when the update
+ends.  ``gather_posterior(model)`` makes the state whole on request (tag
+``"gather"``); no sweep calls it, and the state exporters
+(``utils.convert``, ``utils.checkpoint``) refuse a model holding a chunk.
+
+The public functions (``time_sharded_forward_backward``, its driven form,
+``time_sharded_kalman_smoother``) take the whole, replicated inputs and
+return the whole outputs with the JAX package's shapes: they run the
+chain on this rank's rows, then gather the time-leading outputs over the
+time axis (tag ``"gather"``) and complete the rest in one all_reduce.  On
+a 2-D (seq x data) mesh ``batch_axis`` ("auto": the first non-time axis)
+also splits the batch (axis 1 of the time-leading inputs); the outputs
+are gathered over it too.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 import warnings
 
 import torch
 
 from ..ops import scan
-from .api import _check_mesh, data_parallel_axis, shard_batch
+from .api import _check_mesh, _time_sharded, data_parallel_axis, shard_batch
 
 
 def _bounds(T, D, d):
@@ -160,7 +184,10 @@ class ShardedChain(scan.Chain):
     """The smoothers' steps across a time axis of T rows cut over ``axis``
     of ``mesh`` (``ops.scan.Chain``), the batch (axis 1 of the time-leading
     inputs, ``batch_size`` wide) also split over ``batch_axis`` unless it is
-    None."""
+    None.  The smoothers take this rank's rows (``take``) and leave every
+    output as its rows, its part of each sum over time, and each chain-end
+    value (the first and last rows' SEz0, x_{-1} marginal and logZ) on the
+    rank that holds that row, zeros on the others."""
 
     def __init__(self, mesh, axis, T, batch_axis=None, batch_size=None):
         if mesh.coords is None:
@@ -170,12 +197,23 @@ class ShardedChain(scan.Chain):
         self.bounds = [_bounds(T, self.D, d) for d in range(self.D)]
         self.start, self.end = self.bounds[mesh.coords[axis]]
         self.batch_axis, self.batch_size = batch_axis, batch_size
+        self.holds_first = self.start == 0 and self.end > 0
+        self.holds_last = self.end == T and self.end > self.start
 
-    def local(self, x):
+    def take(self, x):
+        """This rank's rows of a whole time-leading ``x`` (and its block of
+        the batch, axis 1, where the batch is split)."""
         x = x[self.start: self.end]
         if self.batch_axis is not None and x.ndim > 1 and x.shape[1] == self.batch_size:
             x = shard_batch(self.mesh, x, 1, self.batch_axis)
         return x
+
+    def take_samples(self, x):
+        """This rank's block of a sample-leading ``x`` (one value a
+        sequence), where the batch is split; ``x`` as it is elsewhere."""
+        if self.batch_axis is None:
+            return x
+        return shard_batch(self.mesh, x, 0, self.batch_axis)
 
     def scan(self, s, leaves, reverse=False):
         return sharded_associative_scan(s, tuple(leaves), self.mesh, self.axis, reverse)
@@ -185,22 +223,30 @@ class ShardedChain(scan.Chain):
             edge = tuple(x.new_zeros(x.shape[1:]) for x in xs)
         return _shift(self.mesh, self.axis, tuple(xs), up, tuple(edge))
 
-    def _row(self, xs, src, at):
-        """Row ``at`` of the ``xs`` held by time coordinate ``src``, on
-        every rank of the line: one broadcast."""
-        rows = tuple(x[at] if x.shape[0] else x.new_zeros(x.shape[1:]) for x in xs)
-        return _unflat(self.mesh.broadcast(_flat(rows), self.axis, src, "reduce"), rows)
-
     def first(self, *xs):
-        return self._row(xs, 0, 0)
+        return tuple(x[:1] if self.holds_first else x[:0] for x in xs)
 
     def last(self, *xs):
-        return self._row(xs, min(self.T, self.D) - 1, -1)
+        return tuple(x[-1:] if self.holds_last else x[:0] for x in xs)
 
-    def reduce(self, *xs):
+    def complete_time(self, *xs):
+        """This rank's parts ``xs`` of sums over time, completed over the
+        time axis alone (one all_reduce, tagged "reduce"): a value that is
+        needed whole per sequence before it is summed over the batch."""
         return self.mesh.all_reduce_many(xs, self.axis, "reduce")
 
-    def gather(self, *xs, time=True):
+    def once(self, *xs):
+        """``xs``, which every rank of the time line holds alike, kept on
+        the line's first rank and zeros on the others: summed over the line
+        they count once."""
+        if self.mesh.coords[self.axis] == 0:
+            return xs
+        return tuple(torch.zeros_like(x) for x in xs)
+
+    def assemble(self, *xs, time=True):
+        """The ``xs`` whole on every rank: time-leading ones over all T rows
+        (``time``), and over the batch where it is split (axis 1 of a
+        time-leading output, axis 0 of one a sequence)."""
         if time and self.D > 1:
             xs = self._gather_time(xs)
         if self.batch_axis is not None:
@@ -281,6 +327,114 @@ def _chain(mesh, time_axis, batch_axis, T, batch_size):
     return ShardedChain(mesh, time_axis, T, batch_axis, batch_size)
 
 
+def time_sweep(model, y, batch_size, *more):
+    """The block of one ``update`` of ``model`` (and the models it drives,
+    ``more``) on inputs whose time axis leads ``y`` and that hold
+    ``batch_size`` sequences on axis 1 (None: no sample axis): with a
+    ``time_mesh`` a time-sharded sweep, yielding this rank's chain
+    (``ShardedChain`` over the mesh's "seq" axis, the batch split over its
+    other axis where that divides it), which the models read as
+    ``_sweep_chunk`` while the block runs and keep as ``time_chunk`` after.
+    Per-time state that a model holds whole (built from a state, or made
+    whole by ``gather_posterior``) is cut to this rank's rows first.  Every
+    ``batch_sum`` in the block is completed over the time axis, and over
+    the batch axis where the chain splits the batch, in one all_reduce
+    (``api._time_sharded``).  Without a mesh, or inside a sweep of the
+    model already, a block yielding None."""
+    mesh = model.time_mesh
+    if mesh is None or model._sweep_chunk is not None:
+        return contextlib.nullcontext()
+    chunk = _chain(mesh, "seq", "auto", y.shape[0], batch_size)
+    return _time_sweep(mesh, chunk, (model,) + more)
+
+
+def _chunk_state(model):
+    """(owner, attribute, kind) of each entry of ``model.CHUNK_STATE``."""
+    for path, kind in model.CHUNK_STATE.items():
+        *parents, name = path.split(".")
+        owner = model
+        for p in parents:
+            owner = getattr(owner, p)
+        yield owner, name, kind
+
+
+def _take_whole(chunk, models):
+    """Cut the whole per-time state of ``models`` (those holding no chunk)
+    to ``chunk``'s rows, each attribute once."""
+    seen = set()
+    for m in models:
+        for owner, name, kind in _chunk_state(m):
+            x = getattr(owner, name, None)
+            if (kind != "time" or x is None or (id(owner), name) in seen
+                    or m.time_chunk is not None):
+                continue
+            seen.add((id(owner), name))
+            if isinstance(x, torch.Tensor):
+                x = chunk.take(x) if x.shape[0] == chunk.T else x
+            elif x.mu.shape[0] == chunk.T:  # a Gaussian message
+                x = dataclasses.replace(x, **{f: chunk.take(getattr(x, f))
+                                              for f in _PX_FIELDS})
+            setattr(owner, name, x)
+
+
+@contextlib.contextmanager
+def _time_sweep(mesh, chunk, models):
+    axes = (chunk.axis,) + (() if chunk.batch_axis is None else (chunk.batch_axis,))
+    _take_whole(chunk, models)
+    for m in models:
+        m.time_chunk = m._sweep_chunk = chunk
+    try:
+        with _time_sharded(mesh, axes):
+            yield chunk
+    finally:
+        for m in models:
+            m._sweep_chunk = None
+
+
+_PX_FIELDS = ("mu", "Sigma", "invSigmamu", "invSigma")
+
+
+def gather_posterior(model):
+    """The whole per-time state of ``model`` on every rank of its mesh
+    (each calls it): after a time-sharded update, the state that the sweep
+    left as this rank's (the model's ``CHUNK_STATE``: DMBD px and p (its
+    obs_model's); HMM p; dHMM p and SEzz; LDS px and logZ; MixLDS px (its
+    LDS's), p and logZ) assembled over all T rows and over the batch where
+    the sweep split it (tag "gather").  The whole state replaces the chunk
+    on the model, so the state exporters take it and the next sweep cuts
+    it again; a dict of it by name is returned.  A model whose state is
+    whole already is returned as it is, with no collective.  No sweep
+    calls it."""
+    chunk = model.time_chunk
+    out = {}
+    for owner, name, kind in _chunk_state(model):
+        x = getattr(owner, name, None)
+        if x is None:
+            continue
+        if chunk is not None and kind == "time" and not isinstance(x, torch.Tensor):
+            fields = chunk.assemble(*(getattr(x, f) for f in _PX_FIELDS))
+            x = dataclasses.replace(x, **dict(zip(_PX_FIELDS, fields)))
+        elif chunk is not None:
+            x, = chunk.assemble(x, time=kind == "time")
+        setattr(owner, name, x)
+        out[name] = x
+    for owner, _, _ in _chunk_state(model):
+        if hasattr(owner, "time_chunk"):
+            owner.time_chunk = None
+    model.time_chunk = None
+    return out
+
+
+def _whole(chain, rows, parts):
+    """The whole outputs from this rank's: the time-leading ``rows`` over
+    all T rows, the ``parts`` (one value a sequence: parts of sums over
+    time, chain-end values on their holder) completed over the time axis in
+    one all_reduce; both over the batch where it is split."""
+    rows = chain.assemble(*rows)
+    parts = chain.assemble(*chain.complete_time(*parts), time=False)
+    return rows, parts
+
+
 def time_sharded_forward_backward(trans_logits, init_logits, obs_logits, mesh,
                                   ptemp=1.0, time_axis="seq", batch_axis="auto"):
     """``ops.parallel_hmm.forward_backward_parallel`` with the time axis
@@ -290,12 +444,14 @@ def time_sharded_forward_backward(trans_logits, init_logits, obs_logits, mesh,
     trans_logits: (K, K) (or batch + (K, K)), init_logits: (K,),
     obs_logits: (T,) + batch + (K,); any T works.  ``ptemp`` is a float or
     a 0-d tensor."""
-    chain = _chain(mesh, time_axis, batch_axis, obs_logits.shape[0],
-                   obs_logits.shape[1] if obs_logits.ndim > 2 else None)
     from ..ops.parallel_hmm import forward_backward_parallel
 
-    return forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp,
-                                     chain=chain)
+    chain = _chain(mesh, time_axis, batch_axis, obs_logits.shape[0],
+                   obs_logits.shape[1] if obs_logits.ndim > 2 else None)
+    p, SEzz, SEz0, logZ = forward_backward_parallel(
+        trans_logits, init_logits, chain.take(obs_logits), ptemp, chain=chain)
+    (p,), (SEzz, SEz0, logZ) = _whole(chain, (p,), (SEzz, SEz0, logZ))
+    return p, SEzz, SEz0, logZ
 
 
 def time_sharded_driven_forward_backward(trans_logits, init_logits, obs_logits,
@@ -306,12 +462,14 @@ def time_sharded_driven_forward_backward(trans_logits, init_logits, obs_logits,
     ``mesh[time_axis]``.
 
     trans_logits: (T,) + batch + (K, K), obs_logits: (T,) + batch + (K,)."""
-    chain = _chain(mesh, time_axis, batch_axis, obs_logits.shape[0],
-                   obs_logits.shape[1] if obs_logits.ndim > 2 else None)
     from ..ops.parallel_hmm import driven_forward_backward_parallel
 
-    return driven_forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp,
-                                            chain=chain)
+    chain = _chain(mesh, time_axis, batch_axis, obs_logits.shape[0],
+                   obs_logits.shape[1] if obs_logits.ndim > 2 else None)
+    p, SEzz, SEz0, logZ = driven_forward_backward_parallel(
+        chain.take(trans_logits), init_logits, chain.take(obs_logits), ptemp, chain=chain)
+    (p, SEzz), (SEz0, logZ) = _whole(chain, (p, SEzz), (SEz0, logZ))
+    return p, SEzz, SEz0, logZ
 
 
 def time_sharded_kalman_smoother(parms, x0, like, u, mesh, time_axis="seq",
@@ -319,11 +477,14 @@ def time_sharded_kalman_smoother(parms, x0, like, u, mesh, time_axis="seq",
     """``ops.parallel_kalman.parallel_kalman_smoother`` with the time axis
     cut over ``mesh[time_axis]``: the same layouts (lane at h <= 3, plane
     at h <= 32, dense above) and the same return contract, whole on every
-    rank.  The elements are built whole (the x_{-1} prior folds into the
-    chain's first one) and each rank smooths its rows."""
-    from ..ops.parallel_kalman import element_batch_shape, parallel_kalman_smoother
+    rank.  Each rank smooths its rows of ``like`` and ``u``; the x_{-1}
+    prior folds into the element of the rank holding row 0."""
+    from ..ops.parallel_kalman import element_batch_shape, kalman_smoother_rows
 
     bshape, _ = element_batch_shape(parms, like)
     chain = _chain(mesh, time_axis, batch_axis, like[0].shape[0],
                    bshape[0] if len(bshape) > 2 else None)
-    return parallel_kalman_smoother(parms, x0, like, u, chain=chain)
+    marginals, Sigma_cross, *ends = kalman_smoother_rows(
+        parms, x0, tuple(chain.take(x) for x in like), chain.take(u), chain)
+    (*marginals, Sigma_cross), ends = _whole(chain, (*marginals, Sigma_cross), ends)
+    return (tuple(marginals), Sigma_cross[1:], Sigma_cross[0], *ends)

@@ -19,7 +19,14 @@ from ..dists.mvn_ard import MVN_ard
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv
-from ..utils.torchutils import bquad, default_device, highest_precision, normal, replace
+from ..utils.torchutils import (
+    batch_sum,
+    bquad,
+    default_device,
+    highest_precision,
+    normal,
+    replace,
+)
 
 
 def _stick_breaking_stats(Y):
@@ -110,8 +117,11 @@ class MultiNomialLogisticRegression:
     def raw_update_beta(self, beta_node, X, Y, iters=2, p=None, lr=1.0,
                         beta=None):
         """PG-bound update of a beta node, returned (the functional core of
-        raw_update)."""
+        raw_update).  Its sums over the samples are completed over a batch
+        or time axis split across processes (``batch_sum``) at each
+        iteration."""
         pgb, YmN, EX, EXXT, SEyx, sdims = self._raw_stats(X, Y, p)
+        SEyx, = batch_sum(SEyx)
         new_beta = beta_node
         for _ in range(iters):
             pgc = torch.sqrt((new_beta.EXXT() * EXXT).sum((-1, -2)))
@@ -120,6 +130,7 @@ class MultiNomialLogisticRegression:
                 SExx = (Ew * EXXT).sum(sdims)
             else:
                 SExx = (Ew * EXXT * p[..., None, None, None]).sum(sdims)
+            SExx, = batch_sum(SExx)
             new_beta = new_beta.ss_update(SExx, SEyx, lr=lr, beta=beta)
         return new_beta
 

@@ -12,7 +12,7 @@ import torch
 
 from ..dists.dirichlet import Dirichlet
 from ..utils import math as um
-from ..utils.torchutils import Node, as_tensor, node, replace, sum_leading
+from ..utils.torchutils import Node, as_tensor, batch_sum, node, replace, sum_leading
 
 
 @node
@@ -119,9 +119,13 @@ class HierarchicalTransition(Node):
         return replace(self, dists=dists, NA=NA)
 
     def raw_update(self, X, p=None, lr=1.0, beta=None):
+        """Update from counts X (sample + batch + event), weighted by p
+        (sample + batch) when given; the sum over the samples is completed
+        over processes that split them (``batch_sum``)."""
         if p is not None:
             X = X * p.reshape(p.shape + (1,) * self.event_dim)
-        return self.ss_update(sum_leading(X, self.batch_dim + self.event_dim), lr, beta)
+        NA, = batch_sum(sum_leading(X, self.batch_dim + self.event_dim))
+        return self.ss_update(NA, lr, beta)
 
     update = raw_update
 

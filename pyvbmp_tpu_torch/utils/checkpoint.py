@@ -28,6 +28,8 @@ import os
 import numpy as np
 import torch
 
+from .torchutils import require_whole_state
+
 _PACKAGE = __name__.split(".")[0]
 _NODE, _LIST, _NUMPY = "__node__", "__list__", "__numpy__"
 
@@ -140,7 +142,9 @@ def _resolve(model, key):
 
 
 def save(model, path):
-    """Save the model's state (``model_state``) to ``path``."""
+    """Save the model's state (``model_state``) to ``path``; a model holding
+    its rank's chunk of a time-sharded update raises (``ValueError``)."""
+    require_whole_state(model)
     parent = os.path.dirname(os.path.abspath(path))
     os.makedirs(parent, exist_ok=True)
     torch.save({k: _pack(v) for k, v in model_state(model).items()}, path)

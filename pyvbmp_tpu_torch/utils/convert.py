@@ -83,7 +83,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .torchutils import default_device
+from .torchutils import default_device, require_whole_state
 
 _PX_FIELDS = ("mu", "Sigma", "invSigmamu", "invSigma")
 
@@ -113,6 +113,7 @@ def node_state(n):
 
 def dmbd_state(model):
     """Nested dict of numpy arrays holding a DMBD's configuration and state."""
+    require_whole_state(model)
     if getattr(model.obs_model.obs_dist, "pad_X", False):
         raise ValueError("DMBD emission with pad_X=True is not supported")
     om = model.obs_model
@@ -215,6 +216,7 @@ def dmbd_from_state(state, device=None, dtype=None, time_mesh=None):
 def hmm_state(model):
     """Nested dict of numpy arrays holding a standalone HMM with
     NormalInverseWishart observations: its configuration and state."""
+    require_whole_state(model)
     obs = model.obs_dist
     mask = model.transition_mask
     state = {
@@ -274,6 +276,7 @@ def _load_lds_nodes(lds, state):
 
 def lds_state(model):
     """Nested dict of numpy arrays holding an LDS's configuration and state."""
+    require_whole_state(model)
     state = {
         "config": dict(
             obs_shape=tuple(model.obs_shape),
@@ -347,6 +350,7 @@ def lds_from_state(state, device=None, dtype=None, time_mesh=None):
 def mixlds_state(model):
     """Nested dict of numpy arrays holding a MixLDS's configuration and
     state."""
+    require_whole_state(model)
     lds = model.lds
     state = {
         "config": dict(
@@ -563,6 +567,7 @@ def dhmm_state(model):
     observations: its configuration (ptemp, parallel_scan), the MNLR
     transition's weights, the initial Dirichlet, the observation model and p
     when the model has run."""
+    require_whole_state(model)
     obs = model.obs_dist
     state = {
         "config": dict(event_shape=tuple(obs.event_shape),

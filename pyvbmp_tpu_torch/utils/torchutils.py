@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -149,7 +150,7 @@ def bweighted_sum(X, pv, ns):
         return (X * pv).sum(sdims)
     sample = torch.broadcast_shapes(X.shape[:ns], pv.shape[:ns])
     rows = X.expand(sample + X.shape[ns:]).reshape(-1, X.shape[-2] * X.shape[-1])
-    weights = pv.expand(sample + mid_p + (1, 1)).reshape(rows.shape[0], -1)
+    weights = pv.expand(sample + mid_p + (1, 1)).reshape(rows.shape[0], math.prod(mid_p))
     return (weights.T @ rows).reshape(tuple(mid_p) + tuple(X.shape[-2:]))
 
 
@@ -176,7 +177,7 @@ def bquad(X, W):
     lead = X.shape[: -1 - k]
     rows = X.reshape(lead + (d,))
     Wm = W.reshape(-1, d, d).transpose(0, 1).reshape(d, -1)
-    Z = (rows @ Wm).reshape(lead + (-1, d))
+    Z = (rows @ Wm).reshape(lead + (Wm.shape[-1] // d, d))
     return (Z * rows[..., None, :]).sum(-1).reshape(lead + W.shape[:-2])
 
 
@@ -198,6 +199,8 @@ def _scatter_dot(A, B, ns):
     A = A.expand(shape).reshape(-1, R, d)
     B = B.expand(shape).reshape(-1, R, d)
     S = A.shape[0]
+    if S == 0:  # no samples (a rank holding no rows of a time axis)
+        return A.new_zeros(rest + (d, d))
     C = -(-S // SCATTER_CHUNK)
     if C > 1:
         pad = C * SCATTER_CHUNK - S
@@ -208,18 +211,42 @@ def _scatter_dot(A, B, ns):
     return (A @ B).sum(0).reshape(rest + (d, d))
 
 
-# Completes a sum over a batch that parallel.data_parallel_update has split
-# across processes: set for the length of its sweeps, None otherwise.
+# Completes a sum over the samples that parallel.data_parallel_update, or a
+# time-sharded sweep (parallel.seq_parallel.time_sweep), has split across
+# processes: set for the length of their sweeps, None otherwise.
 BATCH_REDUCE = None
 
 
 def batch_sum(*xs):
-    """Sums ``xs`` over this process's part of the batch, completed over
-    every part: inside ``parallel.data_parallel_update`` one all_reduce of
-    their flattened concatenation, outside it ``xs`` as they are.  Each
-    model calls it once where it forms a site's statistics, before an
-    M-step or the ELBO reads them."""
+    """``xs``, sums over the samples this process holds (its rows of time
+    and its block of the batch), completed over every process's: inside
+    ``parallel.data_parallel_update`` or a time-sharded sweep one
+    all_reduce of their flattened concatenation, outside them ``xs`` as
+    they are.  Each model calls it once where it forms a site's
+    statistics, before an M-step or the ELBO reads them.  A value that
+    every process of the time axis holds alike (a chain-end statistic)
+    enters it on one process only."""
+    global _BATCH_SUMS
+    _BATCH_SUMS += 1
     return xs if BATCH_REDUCE is None else BATCH_REDUCE(xs)
+
+
+_BATCH_SUMS = 0  # batch_sum calls so far
+
+
+@contextlib.contextmanager
+def completes_sums(node):
+    """A block that updates ``node`` from sums over the samples.  Where a
+    sweep splits the samples across processes (``BATCH_REDUCE`` set), it
+    raises ``NotImplementedError`` unless the block formed its sums through
+    ``batch_sum``: a node that sums on its own would update each process
+    from its own part."""
+    before = _BATCH_SUMS
+    yield
+    if BATCH_REDUCE is not None and _BATCH_SUMS == before:
+        raise NotImplementedError(
+            f"{type(node).__name__} forms its sums over the samples without batch_sum, so "
+            f"a sweep that splits the samples across processes cannot update it")
 
 
 def centered_scatter(X, pv, sdims):
@@ -284,3 +311,15 @@ def normal(shape, generator, like):
     """N(0,1) draws, made like ``uniform``."""
     x = torch.randn(tuple(shape), generator=generator, dtype=torch.float64)
     return x.to(dtype=like.dtype, device=like.device)
+
+
+def require_whole_state(model):
+    """Raise ``ValueError`` where ``model`` holds this process's chunk of a
+    time-sharded update (``time_chunk`` set): a state exporter would write
+    a part of its per-time state as the whole.
+    ``parallel.gather_posterior(model)``, called on every rank, makes the
+    state whole."""
+    if getattr(model, "time_chunk", None) is not None:
+        raise ValueError(
+            f"this {type(model).__name__} holds its rank's chunk of a time-sharded update; "
+            f"call parallel.gather_posterior(model) on every rank first")

@@ -74,8 +74,10 @@ def test_parallel_exports_match():
     """``pyvbmp_tpu_torch.parallel`` exports every name of
     ``pyvbmp_tpu.parallel.__all__`` and the public functions of its
     ``seq_parallel``, with the JAX signatures; the port adds its ``Mesh``
-    (torch.distributed has no mesh of its own) and ``shard_pytree_batch``
-    (``pyvbmp_tpu.parallel.api`` has it, its ``__all__`` does not).
+    (torch.distributed has no mesh of its own), ``shard_pytree_batch``
+    (``pyvbmp_tpu.parallel.api`` has it, its ``__all__`` does not) and
+    ``gather_posterior`` (a time-sharded sweep keeps each rank's chunk,
+    where XLA keeps the shards).
     ``sharded_associative_scan``, ``shift_up`` and ``shift_down`` take the
     mesh and its axis where the JAX functions, run inside ``shard_map``,
     take an axis name."""
@@ -91,7 +93,8 @@ def test_parallel_exports_match():
     assert seq == {"sharded_associative_scan", "shift_up", "shift_down",
                    "time_sharded_forward_backward", "time_sharded_driven_forward_backward",
                    "time_sharded_kalman_smoother"}
-    assert set(tp.__all__) - set(jp.__all__) - seq == {"Mesh", "shard_pytree_batch"}
+    assert set(tp.__all__) - set(jp.__all__) - seq == {"Mesh", "shard_pytree_batch",
+                                                        "gather_posterior"}
     for name in set(jp.__all__) | seq | {"shard_pytree_batch"}:
         jax_fn = getattr(japi, name, None) or getattr(jsp, name)
         params = list(inspect.signature(getattr(tp, name)).parameters)

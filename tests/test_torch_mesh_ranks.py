@@ -139,11 +139,102 @@ def _fit(m, kind, data, sweeps):
         m.update(*_t(data), iters=sweeps)
 
 
-def job_fit(meshes, kind, state, data, sweeps, mesh=None):
-    """A model from ``state`` with ``time_mesh`` = meshes[mesh], fitted."""
-    m = _build(kind, state, None if mesh is None else meshes[mesh])
+def job_chunk_fit(meshes, kind, state, data, sweeps, mesh="seq"):
+    """A fit with ``time_mesh`` = meshes[mesh]: its ELBOs, its ``ELBO()``
+    (where the model's reads its state), this rank's per-time state and
+    chunk, the state exporter's refusal while the model holds the chunk,
+    the whole posterior that ``gather_posterior`` makes after it (with the
+    collectives of the sweep and of the gathering counted apart), every
+    parameter node's state, and one more sweep of a model built with the
+    mesh from the exported whole state (``resumed``)."""
+    from pyvbmp_tpu_torch.parallel import gather_posterior
+    from pyvbmp_tpu_torch.utils import convert
+
+    m = _build(kind, state, meshes[mesh])
     _fit(m, kind, data, sweeps)
-    return {"elbo": np.asarray(m.ELBO_save), **_np(_summary(kind, m))}
+    sweep_counts = _counts(meshes)
+    chunk = m.time_chunk
+    local = _chunk_state(m)
+    export = getattr(convert, f"{kind}_state")
+    try:
+        export(m)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    whole = {k: (_px(v) if not isinstance(v, torch.Tensor) else v)
+             for k, v in gather_posterior(m).items()}
+    resumed = _build(kind, export(m), meshes[mesh])
+    _fit(resumed, kind, data, 1)
+    gather_posterior(resumed)
+    ba = chunk.batch_axis
+    return {"elbo": np.asarray(m.ELBO_save), "elbo_now": _elbo_now(m),
+            "params": _params(kind, m), "local": _np(local), "whole": _np(whole),
+            "refused": refused, "bounds": (chunk.start, chunk.end), "batch_axis": ba,
+            "batch_parts": 1 if ba is None else chunk.mesh.shape[ba],
+            "batch_coord": 0 if ba is None else chunk.mesh.coords[ba],
+            "sweep_counts": sweep_counts,
+            "resumed": {"elbo": resumed.ELBO_save[-1], "params": _params(kind, resumed)}}
+
+
+def _elbo_now(m):
+    """The model's ``ELBO()``, or None where it has none."""
+    return None if not hasattr(m, "ELBO") else np.asarray(_np(m.ELBO()), np.float64)
+
+
+def whole_estep(m, kind, data):
+    """The model's E-step that runs outside ``update`` (HMM
+    ``update_states``, LDS ``update_latents``, dHMM ``raw_update_states``)
+    on the whole data."""
+    if kind == "hmm":
+        m.update_states(_t(data[0]))
+    elif kind == "lds":
+        m.update_latents(*m.reshape_inputs(_t(data[0])))
+    else:
+        U, Y = _t(data)
+        m.raw_update_states(U[..., None, :], Y[..., None, :])
+
+
+def job_whole_estep(meshes, kind, state, data, sweeps):
+    """A time-sharded fit, then ``whole_estep``: the model's per-time state
+    as ``gather_posterior`` returns it, whether the model still held a
+    chunk, and the elements that the gathering moved."""
+    from pyvbmp_tpu_torch.parallel import gather_posterior
+
+    m = _build(kind, state, meshes["seq"])
+    _fit(m, kind, data, sweeps)
+    whole_estep(m, kind, data)
+    held_chunk = m.time_chunk is not None
+    for mesh in meshes.values():
+        mesh.reset_counts()
+    whole = {k: (_px(v) if not isinstance(v, torch.Tensor) else v)
+             for k, v in gather_posterior(m).items()}
+    return {"whole": _np(whole), "held_chunk": held_chunk,
+            "gathered": _counts(meshes)["gather"]}
+
+
+def _px(px):
+    return {f: getattr(px, f) for f in ("mu", "Sigma", "invSigmamu", "invSigma")}
+
+
+def _chunk_state(m):
+    """The model's per-time state as its ``CHUNK_STATE`` names it."""
+    out = {}
+    for path in m.CHUNK_STATE:
+        x = m
+        for name in path.split("."):
+            x = getattr(x, name)
+        out[name] = x if isinstance(x, torch.Tensor) else _px(x)
+    return out
+
+
+def _params(kind, m):
+    """Every parameter node's state (the model's ``*_state`` without its
+    config and posteriors)."""
+    from pyvbmp_tpu_torch.utils import convert
+
+    state = getattr(convert, f"{kind}_state")(m)
+    return {k: v for k, v in state.items() if k not in ("config", "px", "p", "expand_to_batch",
+                                                         "obs_config")}
 
 
 def job_data_parallel(meshes, kind, state, data, sweeps, mesh="data", batch_axis=None,

@@ -19,12 +19,23 @@ single process, per output.
   tests' sizes (``tests/test_seq_parallel.py``), against the JAX models
   with ``time_mesh`` on 4 devices (DMBD also on the 2 x 2 mesh), and at
   every world size against the port's single-process fit;
+- their sweeps chunk-local (each rank runs the sweep on its rows of T), at
+  those sizes, at T = 3 and on the 2 x 2 mesh: every parameter node's state
+  against the JAX fit and the single process, each rank's per-time state
+  its rows of the single process's, ``gather_posterior`` the whole
+  posterior, nothing gathered in a sweep and a sweep's collectives the
+  same at T = 20 and 40; ``ELBO()`` after the fit on every rank, the state
+  exporters' refusal of a chunk, one more sweep from the exported whole
+  state, and whole state after an E-step outside ``update``;
+- an observation node that sums without ``batch_sum`` raising in a sweep
+  that splits the samples, and the count nodes' sums going through it;
 - ``batch_axis="auto"``'s warning where the batch does not divide the data
   axis, and a named axis's ``ValueError``;
 - the elements that the ``"scan"``, ``"halo"`` and ``"reduce"`` collectives
   move, equal at T = 40 and T = 80."""
 import copy
 import functools
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -125,38 +136,75 @@ def port_kalman(state, y):
 
 
 # -- the models at the JAX tests' sizes (tests/test_seq_parallel.py) ------------------
+def model_data(kind, T, b=None):
+    """The data a model is fitted to, T time steps long (``b`` sequences)."""
+    if kind == "hmm":
+        return (np.random.RandomState(8).randn(T, b or 6, 3),)
+    if kind == "dhmm":
+        rs = np.random.RandomState(4)
+        b, k, pdim, d = b or 5, 3, 2, 2
+        U = rs.randn(T, b, pdim)
+        Y = rs.randn(k, d)[rs.randint(0, k, (T, b))] * 3 + 0.2 * rs.randn(T, b, d)
+        return U, Y
+    seed, shape = {"lds": (6, (4, 3)), "mixlds": (9, (8, 3)), "dmbd": (10, (4, 4, 2))}[kind]
+    return (np.random.RandomState(seed).randn(T, *shape),)
+
+
+BUILD = {
+    "hmm": lambda m: JHMM(JNIW.create((3,), batch_shape=(4,)), time_mesh=m),
+    "dhmm": lambda m: JdHMM(JNIW.create((2,), batch_shape=(3,)), 2, time_mesh=m),
+    "lds": lambda m: JLDS((3,), 2, 0, 0, cross_cov_compat=False, time_mesh=m),
+    "mixlds": lambda m: JMixLDS(2, (3,), 2, 0, 0, time_mesh=m),
+    "dmbd": lambda m: JDMBD(**DMBD_CFG, time_mesh=m),
+}
+SEEDS = {"hmm": 21, "dhmm": 31, "lds": 11, "mixlds": 23, "dmbd": 29}
+SWEEPS = {"hmm": 3, "dhmm": 2, "lds": 3, "mixlds": 2, "dmbd": 2}
+T_MODEL = {"hmm": 32, "dhmm": 16, "lds": 24, "mixlds": 24, "dmbd": 16}
+T_SHORT = 3  # T < D on 4 ranks: the last rank holds no rows
+WHOLE_ESTEP = ("hmm", "lds", "dhmm")  # the models with an E-step outside update
+
+
 def model_cases():
-    """name -> (kind, JAX model builder (mesh), data, sweeps)."""
-    rs = np.random.RandomState(8)
-    X = rs.randn(32, 6, 3)
-    rs = np.random.RandomState(4)
-    T, b, k, pdim, d = 16, 5, 3, 2, 2
-    U = rs.randn(T, b, pdim)
-    Y = rs.randn(k, d)[rs.randint(0, k, (T, b))] * 3 + 0.2 * rs.randn(T, b, d)
-    lds_y = np.random.RandomState(6).randn(24, 4, 3)
-    mix_y = np.random.RandomState(9).randn(24, 8, 3)
-    dmbd_y = np.random.RandomState(10).randn(16, 4, 4, 2)
-    dmbd_odd = np.random.RandomState(10).randn(13, 4, 4, 2)
-    return {
-        "hmm": ("hmm", lambda m: JHMM(JNIW.create((3,), batch_shape=(4,)), time_mesh=m),
-                (X,), 3, 21),
-        "dhmm": ("dhmm", lambda m: JdHMM(JNIW.create((d,), batch_shape=(k,)), pdim,
-                                         time_mesh=m), (U, Y), 2, 31),
-        "lds": ("lds", lambda m: JLDS((3,), 2, 0, 0, cross_cov_compat=False, time_mesh=m),
-                (lds_y,), 3, 11),
-        "mixlds": ("mixlds", lambda m: JMixLDS(2, (3,), 2, 0, 0, time_mesh=m),
-                   (mix_y,), 2, 23),
-        "dmbd": ("dmbd", lambda m: JDMBD(**DMBD_CFG, time_mesh=m), (dmbd_y,), 2, 29),
-        "dmbd_2x2": ("dmbd", lambda m: JDMBD(**DMBD_CFG, time_mesh=m), (dmbd_odd,), 2, 29),
-    }
+    """name -> (kind, JAX model builder (mesh), data, sweeps, seed): each
+    model at the JAX tests' sizes (``tests/test_seq_parallel.py``), at
+    T = 3, and on the 2 x 2 mesh (its name ends with 2x2; the dHMM with 6
+    sequences there, which the data axis divides)."""
+    out = {}
+    for kind in BUILD:
+        case = (kind, BUILD[kind])
+        out[kind] = case + (model_data(kind, T_MODEL[kind]), SWEEPS[kind], SEEDS[kind])
+        out[f"{kind}_T3"] = case + (model_data(kind, T_SHORT), SWEEPS[kind], SEEDS[kind])
+        T2 = 13 if kind == "dmbd" else T_MODEL[kind]
+        b2 = 6 if kind == "dhmm" else None
+        out[f"{kind}_2x2"] = case + (model_data(kind, T2, b2), SWEEPS[kind], SEEDS[kind])
+    return out
 
 
 MODELS = model_cases()
+# the fits that test_models_with_time_mesh_match_jax_and_the_single_process
+# holds: each model at its JAX test's size, and DMBD on the 2 x 2 mesh
+FIT_MODELS = ("hmm", "dhmm", "lds", "mixlds", "dmbd", "dmbd_2x2")
 
 
-@functools.lru_cache(maxsize=None)
+def once(fn):
+    """``fn`` cached by argument, each value computed once even when threads
+    ask for it together (the references run in a thread pool)."""
+    cache, locks, guard = {}, {}, threading.Lock()
+
+    @functools.wraps(fn)
+    def wrapper(name):
+        with guard:
+            lock = locks.setdefault(name, threading.Lock())
+        with lock:
+            if name not in cache:
+                cache[name] = fn(name)
+            return cache[name]
+    return wrapper
+
+
+@once
 def jax_model(name):
-    """(the JAX model with time_mesh on 4 devices (2 x 2 for dmbd_2x2),
+    """(the JAX model with time_mesh on 4 devices (2 x 2 for a 2x2 case),
     its state before the fit), built once."""
     kind, build, _, _, seed = MODELS[name]
     with jax.enable_x64(True):
@@ -169,8 +217,9 @@ def jax_state(name):
     return jax_model(name)[1]
 
 
-def jax_fit(name):
-    """The JAX fit's ELBOs (once per model)."""
+@once
+def jax_result(name):
+    """The JAX fit's ELBOs and parameter nodes' states (once per model)."""
     kind, _, data, sweeps, _ = MODELS[name]
     jm = jax_model(name)[0]
     with jax.enable_x64(True):
@@ -179,19 +228,55 @@ def jax_fit(name):
             jm.raw_update(*args, iters=sweeps)
         else:
             jm.update(*args, iters=sweeps)
-        return np.asarray(jm.ELBO_save)
+        return {"elbo": np.asarray(jm.ELBO_save), "params": ranks._params(kind, jm)}
 
 
-@functools.lru_cache(maxsize=None)
-def single_fit(name):
+def jax_fit(name):
+    """The JAX fit's ELBOs."""
+    return jax_result(name)["elbo"]
+
+
+@once
+def single_model(name):
     """The port's single-process fit with the scan smoothers, from the
-    state the JAX fit starts from."""
+    state the JAX fit starts from: (ELBOs, parameter nodes' states, the
+    per-time state its ``CHUNK_STATE`` names)."""
     kind, _, data, sweeps, _ = MODELS[name]
+    m = single_start(name)
+    ranks._fit(m, kind, data, sweeps)
+    # one more sweep from the exported state, as the ranks resume
+    resumed = getattr(convert, f"{kind}_from_state")(
+        getattr(convert, f"{kind}_state")(m), device="cpu", dtype=torch.float64)
+    ranks._fit(resumed, kind, data, 1)
+    return {"elbo": np.asarray(m.ELBO_save), "params": ranks._params(kind, m),
+            "elbo_now": ranks._elbo_now(m),
+            "state": ranks._np(ranks._chunk_state(m)),
+            "kinds": {path.split(".")[-1]: k for path, k in m.CHUNK_STATE.items()},
+            "resumed": {"elbo": resumed.ELBO_save[-1],
+                        "params": ranks._params(kind, resumed)}}
+
+
+def single_start(name):
+    """The port's single-process model with the scan smoothers, from the
+    state the JAX fit starts from."""
+    kind = MODELS[name][0]
     state = copy.deepcopy(jax_state(name))
     state["config"]["parallel_scan"] = True
-    m = getattr(convert, f"{kind}_from_state")(state, device="cpu", dtype=torch.float64)
+    return getattr(convert, f"{kind}_from_state")(state, device="cpu", dtype=torch.float64)
+
+
+def single_whole_estep(name):
+    """The single process's per-time state after its fit and
+    ``whole_estep``."""
+    kind, _, data, sweeps, _ = MODELS[name]
+    m = single_start(name)
     ranks._fit(m, kind, data, sweeps)
-    return np.asarray(m.ELBO_save)
+    ranks.whole_estep(m, kind, data)
+    return ranks._np(ranks._chunk_state(m))
+
+
+def single_fit(name):
+    return single_model(name)["elbo"]
 
 
 # -- one spawn per world size, all four started at once --------------------------------
@@ -241,15 +326,32 @@ def world_cases(D):
     for T in ((T_LEN, 3) if D == 4 else (T_LEN,)):
         cases[f"scan and shifts T={T}"] = (
             ("scan_and_shifts", dict(x=np.random.RandomState(T).randn(T, 2))), lambda: [])
-    # the models: against JAX on 4 devices, against the single process always
+    # the models: against JAX on 4 devices, against the single process
+    # always; their chunk-local state and gathered posteriors too
     for name, (kind, _, data, sweeps, _) in MODELS.items():
         if name.endswith("2x2") and D != 4:
             continue
-        cases[f"fit {name}"] = (
-            ("fit", dict(kind=kind, state=jax_state(name), data=data, sweeps=sweeps,
-                         mesh="seq_data" if name.endswith("2x2") else "seq")),
-            lambda name=name: ([(jax_fit(name), TOL_JAX)] if D == 4 else [])
-            + [(single_fit(name), TOL_SELF)])
+        job = ("chunk_fit", dict(kind=kind, state=jax_state(name), data=data, sweeps=sweeps,
+                                 mesh="seq_data" if name.endswith("2x2") else "seq"))
+        if name in FIT_MODELS:
+            cases[f"fit {name}"] = (
+                job, lambda name=name: ([(jax_fit(name), TOL_JAX)] if D == 4 else [])
+                + [(single_fit(name), TOL_SELF)])
+        cases[f"chunk {name}"] = (job, lambda name=name: [jax_result(name),
+                                                          single_model(name)])
+    # an E-step outside update after a time-sharded fit
+    for kind in WHOLE_ESTEP:
+        _, _, data, sweeps, _ = MODELS[kind]
+        cases[f"whole estep {kind}"] = (
+            ("whole_estep", dict(kind=kind, state=jax_state(kind), data=data, sweeps=sweeps)),
+            lambda kind=kind: [single_whole_estep(kind)])
+    # a sweep's collectives at T and at 2 T (uneven on 3 ranks)
+    if D > 1:
+        for kind in BUILD:
+            for T in (20, 40):
+                cases[f"count {kind} T={T}"] = (
+                    ("chunk_fit", dict(kind=kind, state=jax_state(kind),
+                                       data=model_data(kind, T), sweeps=1)), lambda: [])
     # the collectives' elements at T = 40 and 80
     if D > 1:
         for T in (40, 80):
@@ -327,7 +429,7 @@ def test_time_sharded_functions_match_jax_and_the_single_process(world, what):
 def test_models_with_time_mesh_match_jax_and_the_single_process(world):
     D, refs, results = world
     keys = [k for k in refs if k.startswith("fit")]
-    assert len(keys) == len(MODELS) - (D != 4)
+    assert len(keys) == len(FIT_MODELS) - (D != 4)
     for key in keys:
         assert len(refs[key]) == (2 if D == 4 else 1)
         for ref, tol in refs[key]:
@@ -365,6 +467,227 @@ def test_collective_elements_do_not_grow_with_T(world):
             for tag in ("scan", "halo", "reduce"):
                 assert c40[tag] == c80[tag] > 0, (what, suffix, tag, c40, c80)
             assert c80["gather"] > c40["gather"] > 0
+
+
+# -- the chunk-local sweeps (each model's update with time_mesh) ----------------------
+def chunk_keys(refs):
+    keys = [k for k in refs if k.startswith("chunk ")]
+    assert keys
+    return keys
+
+
+def test_chunk_local_fits_match_jax_and_the_single_process_in_every_parameter(world):
+    """(i): the ELBOs and every parameter node's state (natural
+    parameters and all they carry) against the JAX package's time_mesh fit
+    and the single process, on every rank: a chain-end statistic counted
+    on every rank of the time axis shows here."""
+    D, refs, results = world
+    for key in chunk_keys(refs):
+        jax_ref, single = refs[key]
+        for r in results:
+            res = r[key]
+            for ref, tol in ((jax_ref, TOL_JAX), (single, TOL_SELF)):
+                dev = np.abs(res["elbo"] - ref["elbo"]).max() / np.abs(ref["elbo"]).max()
+                assert dev <= tol, (key, "elbo", res["elbo"], ref["elbo"])
+                for path, got, want in state_pairs(res["params"], ref["params"]):
+                    assert leaf_dev(got, want) <= tol, (key, path, leaf_dev(got, want), tol)
+
+
+def state_pairs(got, want, path=""):
+    """(path, got leaf, want leaf) over the reference's leaves."""
+    if isinstance(want, dict):
+        for k, v in want.items():
+            assert k in got, (path, k)
+            yield from state_pairs(got[k], v, f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, v) in enumerate(zip(got, want)):
+            yield from state_pairs(g, v, f"{path}[{i}]")
+    elif want is not None:
+        yield path, np.asarray(got), np.asarray(want)
+
+
+def leaf_dev(got, want):
+    assert got.shape == want.shape, (got.shape, want.shape)
+    if want.dtype == bool or not want.size:
+        return 0.0 if np.array_equal(got, want) else np.inf
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def rank_block(res, x, time):
+    """The rows and batch block of a whole state ``x`` that ``res``'s rank
+    holds (``time``: time-leading, the batch on axis 1; else one value a
+    sequence, the batch on axis 0)."""
+    if time:
+        x = x[res["bounds"][0]: res["bounds"][1]]
+    if res["batch_axis"] is not None:
+        dim = 1 if time else 0
+        blocks = np.array_split(x, res["batch_parts"], axis=dim)
+        x = blocks[res["batch_coord"]]
+    return x
+
+
+def test_each_rank_keeps_its_rows_of_the_single_process_state(world):
+    """(ii): each rank's per-time state (px, p, the dHMM's SEzz) is rows
+    [start, end) of the single process's (and its block of the batch on the
+    2 x 2 mesh); per-sequence state (LDS's and DMBD's logZ, MixLDS's p and
+    logZ), whole over time, its block."""
+    D, refs, results = world
+    for key in chunk_keys(refs):
+        single = refs[key][1]
+        for r in results:
+            res = r[key]
+            for name, kind in single["kinds"].items():
+                want = single["state"][name]
+                got = res["local"][name]
+                for path, g, w in state_pairs(got, want):
+                    w = rank_block(res, w, kind == "time")
+                    assert leaf_dev(g, w) <= TOL_SELF, (key, name, path)
+
+
+def test_gather_posterior_rebuilds_the_whole_posterior(world):
+    """(iii): ``gather_posterior`` gives every rank the whole per-time
+    state: the single process's within 1e-10, and where only time is cut
+    the ranks' chunks side by side, exactly."""
+    D, refs, results = world
+    for key in chunk_keys(refs):
+        single = refs[key][1]
+        for r in results:
+            whole = r[key]["whole"]
+            assert sorted(whole) == sorted(single["kinds"]), key
+            for name, kind in single["kinds"].items():
+                for path, g, w in state_pairs(whole[name], single["state"][name]):
+                    assert leaf_dev(g, w) <= TOL_SELF, (key, name, path)
+                if kind != "time" or r[key]["batch_axis"] is not None:
+                    continue
+                chunks = [dict((p, g) for p, g, _ in state_pairs(rr[key]["local"][name],
+                                                               rr[key]["local"][name]))
+                          for rr in results]
+                for path, g, _ in state_pairs(whole[name], whole[name]):
+                    np.testing.assert_array_equal(
+                        g, np.concatenate([c[path] for c in chunks]), err_msg=f"{key} {path}")
+
+
+def test_a_chunk_local_sweep_gathers_nothing_and_its_reductions_do_not_grow_with_T(world):
+    """(iv): nothing tagged "gather" during a sweep (``gather_posterior``
+    after it is what gathers), and the elements of the scans, halos and
+    reductions of one sweep the same at T = 20 and T = 40."""
+    D, refs, results = world
+    for r in results:
+        for key, res in r.items():
+            if "sweep_counts" in res:
+                assert res["sweep_counts"]["gather"] == 0, (key, res["sweep_counts"])
+    if D == 1:
+        return
+    for kind in BUILD:
+        for r in results:
+            c20 = r[f"count {kind} T=20"]["sweep_counts"]
+            c40 = r[f"count {kind} T=40"]["sweep_counts"]
+            for tag in ("scan", "halo", "reduce"):
+                assert c20[tag] == c40[tag] > 0, (kind, tag, c20, c40)
+
+
+def test_elbo_method_holds_on_every_rank_after_a_chunk_local_fit(world):
+    """``ELBO()`` after a time-sharded update (each sequence's logZ
+    completed over time when it ends) is the single process's on every
+    rank, where the batch is not split (on the 2 x 2 mesh an LDS's logZ is
+    this rank's block of sequences, which (ii) holds)."""
+    D, refs, results = world
+    checked = 0
+    for key in chunk_keys(refs):
+        single = refs[key][1]
+        for r in results:
+            res = r[key]
+            if res["elbo_now"] is None or res["batch_axis"] is not None:
+                continue
+            assert leaf_dev(np.asarray(res["elbo_now"]), np.asarray(single["elbo_now"])) \
+                <= TOL_SELF, (key, res["elbo_now"], single["elbo_now"])
+            checked += 1
+    assert checked >= 4 * D
+
+
+def test_exporters_refuse_a_chunk_and_a_resumed_model_matches_the_single_process(world):
+    """The state exporter refuses a model holding its chunk; after
+    ``gather_posterior`` it exports the whole state, and a model built from
+    it with the mesh (its whole px cut to the rank's rows when the sweep
+    starts) runs one more sweep as the single process does from its own
+    exported state: the ELBO and every parameter node within 1e-10."""
+    D, refs, results = world
+    for key in chunk_keys(refs):
+        single = refs[key][1]["resumed"]
+        for r in results:
+            res = r[key]
+            assert "gather_posterior" in res["refused"], (key, res["refused"])
+            got = res["resumed"]
+            assert abs(got["elbo"] - single["elbo"]) <= TOL_SELF * abs(single["elbo"]), key
+            for path, g, w in state_pairs(got["params"], single["params"]):
+                assert leaf_dev(g, w) <= TOL_SELF, (key, path, leaf_dev(g, w))
+
+
+def test_an_e_step_outside_update_leaves_the_state_whole(world):
+    """After a time-sharded fit, HMM ``update_states``, LDS
+    ``update_latents`` and dHMM ``raw_update_states`` (the whole-output
+    smoothers) leave whole per-time state: the model holds no chunk, and
+    ``gather_posterior`` returns the state as it is, with no collective,
+    equal to the single process's after the same calls."""
+    D, refs, results = world
+    for kind in WHOLE_ESTEP:
+        key = f"whole estep {kind}"
+        single, = refs[key]
+        for r in results:
+            res = r[key]
+            assert not res["held_chunk"] and res["gathered"] == 0, (key, res)
+            assert sorted(res["whole"]) == sorted(single), key
+            for name in single:
+                for path, g, w in state_pairs(res["whole"][name], single[name]):
+                    assert leaf_dev(g, w) <= TOL_SELF, (key, name, path)
+
+
+def test_an_observation_node_without_batch_sum_raises_in_a_split_sweep(monkeypatch):
+    """An HMM whose observation node forms its sums on its own (no
+    ``batch_sum``) cannot be updated where the samples are split across
+    processes: each would update from its own part.  Outside such a sweep
+    the same update runs."""
+    from pyvbmp_tpu_torch.dists import NormalInverseWishart
+    from pyvbmp_tpu_torch.models import HMM
+    from pyvbmp_tpu_torch.utils import torchutils
+
+    obs = NormalInverseWishart.create((3,), batch_shape=(4,), dtype=torch.float64,
+                                      device="cpu")
+    monkeypatch.setattr(type(obs), "raw_update",
+                        lambda self, X, p=None, lr=1.0, beta=None: self)
+    X = torch.tensor(model_data("hmm", 8)[0])
+    HMM(obs, generator=torch.Generator().manual_seed(0), device="cpu").update(X)
+    monkeypatch.setattr(torchutils, "BATCH_REDUCE", lambda xs: xs)
+    with pytest.raises(NotImplementedError, match="without batch_sum"):
+        HMM(obs, generator=torch.Generator().manual_seed(0), device="cpu").update(X)
+
+
+@pytest.mark.parametrize("node", ["Hierarchical_Dirichlet", "HierarchicalTransition"])
+def test_count_nodes_complete_their_sums_through_batch_sum(monkeypatch, node):
+    """``raw_update`` of the count nodes that take an HMM's (X, p, lr, beta)
+    forms its sum over the samples through ``batch_sum``: with the samples
+    split in two equal halves (the reduction doubling each sum) it equals
+    the update from the doubled counts."""
+    from pyvbmp_tpu_torch import dists as PD
+    from pyvbmp_tpu_torch import transforms as PT
+    from pyvbmp_tpu_torch.utils import torchutils
+
+    kw = dict(dtype=torch.float64, device="cpu")
+    make = {"Hierarchical_Dirichlet": lambda: PD.Hierarchical_Dirichlet.create((3, 4, 2), (2,),
+                                                                            **kw),
+            "HierarchicalTransition": lambda: PT.HierarchicalTransition.create((2, 3), (2,),
+                                                                            **kw)}
+    n = make[node]()
+    rs = np.random.RandomState(0)
+    X = torch.tensor(rs.rand(5, *n.batch_shape, *n.event_shape))
+    p = torch.tensor(rs.rand(5, *n.batch_shape))
+    want = n.raw_update(2 * X, p)
+    monkeypatch.setattr(torchutils, "BATCH_REDUCE", lambda xs: tuple(2 * x for x in xs))
+    got = n.raw_update(X, p)
+    np.testing.assert_allclose(got.NA.numpy(), want.NA.numpy(), rtol=1e-12)
+    for a, b in zip(got.dists, want.dists):
+        np.testing.assert_allclose(a.alpha.numpy(), b.alpha.numpy(), rtol=1e-12)
 
 
 def test_auto_batch_axis_warns_and_a_named_axis_raises(world4):
