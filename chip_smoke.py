@@ -32,7 +32,7 @@ prints no result:
    H=6 at T=100 and 99 (N=300, 100), T=399 (N=75, 25) and T=200 (N=150,
    50), lane H=2 T=25 N=4000, logsemiring K=8 T=50 N=200, one transition
    and per time; leg (f)'s logsemiring K=4 N=300 and plane H=6 N=100 at
-   T=998 and 997);
+   T=998 and 997; leg (g)'s lane H=2 N=1000 at T=100 and 1000);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -260,7 +260,15 @@ prints no result:
    DMBD-Lorenz at T=3990 (ten times bench.py's T; 998, 998, 997, 997 rows a
    rank) within 1e-4 of the single process at that T, each rank's peak
    under half of the single process's, its collectives' elements a sweep
-   equal to (b)'s.
+   equal to (b)'s; (g) MixLDS (phase 5's data and state) under
+   data_parallel_update with its K=4 systems cut over a "model" axis, on a
+   2 x 2 ("data", "model") mesh (500 trajectories and 2 systems a rank) and
+   a (1, 4) mesh (one system a rank): within 1e-4 of the single process,
+   the parameters equal on every rank after the call, 2 lane Kalman
+   launches a sweep on each rank at (100, 2, 1000) and no plain scan, the
+   "systems" and "reduce" elements a sweep the same at T=1000 (one sweep),
+   and "gather" the nodes' one all_gather a call, the same after 3 sweeps
+   at T=100 and 1 at T=1000.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -790,6 +798,12 @@ def phase_kernels(card, base=None):
                       kalman_elems(rs, T, 6, CFG["batch"])))
     cases.append((scan.KALMAN_LANE, f"H=2 T={MIX['T'] // 4} N={N_mix} (39e MixLDS)",
                   lane_elems(rs, MIX["T"] // 4, 2, N_mix)))
+    # leg (g): MixLDS's systems cut over "model", each rank's trajectories x
+    # systems (500 x 2 on the 2 x 2 mesh, 1000 x 1 on (1, 4)) at T=100, and
+    # at ten times the T
+    for T in (MIX["T"], MESH_SYSTEMS_LONG_T):
+        cases.append((scan.KALMAN_LANE, f"H=2 T={T} N={N_mix // MESH_WORLD} (39g)",
+                      lane_elems(rs, T, 2, N_mix // MESH_WORLD)))
     cases.append((scan.LOGSEMIRING, f"K={hc['K']} T={hc['T'] // 4} N={hc['batch']} (39e HMM-core)",
                   (semiring_elems(rs, hc["T"] // 4, hc["K"], hc["batch"]),)))
     cases.append((scan.LOGSEMIRING,
@@ -958,12 +972,12 @@ def phase_compare(card):
                      (lorenz_data(torch.float64, "cpu"),), CFG["compare_sweeps"], card)
 
 
-def mixlds_data():
+def mixlds_data(T=MIX["T"]):
     """The batched-MixLDS data of benchmarks/mixlds_bench.py:make_data: K
     rotating 2-d latent systems seen through random 3-d projections,
     (T, batch, 3) float32."""
     rs = np.random.RandomState(MIX["data_seed"])
-    T, o, h = MIX["T"], MIX["obs_dim"], MIX["hidden"]
+    o, h = MIX["obs_dim"], MIX["hidden"]
 
     def rollout(theta, n):
         A = np.asarray(
@@ -3335,6 +3349,7 @@ MESH_WORLD = 4
 MESH_BIG_BATCH = 400  # leg (c)'s reductions at 4 times DMBD-Lorenz's batch
 MESH_LONG_T = 10 * CFG["T"]  # leg (f): ten times bench.py's T
 MESH_MEM_SHARE = 0.5  # leg (f): each rank's peak allocation under this share of the single's
+MESH_SYSTEMS_LONG_T = 10 * MIX["T"]  # leg (g): the "systems" exchange at ten times the T
 WORLD1_TOL = 1e-6  # leg (a): one rank against the single process
 
 
@@ -3344,7 +3359,8 @@ def _mesh_inputs(workdir):
     inputs = dict(
         lorenz=y, lorenz_big=np.concatenate([y] * (MESH_BIG_BATCH // CFG["batch"]), 1),
         lorenz_long=lorenz_data(torch.float32, "cpu", MESH_LONG_T).numpy(),
-        mix=mixlds_data(), hmm=hmm_data().float().numpy(),
+        mix=mixlds_data(), mix_long=mixlds_data(MESH_SYSTEMS_LONG_T),
+        hmm=hmm_data().float().numpy(),
         dhmm_u=dhmm_inputs().float().numpy(),
         dmbd_state=dmbd_state0(), mix_state=mixlds_state0(MIX["seed"]),
         hmm_state=hmm_state0(HMM_CORE["seed"]), dhmm_state=dhmm_state0(DHMM_CORE["seed"]))
@@ -3360,14 +3376,20 @@ def dmbd_state0():
 
 # leg -> (model, how the sweeps run): every leg builds its model from one
 # numpy state on the card in float32, takes a warm-up sweep on a second copy,
-# then MESH_SWEEPS timed sweeps
+# then MESH_SWEEPS timed sweeps (one on the legs that only count collectives)
 MESH_LEGS = {
     "a_time": ("dmbd", "time"), "a_data": ("dmbd", "data"),
     "b": ("dmbd", "time"), "c": ("dmbd", "data"), "c_big": ("dmbd_big", "data"),
     "d": ("dmbd", "both"), "e_mixlds": ("mixlds", "time"), "e_hmm": ("hmm", "time"),
     "e_dhmm": ("dhmm", "time"), "f": ("dmbd_long", "time"),
+    "g_2x2": ("mixlds", "data_model"), "g_1x4": ("mixlds", "model"),
+    "g_long": ("mixlds_long", "data_model"),
 }
-FOUR_LEGS = ["b", "c", "c_big", "d", "e_mixlds", "e_hmm", "e_dhmm", "f"]
+FOUR_LEGS = ["b", "c", "c_big", "d", "e_mixlds", "e_hmm", "e_dhmm", "f", "g_2x2", "g_1x4",
+             "g_long"]
+ONE_SWEEP_LEGS = ("c_big", "g_long")  # legs that count the collectives at a larger size
+SYSTEM_MESHES = ("data_model", "model")  # leg (g): MixLDS's systems cut over "model"
+MESH_TAGS = ("scan", "halo", "reduce", "gather", "replicate", "systems")
 
 
 def _mesh_model(name, inputs, time_mesh):
@@ -3378,6 +3400,7 @@ def _mesh_model(name, inputs, time_mesh):
         "dmbd_big": ("dmbd", "dmbd_state", ("lorenz_big",)),
         "dmbd_long": ("dmbd", "dmbd_state", ("lorenz_long",)),
         "mixlds": ("mixlds", "mix_state", ("mix",)),
+        "mixlds_long": ("mixlds", "mix_state", ("mix_long",)),
         "hmm": ("hmm", "hmm_state", ("hmm",)),
         "dhmm": ("dhmm", "dhmm_state", ("dhmm_u", "hmm")),
     }[name]
@@ -3398,10 +3421,10 @@ def _mesh_leg(leg, inputs, meshes):
 
     name, how = MESH_LEGS[leg]
     seq = meshes["seq_data" if how == "both" else "seq"]
-    data_mesh = meshes["seq_data" if how == "both" else "data"]
+    data_mesh = meshes[{"both": "seq_data", "time": "data", "data": "data"}.get(how, how)]
     base = _peak_reset()
-    make, data = _mesh_model(name, inputs, None if how == "data" else seq)
-    sweeps = 1 if leg == "c_big" else MESH_SWEEPS
+    make, data = _mesh_model(name, inputs, seq if how in ("time", "both") else None)
+    sweeps = 1 if leg in ONE_SWEEP_LEGS else MESH_SWEEPS
 
     def run(model, iters):
         if how == "time":
@@ -3420,12 +3443,21 @@ def _mesh_leg(leg, inputs, meshes):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, plain = read_counts()
-    tags = ("scan", "halo", "reduce", "gather", "replicate")
-    return dict(elbo=list(model.ELBO_save), seconds=dt, sweeps=sweeps, launches=launches,
-                plain=plain,
-                elements={t: sum(m.elements(t) for m in meshes.values()) for t in tags},
-                nbytes={t: sum(m.nbytes(t) for m in meshes.values()) for t in tags},
-                peak=torch.cuda.max_memory_allocated() - base)
+    out = dict(elbo=list(model.ELBO_save), seconds=dt, sweeps=sweeps, launches=launches,
+               plain=plain,
+               elements={t: sum(m.elements(t) for m in meshes.values()) for t in MESH_TAGS},
+               nbytes={t: sum(m.nbytes(t) for m in meshes.values()) for t in MESH_TAGS},
+               peak=torch.cuda.max_memory_allocated() - base)
+    if how in SYSTEM_MESHES:
+        # this rank's px (T, its trajectories, its systems, h, 1): the lane
+        # scan's shape is (T, h, trajectories x systems); the nodes whole on
+        # every rank, for the check that the ranks agree
+        T, b, k = model.lds.px.mu.shape[:3]
+        out.update(scan_shape=(T, MIX["hidden"], b * k),
+                   params=torch.cat([model.lds.A.mu.reshape(-1), model.lds.x0.mu.reshape(-1),
+                                     model.lds.obs_model.mu.reshape(-1),
+                                     model.pi.alpha]).cpu().numpy())
+    return out
 
 
 def _peak_reset():
@@ -3456,6 +3488,8 @@ def _mesh_rank(rank, world, workdir, backend, legs):
         meshes = {"seq": make_mesh(world, "seq"), "data": make_mesh(world, "data")}
         if world == 4:
             meshes["seq_data"] = Mesh(np.arange(4).reshape(2, 2), ("seq", "data"))
+            meshes["data_model"] = Mesh(np.arange(4).reshape(2, 2), ("data", "model"))
+            meshes["model"] = Mesh(np.arange(4).reshape(1, 4), ("data", "model"))
         out = {leg: _mesh_leg(leg, inputs, meshes) for leg in legs}
         np.save(Path(workdir) / f"rank{rank}.npy", out, allow_pickle=True)
     finally:
@@ -3511,7 +3545,13 @@ def phase_mesh(card):
     (f) 4 ranks: DMBD-Lorenz at T=3990 (ten times bench.py's T), batch
         100, time cut over the 4 (998, 998, 997, 997 rows): the ELBO within
         1e-4 of the single process at the same T, and each rank's peak
-        allocation under half of the single process's.
+        allocation under half of the single process's;
+    (g) 4 ranks: MixLDS under data_parallel_update with its 4 systems cut
+        over "model", on a 2 x 2 ("data", "model") mesh and a (1, 4) mesh:
+        each within 1e-4 of the single process, the parameters equal on
+        every rank, lane scans at (100, 2, 1000), 2 a sweep; the "systems"
+        and "reduce" elements a sweep the same at T=1000, and "gather"
+        (the nodes, once a call) the same after 3 sweeps and after 1.
 
     A time-sharded leg ((b), (d), (e), (f)) keeps each rank's chunk: it
     must gather nothing ("gather" bytes 0 a sweep).  Prints sweeps/s, the
@@ -3547,16 +3587,24 @@ def phase_mesh(card):
             sweeps = res["sweeps"]
             secs = max(r[leg]["seconds"] for r in ranks)
             label = f"({leg[0]}) {name} {how} on {len(ranks)} rank{'s' * (len(ranks) > 1)}"
+            nbytes, elements = dict(res["nbytes"]), dict(res["elements"])
+            once = ""
+            if how in SYSTEM_MESHES:  # the nodes' gather: once a call, not a sweep
+                once = (f"; gather once a call {nbytes.pop('gather')} bytes, "
+                        f"{elements.pop('gather')} elements")
             print(f"  {label}: {sweeps / secs:.3f} sweeps/s ({secs:.3f} s; each rank "
                   f"{[round(sweeps / r[leg]['seconds'], 3) for r in ranks]}); collective "
-                  f"bytes a sweep (rank 0) {a_sweep(res['nbytes'], sweeps)}, elements "
-                  f"{a_sweep(res['elements'], sweeps)}; card {card}")
-            if leg == "c_big":
+                  f"bytes a sweep (rank 0) {a_sweep(nbytes, sweeps)}, elements "
+                  f"{a_sweep(elements, sweeps)}{once}; card {card}")
+            check_leg_launches(leg, name, ranks)
+            if how in SYSTEM_MESHES:
+                check_systems_leg(leg, ranks)
+            if leg in ONE_SWEEP_LEGS:
                 continue
             peaks = [r[leg]["peak"] for r in ranks]
             print(f"    peak allocation on each rank {peaks} bytes; single process "
                   f"{refs[name]['peak']} ({max(peaks) / refs[name]['peak']:.3f} of it)")
-            if how != "data":
+            if how in ("time", "both"):
                 for i, r in enumerate(ranks):
                     if r[leg]["nbytes"]["gather"]:
                         fail(f"phase 39 ({leg}) rank {i}: a time-sharded sweep gathered "
@@ -3571,14 +3619,6 @@ def phase_mesh(card):
                   f"{dev:.3e} (want <= {tol:g})")
             if not dev <= tol:
                 fail(f"phase 39 ({leg}): {name} differs from the single process by {dev:.3e}")
-            want = {"dmbd": SCAN_PAIR_WANT, "dmbd_long": SCAN_PAIR_WANT, "mixlds": LANE_WANT,
-                    "hmm": ROLE_SCAN_WANT, "dhmm": ROLE_SCAN_WANT}[name]
-            want = per_sweep(want, sweeps)
-            print(f"    kernel launches on each rank {res['launches']} (want {want})")
-            for i, r in enumerate(ranks):
-                if r[leg]["launches"] != want or any(r[leg]["plain"].values()):
-                    fail(f"phase 39 ({leg}) rank {i}: launches {r[leg]['launches']}, plain "
-                         f"versions {r[leg]['plain']}, want {want} and none")
     c, big = four[0]["c"], four[0]["c_big"]
     small_reduce = c["elements"]["reduce"] // c["sweeps"]
     print(f"  (c) reduce elements a sweep: batch {CFG['batch']} {small_reduce}, batch "
@@ -3591,7 +3631,46 @@ def phase_mesh(card):
     print(f"  (b) and (f) elements a sweep: T={CFG['T']} {b}, T={MESH_LONG_T} {f}")
     if any(b[t] != f[t] for t in ("scan", "halo", "reduce")):
         fail("phase 39 (f): the collectives of a time-sharded sweep grow with T")
+    g, g_long = (four[0][leg] for leg in ("g_2x2", "g_long"))
+    per = a_sweep(g["elements"], g["sweeps"])
+    print(f"  (g) 2 x 2 elements a sweep: T={MIX['T']} systems {per['systems']}, reduce "
+          f"{per['reduce']}; T={MESH_SYSTEMS_LONG_T} systems {g_long['elements']['systems']}, "
+          f"reduce {g_long['elements']['reduce']}; gather a call (the nodes, once, when "
+          f"it ends): {g['sweeps']} sweeps {g['elements']['gather']}, 1 sweep at "
+          f"T={MESH_SYSTEMS_LONG_T} {g_long['elements']['gather']}")
+    if not (per["systems"] == g_long["elements"]["systems"] > 0
+            and per["reduce"] == g_long["elements"]["reduce"]):
+        fail("phase 39 (g): the exchanges of a sweep with the systems cut grow with T")
+    if g["elements"]["gather"] != g_long["elements"]["gather"]:
+        fail("phase 39 (g): a sweep with the systems cut gathered")
     return total
+
+
+def check_leg_launches(leg, name, ranks):
+    """Every rank launched each scan of the leg's path 2 times a sweep and
+    ran no plain scan."""
+    want = {"dmbd": SCAN_PAIR_WANT, "dmbd_big": SCAN_PAIR_WANT, "dmbd_long": SCAN_PAIR_WANT,
+            "mixlds": LANE_WANT, "mixlds_long": LANE_WANT, "hmm": ROLE_SCAN_WANT,
+            "dhmm": ROLE_SCAN_WANT}[name]
+    want = per_sweep(want, ranks[0][leg]["sweeps"])
+    print(f"    kernel launches on each rank {ranks[0][leg]['launches']} (want {want})")
+    for i, r in enumerate(ranks):
+        if r[leg]["launches"] != want or any(r[leg]["plain"].values()):
+            fail(f"phase 39 ({leg}) rank {i}: launches {r[leg]['launches']}, plain "
+                 f"versions {r[leg]['plain']}, want {want} and none")
+
+
+def check_systems_leg(leg, ranks):
+    """Leg (g): every rank holds the same whole nodes after the call, and
+    its lane scans ran at the shape the split gives them."""
+    want = (MESH_SYSTEMS_LONG_T if leg == "g_long" else MIX["T"], MIX["hidden"],
+            MIX["batch"] * MIX["num_systems"] // MESH_WORLD)
+    shapes = [tuple(r[leg]["scan_shape"]) for r in ranks]
+    print(f"    lane Kalman scan shape on each rank {shapes} (want {want})")
+    if any(sh != want for sh in shapes):
+        fail(f"phase 39 ({leg}): lane scans at {shapes}, want {want}")
+    if any(not np.array_equal(r[leg]["params"], ranks[0][leg]["params"]) for r in ranks):
+        fail(f"phase 39 ({leg}): the ranks' parameters differ after the call")
 
 
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):

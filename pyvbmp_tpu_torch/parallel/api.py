@@ -11,14 +11,19 @@ a call this package makes:
   three collectives over one axis (``all_reduce``, ``all_gather`` in list
   form and ``broadcast``) and counts the elements each one moves, by kind
   and by the caller's tag (``"scan"``, ``"halo"``, ``"reduce"``,
-  ``"gather"``);
+  ``"gather"``, ``"systems"``);
 - ``data_parallel_update(model, y, ...)``: each rank takes its block of the
   batch (``shard_batch``) and runs the model's own sweep; every sum over
   the batch that feeds an M-step or the ELBO is completed by one
   ``all_reduce`` over the mesh's ``data`` axis at the point where the model
   forms it (``utils.torchutils.batch_sum``).  The parameters stay
   replicated, because every rank computes the same update from the same
-  sums; per-sample state (a DMBD's px, the assignments p) stays local;
+  sums; per-sample state (a DMBD's px, the assignments p) stays local.
+  On a ``("data", "model")`` mesh a MixLDS's K systems are also cut over
+  ``model`` (``_Systems``, the JAX package's expert-parallel placement):
+  each rank smooths and updates its block of the systems, one all_gather
+  over ``model`` a sweep completes the responsibilities' softmax, and the
+  nodes are whole again when the call ends;
 - a model with ``time_mesh`` runs its sweep the same way on its rows of
   the time axis (``seq_parallel.time_sweep``): ``_time_sharded`` completes
   the same ``batch_sum`` sites over the time axis, or over time and batch
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from collections import Counter
 
 import numpy as np
@@ -202,6 +208,71 @@ class Mesh:
         return tuple(out)
 
 
+def _bounds(n, D, d):
+    """Rows [start, end) of block d of n rows cut into D (tensor_split)."""
+    q, rem = divmod(n, D)
+    start = d * q + min(d, rem)
+    return start, start + q + (1 if d < rem else 0)
+
+
+def _flat_cols(xs):
+    """Tensors with a common leading axis side by side as (rows, columns)
+    in their common dtype."""
+    n = xs[0].shape[0]
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return torch.cat([x.reshape(n, math.prod(x.shape[1:])).to(dtype) for x in xs], 1)
+
+
+def _gather_leading(mesh, axis, xs, sizes, tag):
+    """The tensors ``xs``, whose leading axis is this rank's block of an
+    axis cut in ``torch.tensor_split`` order over ``axis`` of ``mesh``
+    (``sizes``: every block's length, in mesh order), whole on every rank
+    of the line: side by side as columns, each block padded to the
+    longest, in one all_gather."""
+    cols = _flat_cols(xs)
+    pad = cols.new_zeros((max(sizes) - cols.shape[0],) + tuple(cols.shape[1:]))
+    got = mesh.all_gather(torch.cat([cols, pad], 0), axis, tag)
+    full = torch.cat([g[:n] for g, n in zip(got, sizes)], 0)
+    out, i = [], 0
+    for x in xs:
+        w = math.prod(x.shape[1:])
+        out.append(full[:, i: i + w].reshape(full.shape[:1] + x.shape[1:]).to(x.dtype))
+        i += w
+    return tuple(out)
+
+
+class _Systems:
+    """A mixture's K systems cut over ``axis`` of ``mesh`` in
+    ``torch.tensor_split`` order: this rank holds systems [start, end),
+    ``size`` of them.  Every rank of the line holds at least one."""
+
+    def __init__(self, mesh, axis, K):
+        if mesh.coords is None:
+            raise RuntimeError(f"rank {mesh.rank} is not in {mesh!r}")
+        M = mesh.shape[axis]
+        if M > K:
+            raise ValueError(f"a {axis!r} axis of {M} ranks cannot cut {K} systems: a rank "
+                             f"would hold none; put at most {K} ranks on it")
+        self.mesh, self.axis, self.K = mesh, axis, K
+        self.sizes = [e - s for s, e in (_bounds(K, M, m) for m in range(M))]
+        self.start, self.end = _bounds(K, M, mesh.coords[axis])
+        self.size = self.end - self.start
+
+    def take(self, x, dim=0):
+        """This rank's systems of a whole ``x`` whose ``dim`` is the system
+        axis."""
+        return x.narrow(dim, self.start, self.size)
+
+    def whole(self, *xs, dim=0, tag="systems"):
+        """The ``xs``, this rank's systems on ``dim``, with every rank's: all
+        K systems on every rank of the line, in one all_gather."""
+        xs = _gather_leading(self.mesh, self.axis, tuple(x.movedim(dim, 0) for x in xs),
+                             self.sizes, tag)
+        return tuple(x.movedim(0, dim) for x in xs)
+
+
 def _check_mesh(mesh, what="mesh"):
     if not isinstance(mesh, Mesh):
         raise TypeError(
@@ -351,6 +422,21 @@ def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
     data such as GMM's ``(n, d)``.  A model with ``reshape_inputs`` and
     ``_update_reshaped`` (LDS, DMBD) has its inputs reshaped first and each
     of y, u and r split on that axis where it spans the batch.
+
+    A ``("data", "model")`` mesh also cuts a MixLDS's K systems over
+    ``model`` (``(1, M)``: the systems alone), as the JAX package places
+    them: each rank smooths and updates its block of the systems (every
+    field of ``lds.x0``, ``lds.A`` and ``lds.obs_model`` that carries the
+    node's batch), the responsibilities' softmax is completed over all K by
+    one all_gather over ``model`` a sweep (tag ``"systems"``: each
+    sequence's logZ and each system's KL, O(batch x K) elements, whatever
+    T), and the sums over the batch are completed over ``data`` alone.
+    When the call ends the nodes are whole again on every rank (one
+    all_gather, tag ``"gather"``); ``lds.px`` stays this rank's systems of
+    its batch block until ``gather_posterior(model)``, and the state
+    exporters refuse it until then.  A ``model`` axis longer than K raises
+    ``ValueError``; one on another model, or beside a ``time_mesh``, raises
+    ``NotImplementedError``.
     """
     if mesh is None:
         mesh = make_mesh()
@@ -360,7 +446,14 @@ def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
     if "data" not in mesh.shape:
         raise ValueError(f"data_parallel_update splits the batch over a 'data' axis; "
                          f"{mesh!r} has none")
-    with _data_parallel(mesh, "data"):
+    systems = contextlib.nullcontext()
+    if mesh.shape.get("model", 1) > 1:
+        if not hasattr(model, "_split_systems"):
+            raise NotImplementedError(
+                f"a 'model' mesh axis cuts a MixLDS's systems; the JAX package shards no "
+                f"other model's components, so {type(model).__name__} has none to cut")
+        systems = model._split_systems(_Systems(mesh, "model", model.num_systems))
+    with _data_parallel(mesh, "data"), systems:
         if hasattr(model, "_update_reshaped") and hasattr(model, "reshape_inputs"):
             y, u, r = model.reshape_inputs(y, u, r)
             n = y.shape[batch_axis]

@@ -64,14 +64,8 @@ import warnings
 import torch
 
 from ..ops import scan
-from .api import _check_mesh, _time_sharded, data_parallel_axis, shard_batch
-
-
-def _bounds(T, D, d):
-    """Rows [start, end) of chunk d of T rows cut into D (tensor_split)."""
-    q, rem = divmod(T, D)
-    start = d * q + min(d, rem)
-    return start, start + q + (1 if d < rem else 0)
+from .api import (_bounds, _check_mesh, _gather_leading, _time_sharded, data_parallel_axis,
+                  shard_batch)
 
 
 def _flat(rows):
@@ -258,28 +252,8 @@ class ShardedChain(scan.Chain):
     def _gather_time(self, xs):
         """The time-leading ``xs`` over all T rows: each rank's rows padded
         to ceil(T / D), one all_gather of them side by side."""
-        L = -(-self.T // self.D)
-        n = xs[0].shape[0]
-        cols = _flat_cols(xs)
-        buf = torch.cat([cols, cols.new_zeros((L - n,) + tuple(cols.shape[1:]))], 0)
-        got = self.mesh.all_gather(buf, self.axis, "gather")
-        full = torch.cat([g[: e - s] for g, (s, e) in zip(got, self.bounds)], 0)
-        out, i = [], 0
-        for x in xs:
-            w = math.prod(x.shape[1:])
-            out.append(full[:, i: i + w].reshape((self.T,) + tuple(x.shape[1:])).to(x.dtype))
-            i += w
-        return tuple(out)
-
-
-def _flat_cols(xs):
-    """Time-leading tensors side by side as (rows, columns) in their common
-    dtype."""
-    n = xs[0].shape[0]
-    dtype = xs[0].dtype
-    for x in xs[1:]:
-        dtype = torch.promote_types(dtype, x.dtype)
-    return torch.cat([x.reshape(n, math.prod(x.shape[1:])).to(dtype) for x in xs], 1)
+        return _gather_leading(self.mesh, self.axis, xs, [e - s for s, e in self.bounds],
+                               "gather")
 
 
 def _resolve_axes(mesh, time_axis, batch_axis, T, batch_size):
@@ -400,11 +374,16 @@ def gather_posterior(model):
     left as this rank's (the model's ``CHUNK_STATE``: DMBD px and p (its
     obs_model's); HMM p; dHMM p and SEzz; LDS px and logZ; MixLDS px (its
     LDS's), p and logZ) assembled over all T rows and over the batch where
-    the sweep split it (tag "gather").  The whole state replaces the chunk
-    on the model, so the state exporters take it and the next sweep cuts
-    it again; a dict of it by name is returned.  A model whose state is
-    whole already is returned as it is, with no collective.  No sweep
-    calls it."""
+    the sweep split it (tag "gather").  After ``data_parallel_update`` cut a
+    MixLDS's systems over a "model" axis, its px is assembled over the
+    systems the same way (its batch stays this rank's block, as every
+    data-parallel sweep leaves per-sample state).  The whole state replaces
+    the chunk on the model, so the state exporters take it and the next
+    sweep cuts it again; a dict of it by name is returned.  A model whose
+    state is whole already is returned as it is, with no collective.  No
+    sweep calls it."""
+    if getattr(model, "system_block", None) is not None:
+        model._whole_systems()
     chunk = model.time_chunk
     out = {}
     for owner, name, kind in _chunk_state(model):

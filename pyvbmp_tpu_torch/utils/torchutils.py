@@ -47,6 +47,42 @@ def replace(n, **changes):
     return dataclasses.replace(n, **changes)
 
 
+def batch_paths(n):
+    """The paths (tuples of field names) of the tensor fields of node ``n``
+    and of its sub-nodes that carry the node's batch axes in front (a
+    field's leading shape is the node's own ``batch_shape``), in field
+    order.  A field held once for the whole batch (a prior broadcast over
+    it: 1s or no batch axes in front), a bool mask and anything that is not
+    a tensor are left out."""
+    out = []
+    for f in dataclasses.fields(n):
+        v = getattr(n, f.name)
+        if isinstance(v, Node):
+            out += [(f.name,) + p for p in batch_paths(v)]
+        elif (isinstance(v, torch.Tensor) and n.batch_shape and v.dtype != torch.bool
+              and tuple(v.shape[:len(n.batch_shape)]) == tuple(n.batch_shape)):
+            out.append((f.name,))
+    return out
+
+
+def at_path(n, path):
+    """The field of node ``n`` at ``path``."""
+    for name in path:
+        n = getattr(n, name)
+    return n
+
+
+def with_batch(n, leaves, size):
+    """Node ``n`` with the fields at the paths of ``leaves`` (path ->
+    tensor) replaced, and the first batch axis of ``n`` and of each sub-node
+    on a path ``size`` long."""
+    changes = {"batch_shape": (size,) + tuple(n.batch_shape[1:])}
+    for name in dict.fromkeys(p[0] for p in leaves):
+        sub = {p[1:]: x for p, x in leaves.items() if p[0] == name}
+        changes[name] = sub[()] if () in sub else with_batch(getattr(n, name), sub, size)
+    return replace(n, **changes)
+
+
 def damp(new, old, lr):
     """Learning-rate damped natural-parameter blend: lr*new + (1-lr)*old."""
     return lr * new + (1.0 - lr) * old
@@ -315,11 +351,14 @@ def normal(shape, generator, like):
 
 def require_whole_state(model):
     """Raise ``ValueError`` where ``model`` holds this process's chunk of a
-    time-sharded update (``time_chunk`` set): a state exporter would write
-    a part of its per-time state as the whole.
-    ``parallel.gather_posterior(model)``, called on every rank, makes the
-    state whole."""
-    if getattr(model, "time_chunk", None) is not None:
+    time-sharded update (``time_chunk`` set) or its block of a MixLDS's
+    systems (``system_block`` set): a state exporter would write a part of
+    its state as the whole.  ``parallel.gather_posterior(model)``, called on
+    every rank, makes the state whole."""
+    held = ("chunk of a time-sharded update" if getattr(model, "time_chunk", None) is not None
+            else "systems of a split over a 'model' axis"
+            if getattr(model, "system_block", None) is not None else None)
+    if held is not None:
         raise ValueError(
-            f"this {type(model).__name__} holds its rank's chunk of a time-sharded update; "
+            f"this {type(model).__name__} holds its rank's {held}; "
             f"call parallel.gather_posterior(model) on every rank first")

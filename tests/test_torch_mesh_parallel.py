@@ -17,7 +17,17 @@ max relative deviation 1e-8 against JAX, 1e-10 against the single process.
   DMBD's ``"reduce"`` elements per sweep at batch 8 equal those at batch 64,
   nonzero and under 10 * 64 * 8, and no ``"gather"``;
 - ``shard_batch``'s blocks, ``replicate``, ``make_mesh`` without a process
-  group, and the parallel modules importing without JAX."""
+  group, and the parallel modules importing without JAX;
+- a MixLDS's systems cut over a ``model`` axis (``SYSTEM_CASES``): on a
+  2 x 2 ("data", "model") mesh and a (1, 4) mesh of the 4 ranks, and a
+  (1, 2) mesh of a second world of 2, against ``_vb_multi`` jitted on a
+  JAX ("data", "model") mesh with the systems placed as
+  ``__graft_entry__.py``'s leg 2 places them (every parameter node, 1e-8)
+  and against the single process (1e-10), an uneven K (3 on 2 ranks) and
+  an uneven batch included; the "systems" elements a sweep at two T,
+  "gather" once a call; lds.px this rank's systems until
+  ``gather_posterior``, the exporters refusing it; and the refusals (a
+  ``model`` axis on an LDS, beside a ``time_mesh``, longer than K)."""
 import copy
 import subprocess
 import sys
@@ -38,9 +48,13 @@ from pyvbmp_tpu.models import GaussianMixtureModel as JGMM
 from pyvbmp_tpu.models import LinearDynamicalSystems as JLDS
 from pyvbmp_tpu.models import MixtureofLinearDynamicalSystems as JMixLDS
 from pyvbmp_tpu.models import PoissonMixtureModel as JPMM
+from jax.sharding import Mesh as JMesh
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
+
 from pyvbmp_tpu.parallel import api as japi
 from pyvbmp_tpu.utils import rng
-from pyvbmp_tpu_torch.utils import convert
+from pyvbmp_tpu_torch.utils import convert, torchutils
 
 TOL_JAX, TOL_SELF = 1e-8, 1e-10
 WORLD = 4
@@ -119,10 +133,83 @@ def dmbd_batch(B):
     return state, (np.random.RandomState(1).randn(10, B, 4, 2),)
 
 
+# name -> (K, T, batch, sweeps, port mesh, world, JAX mesh shape or None): the
+# MixLDS(K, (3,), 2, 0, 0, parallel_scan=True) fits with the systems cut over
+# the "model" axis; the JAX fit is one a K, at T=12, batch 8, 3 sweeps
+SYSTEM_CASES = {
+    "K=2 (1, 2)": (2, 12, 8, 3, "model", 2, (2, 2)),
+    "K=3 (1, 2)": (3, 12, 8, 3, "model", 2, None),
+    "K=2 2x2": (2, 12, 8, 3, "data_model", 4, (2, 2)),
+    "K=4 2x2": (4, 12, 8, 3, "data_model", 4, (2, 4)),
+    "K=4 (1, 4)": (4, 12, 8, 3, "model", 4, (2, 4)),
+    "K=3 2x2, batch 7": (3, 12, 7, 3, "data_model", 4, None),
+    "K=4 2x2 T=24": (4, 24, 8, 1, "data_model", 4, None),
+}
+SYSTEM_SEED = 17
+
+
+def system_data(T, b):
+    return np.random.RandomState(8).randn(T, b, 3)
+
+
+def system_model(K):
+    """(the JAX MixLDS with K systems, its state), float64."""
+    with jax.enable_x64(True):
+        rng.seed(SYSTEM_SEED)
+        jm = JMixLDS(K, (3,), 2, 0, 0, parallel_scan=True)
+        return jm, convert.mixlds_state(jm)
+
+
+def jax_systems(jm, data, sweeps, shape):
+    """``__graft_entry__.py``'s leg 2 on ``data``: ``_vb_multi`` jitted on a
+    ("data", "model") mesh of ``shape``, the batch on "data" and every leaf
+    whose leading axis is the system axis on "model"; the ELBOs and the
+    parameter nodes' states."""
+    with jax.enable_x64(True):
+        K = jm.num_systems
+        mesh = JMesh(np.asarray(jax.devices()[:np.prod(shape)]).reshape(shape),
+                     ("data", "model"))
+        batch = NamedSharding(mesh, P(None, "data"))
+        y, u, r = (jax.device_put(t, batch) for t in jm.lds.reshape_inputs(jnp.asarray(data)))
+
+        def shard_K(leaf):
+            if getattr(leaf, "ndim", 0) >= 1 and leaf.shape[0] == K:
+                return jax.device_put(leaf, NamedSharding(mesh, P("model")))
+            return jax.device_put(leaf, NamedSharding(mesh, P()))
+
+        nodes = jax.tree.map(shard_K, (jm.lds.x0, jm.lds.A, jm.lds.obs_model, jm.pi))
+        step = jax.jit(jm._vb_multi, static_argnames=("iters",))
+        x0, A, obs_model, pi, _, _, elbos = step(*nodes, y, u, r, 1.0, sweeps)
+        fit = copy.copy(jm)
+        fit.lds = copy.copy(jm.lds)
+        fit.lds.x0, fit.lds.A, fit.lds.obs_model, fit.pi = x0, A, obs_model, pi
+        return {"elbo": np.asarray(elbos, np.float64), "params": ranks._params("mixlds", fit)}
+
+
+def single_systems(state, data, sweeps):
+    """The port's single-process fit: ELBOs, parameter nodes, p and px."""
+    m = convert.mixlds_from_state(state, device="cpu", dtype=torch.float64)
+    m.update(torch.tensor(data), iters=sweeps)
+    return {"elbo": np.asarray(m.ELBO_save), "params": ranks._params("mixlds", m),
+            "p": m.p.numpy(), "px": ranks._np(ranks._px(m.lds.px))}
+
+
+def system_jobs(world_size, states):
+    return {name: ("systems", dict(state=states[K], data=(system_data(T, b),), sweeps=n,
+                                   mesh=mesh))
+            for name, (K, T, b, n, mesh, w, _) in SYSTEM_CASES.items() if w == world_size}
+
+
 @pytest.fixture(scope="module")
 def world(built, tmp_path_factory):
-    """(references, each rank's results)."""
-    jobs = {}
+    """(references, each rank's results; the system split's references and
+    each rank's results of the worlds of 4 and 2)."""
+    systems = {K: system_model(K) for K in sorted({c[0] for c in SYSTEM_CASES.values()})}
+    states = {K: state for K, (_, state) in systems.items()}
+    started2 = ranks.start(2, tmp_path_factory.mktemp("dp2"), system_jobs(2, states))
+    jobs = system_jobs(4, states)
+    jobs["refusals"] = ("refusals", dict(lds_state=built["lds"][1], mix_state=states[2],
+                                         data=system_data(12, 8)))
     for name, (kind, _, data, sweeps, _, batch_axis, _) in CASES.items():
         jobs[name] = ("data_parallel", dict(kind=kind, state=built[name][1], data=(data,),
                                             sweeps=sweeps, batch_axis=batch_axis))
@@ -140,20 +227,29 @@ def world(built, tmp_path_factory):
                                                          ((240, 2), 0)]))
     jobs["replicate"] = ("replicate", dict(state=dstate))
     started = ranks.start(WORLD, tmp_path_factory.mktemp("dp"), jobs)
-    refs = {}
+    refs, system_refs = {}, {}
     with ThreadPoolExecutor(4) as pool:
         futs = {name: pool.submit(jax_fit, built[name][0], name)
                 for name, case in CASES.items() if case[-1]}
+        jax_futs = {K: pool.submit(jax_systems, jm, system_data(12, 8), 3, shape)
+                    for (K, _, _, _, _, _, shape) in SYSTEM_CASES.values() if shape
+                    for jm in (systems[K][0],)}
         for name in CASES:
             refs[name] = {"self": single_fit(built[name][1], name)}
         refs["dmbd both"] = {"self": single_fit(dstate, "dmbd", parallel_scan=True)}
+        for name, (K, T, b, n, _, _, shape) in SYSTEM_CASES.items():
+            system_refs[name] = {"self": single_systems(states[K], system_data(T, b), n)}
         for name, f in futs.items():
             refs[name]["jax"] = f.result()
+        for name, (K, *_, shape) in SYSTEM_CASES.items():
+            if shape:
+                system_refs[name]["jax"] = jax_futs[K].result()
     results = ranks.join(started)
-    for r in results:
+    system_results = {4: results, 2: ranks.join(started2)}
+    for r in results + system_results[2]:
         for key, res in r.items():
             assert "traceback" not in res, (key, res["traceback"])
-    return refs, results
+    return refs, results, system_refs, system_results
 
 
 def rel(out, ref):
@@ -162,7 +258,7 @@ def rel(out, ref):
 
 @pytest.mark.parametrize("name", list(CASES) + ["dmbd both"])
 def test_data_parallel_update_matches_jax_and_the_single_process(world, name):
-    refs, results = world
+    refs, results, *_ = world
     out = results[0][name]
     for other in results[1:]:  # the sums are completed: every rank agrees
         for k in refs[name]["self"]:
@@ -180,7 +276,7 @@ def test_dmbd_reductions_do_not_grow_with_the_batch(world):
     """The port's counterpart of the JAX test of the compiled sweep's
     collectives: only all_reduces of the statistics, the same at 8 times
     the batch, and nothing the size of the data."""
-    _, results = world
+    _, results, *_ = world
     small = results[0]["dmbd batch 8"]["counts"]
     big = results[0]["dmbd batch 64"]["counts"]
     assert small["reduce"] == big["reduce"] > 0, (small, big)
@@ -191,7 +287,7 @@ def test_dmbd_reductions_do_not_grow_with_the_batch(world):
 
 
 def test_shard_batch_takes_this_ranks_block(world):
-    _, results = world
+    _, results, *_ = world
     got = [r["shard shapes"]["shapes"] for r in results]
     assert [g[0] for g in got] == [(4, 4, 3)] * 4
     assert [g[1] for g in got] == [(4, 3, 3), (4, 3, 3), (4, 2, 3), (4, 2, 3)]
@@ -199,7 +295,7 @@ def test_shard_batch_takes_this_ranks_block(world):
 
 
 def test_replicate_gives_every_rank_the_first_ranks_state(world):
-    _, results = world
+    _, results, *_ = world
     first = results[0]["replicate"]
     for r in results[1:]:
         assert np.array_equal(r["replicate"]["A_mu"], first["A_mu"])
@@ -226,3 +322,115 @@ def test_parallel_modules_import_without_jax():
     )
     env = {"PYTHONPATH": f"{REPO}:{REPO / 'tests'}", "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env)
+
+
+def system_results(world, name):
+    """Each rank's results of a system-split case, and its references."""
+    *_, system_refs, system_results = world
+    return [r[name] for r in system_results[SYSTEM_CASES[name][5]]], system_refs[name]
+
+
+def data_block(x, res, axis):
+    """The block of the batch (``axis``) of a whole ``x`` that the rank of
+    ``res`` holds on its mesh's "data" axis."""
+    return np.array_split(x, res["data_parts"], axis=axis)[res["data_coord"]]
+
+
+@pytest.mark.parametrize("name", list(SYSTEM_CASES))
+def test_system_split_matches_jax_and_the_single_process(world, name):
+    """The fit with the systems cut over "model": every rank ends with the
+    same whole parameter nodes (K systems), equal to the JAX package's leg
+    2 at 1e-8 and to the single process at 1e-10 in every leaf."""
+    results, refs = system_results(world, name)
+    K = SYSTEM_CASES[name][0]
+    for res in results:
+        assert res["batch_shape"] == (K,)
+        assert np.array_equal(res["elbo"], results[0]["elbo"])
+        for path, g, w in ranks.state_pairs(res["params"], results[0]["params"]):
+            assert np.array_equal(g, w), (name, path)
+    for which, tol in (("jax", TOL_JAX), ("self", TOL_SELF)):
+        if which not in refs:
+            continue
+        ref = refs[which]
+        assert rel(results[0]["elbo"], ref["elbo"]) <= tol, (name, which)
+        for path, g, w in ranks.state_pairs(results[0]["params"], ref["params"]):
+            dev = ranks.leaf_dev(g, w)
+            assert dev <= tol, (name, which, path, dev)
+
+
+@pytest.mark.parametrize("name", ["K=2 (1, 2)", "K=4 2x2", "K=4 (1, 4)", "K=3 2x2, batch 7"])
+def test_system_split_keeps_each_ranks_systems_until_gather_posterior(world, name):
+    """lds.px holds this rank's systems of its batch block; the exporter
+    refuses the model until ``gather_posterior``, which makes px whole over
+    the systems (the batch stays the rank's block, as after any
+    data-parallel fit) at 1e-10 of the single process's; p is the rank's
+    block over all K."""
+    results, refs = system_results(world, name)
+    K, T = SYSTEM_CASES[name][:2]
+    single = refs["self"]
+    blocks = np.array_split(np.arange(K), results[0]["model_parts"])
+    for res in results:
+        b = data_block(single["p"], res, 0).shape[0]
+        assert res["local_shape"] == (T, b, len(blocks[res["model_coord"]]), 2, 1)
+        assert "gather_posterior" in res["refused"], res["refused"]
+        assert res["gathered"] > 0
+        assert ranks.leaf_dev(res["p"], data_block(single["p"], res, 0)) <= TOL_SELF
+        for f, want in single["px"].items():
+            assert ranks.leaf_dev(res["px"][f], data_block(want, res, 1)) <= TOL_SELF, f
+
+
+def test_system_split_exchanges_a_sweep_do_not_grow_with_T(world):
+    """One all_gather over "model" a sweep of each sequence's logZ and each
+    system's KL ("systems": the line's 2 ranks x 2 systems x (4 sequences +
+    1)), the same at T=12 and 24; "gather" is the nodes' one all_gather when
+    the call ends, the same after 3 sweeps at T=12 and 1 sweep at T=24, so
+    no sweep gathers; the sums over the batch complete over "data" alone
+    (the same "reduce" elements a sweep at both T); no scan or halo."""
+    short, _ = system_results(world, "K=4 2x2")
+    long, _ = system_results(world, "K=4 2x2 T=24")
+    for a, b in zip(short, long):
+        ca, cb = a["sweep_counts"], b["sweep_counts"]
+        assert ca["systems"] // 3 == cb["systems"] == 2 * 2 * (4 + 1), (ca, cb)
+        assert ca["reduce"] // 3 == cb["reduce"] > 0, (ca, cb)
+        assert ca["gather"] == cb["gather"] > 0, (ca, cb)
+        assert ca["scan"] == ca["halo"] == ca["replicate"] == 0, ca
+
+
+def test_a_model_axis_that_cannot_cut_the_systems_raises(world):
+    """A "model" axis on another model (the JAX package shards only a
+    MixLDS's systems), beside a ``time_mesh``, or with more ranks than
+    systems."""
+    _, results, *_ = world
+    for r in results:
+        got = r["refusals"]
+        assert got["lds"][0] == "NotImplementedError" and "MixLDS" in got["lds"][1], got
+        assert got["time_mesh"][0] == "NotImplementedError", got
+        assert "time_mesh" in got["time_mesh"][1], got
+        assert got["too many ranks"][0] == "ValueError", got
+        assert "4 ranks cannot cut 2 systems" in got["too many ranks"][1], got
+
+
+def test_batch_paths_cut_by_each_nodes_batch_shape():
+    """The LDS nodes of a MixLDS are cut by their own ``batch_shape``: every
+    field that carries it is cut, a prior field broadcast over the systems
+    (1s, or no batch axes in front) is kept whole, and putting the blocks
+    back gives the node."""
+    from pyvbmp_tpu_torch.models import MixtureofLinearDynamicalSystems
+
+    m = MixtureofLinearDynamicalSystems(3, (3,), 2, 0, 0, generator=torch.Generator(),
+                                        dtype=torch.float64, device="cpu")
+    for node in (m.lds.x0, m.lds.A, m.lds.obs_model):
+        paths = torchutils.batch_paths(node)
+        assert paths and all(torchutils.at_path(node, p).shape[0] == 3 for p in paths)
+        cut = [torchutils.with_batch(node, {p: torchutils.at_path(node, p)[i: j] for p in paths},
+                                     j - i) for i, j in ((0, 2), (2, 3))]
+        assert [c.batch_shape[0] for c in cut] == [2, 1]
+        back = torchutils.with_batch(node, {p: torch.cat([torchutils.at_path(c, p) for c in cut])
+                                            for p in paths}, 3)
+        for p in paths:
+            assert torch.equal(torchutils.at_path(back, p), torchutils.at_path(node, p)), p
+    x0 = m.lds.x0
+    shared = torchutils.replace(x0, mu_0=x0.mu_0[:1], lambda_mu_0=x0.lambda_mu_0[0])
+    assert ("mu_0",) not in torchutils.batch_paths(shared)
+    assert ("lambda_mu_0",) not in torchutils.batch_paths(shared)
+    assert ("mu",) in torchutils.batch_paths(shared)

@@ -50,11 +50,14 @@ def _meshes(world):
     out = {"seq": make_mesh(world, "seq"), "data": make_mesh(world, "data")}
     if world == 4:
         out["seq_data"] = Mesh(np.arange(4).reshape(2, 2), ("seq", "data"))
+        out["data_model"] = Mesh(np.arange(4).reshape(2, 2), ("data", "model"))
+    if world in (2, 4):
+        out["model"] = Mesh(np.arange(world).reshape(1, world), ("data", "model"))
     return out
 
 
 def _counts(meshes):
-    tags = ("scan", "halo", "reduce", "gather", "replicate")
+    tags = ("scan", "halo", "reduce", "gather", "replicate", "systems")
     return {t: sum(m.elements(t) for m in meshes.values()) for t in tags}
 
 
@@ -251,6 +254,57 @@ def job_data_parallel(meshes, kind, state, data, sweeps, mesh="data", batch_axis
     return {"elbo": np.asarray(m.ELBO_save), **_np(s)}
 
 
+def job_systems(meshes, state, data, sweeps, mesh):
+    """``data_parallel_update`` of a MixLDS from ``state`` over
+    meshes[mesh], a ("data", "model") mesh that cuts its systems: its ELBOs
+    and parameter nodes, the collectives of the call (``sweep_counts``),
+    the state exporter's refusal while lds.px holds this rank's systems,
+    and the px that ``gather_posterior`` makes whole over the systems
+    (with what the gathering moved)."""
+    from pyvbmp_tpu_torch.parallel import data_parallel_update, gather_posterior
+    from pyvbmp_tpu_torch.utils import convert
+
+    m = _build("mixlds", state, None)
+    data_parallel_update(m, _t(data[0]), mesh=meshes[mesh], iters=sweeps)
+    sweep_counts = _counts(meshes)
+    local = m.lds.px.mu
+    try:
+        convert.mixlds_state(m)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    for mm in meshes.values():
+        mm.reset_counts()
+    whole = gather_posterior(m)
+    mesh = meshes[mesh]
+    return {"elbo": np.asarray(m.ELBO_save), "params": _params("mixlds", m),
+            "p": _np(m.p), "local_shape": tuple(local.shape), "refused": refused,
+            "px": _np(_px(whole["px"])), "sweep_counts": sweep_counts,
+            "gathered": _counts(meshes)["gather"], "batch_shape": m.lds.batch_shape,
+            "data_parts": mesh.shape["data"], "data_coord": mesh.coords["data"],
+            "model_parts": mesh.shape["model"], "model_coord": mesh.coords["model"]}
+
+
+def job_refusals(meshes, lds_state, mix_state, data):
+    """What ``data_parallel_update`` raises where a "model" axis cannot cut
+    the systems: another model (an LDS), a MixLDS with a ``time_mesh``, and
+    more ranks on the axis than systems; error type and message each."""
+    from pyvbmp_tpu_torch.parallel import data_parallel_update
+
+    y = _t(data)
+    out = {}
+    for name, build, mesh in (
+            ("lds", lambda: _build("lds", lds_state, None), "model"),
+            ("time_mesh", lambda: _build("mixlds", mix_state, meshes["seq"]), "data_model"),
+            ("too many ranks", lambda: _build("mixlds", mix_state, None), "model")):
+        try:
+            data_parallel_update(build(), y, mesh=meshes[mesh])
+            out[name] = ("", "")
+        except (NotImplementedError, ValueError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
 def job_replicate(meshes, state):
     """``replicate`` of a DMBD whose ranks started from different states:
     every rank ends with rank 0's."""
@@ -269,6 +323,27 @@ def job_shard_shapes(meshes, shapes):
 
     return {"shapes": [tuple(shard_batch(meshes["data"], torch.zeros(sh), ax).shape)
                        for sh, ax in shapes]}
+
+
+def state_pairs(got, want, path=""):
+    """(path, got leaf, want leaf) over the reference's leaves."""
+    if isinstance(want, dict):
+        for k, v in want.items():
+            assert k in got, (path, k)
+            yield from state_pairs(got[k], v, f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, v) in enumerate(zip(got, want)):
+            yield from state_pairs(g, v, f"{path}[{i}]")
+    elif want is not None:
+        yield path, np.asarray(got), np.asarray(want)
+
+
+def leaf_dev(got, want):
+    assert got.shape == want.shape, (got.shape, want.shape)
+    if want.dtype == bool or not want.size:
+        return 0.0 if np.array_equal(got, want) else np.inf
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
 
 
 JOBS = {name[4:]: fn for name, fn in globals().items() if name.startswith("job_")}

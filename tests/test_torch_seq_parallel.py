@@ -489,29 +489,9 @@ def test_chunk_local_fits_match_jax_and_the_single_process_in_every_parameter(wo
             for ref, tol in ((jax_ref, TOL_JAX), (single, TOL_SELF)):
                 dev = np.abs(res["elbo"] - ref["elbo"]).max() / np.abs(ref["elbo"]).max()
                 assert dev <= tol, (key, "elbo", res["elbo"], ref["elbo"])
-                for path, got, want in state_pairs(res["params"], ref["params"]):
-                    assert leaf_dev(got, want) <= tol, (key, path, leaf_dev(got, want), tol)
-
-
-def state_pairs(got, want, path=""):
-    """(path, got leaf, want leaf) over the reference's leaves."""
-    if isinstance(want, dict):
-        for k, v in want.items():
-            assert k in got, (path, k)
-            yield from state_pairs(got[k], v, f"{path}.{k}")
-    elif isinstance(want, (list, tuple)):
-        assert len(got) == len(want), path
-        for i, (g, v) in enumerate(zip(got, want)):
-            yield from state_pairs(g, v, f"{path}[{i}]")
-    elif want is not None:
-        yield path, np.asarray(got), np.asarray(want)
-
-
-def leaf_dev(got, want):
-    assert got.shape == want.shape, (got.shape, want.shape)
-    if want.dtype == bool or not want.size:
-        return 0.0 if np.array_equal(got, want) else np.inf
-    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+                for path, got, want in ranks.state_pairs(res["params"], ref["params"]):
+                    dev = ranks.leaf_dev(got, want)
+                    assert dev <= tol, (key, path, dev, tol)
 
 
 def rank_block(res, x, time):
@@ -540,9 +520,9 @@ def test_each_rank_keeps_its_rows_of_the_single_process_state(world):
             for name, kind in single["kinds"].items():
                 want = single["state"][name]
                 got = res["local"][name]
-                for path, g, w in state_pairs(got, want):
+                for path, g, w in ranks.state_pairs(got, want):
                     w = rank_block(res, w, kind == "time")
-                    assert leaf_dev(g, w) <= TOL_SELF, (key, name, path)
+                    assert ranks.leaf_dev(g, w) <= TOL_SELF, (key, name, path)
 
 
 def test_gather_posterior_rebuilds_the_whole_posterior(world):
@@ -556,14 +536,14 @@ def test_gather_posterior_rebuilds_the_whole_posterior(world):
             whole = r[key]["whole"]
             assert sorted(whole) == sorted(single["kinds"]), key
             for name, kind in single["kinds"].items():
-                for path, g, w in state_pairs(whole[name], single["state"][name]):
-                    assert leaf_dev(g, w) <= TOL_SELF, (key, name, path)
+                for path, g, w in ranks.state_pairs(whole[name], single["state"][name]):
+                    assert ranks.leaf_dev(g, w) <= TOL_SELF, (key, name, path)
                 if kind != "time" or r[key]["batch_axis"] is not None:
                     continue
-                chunks = [dict((p, g) for p, g, _ in state_pairs(rr[key]["local"][name],
+                chunks = [dict((p, g) for p, g, _ in ranks.state_pairs(rr[key]["local"][name],
                                                                rr[key]["local"][name]))
                           for rr in results]
-                for path, g, _ in state_pairs(whole[name], whole[name]):
+                for path, g, _ in ranks.state_pairs(whole[name], whole[name]):
                     np.testing.assert_array_equal(
                         g, np.concatenate([c[path] for c in chunks]), err_msg=f"{key} {path}")
 
@@ -600,7 +580,7 @@ def test_elbo_method_holds_on_every_rank_after_a_chunk_local_fit(world):
             res = r[key]
             if res["elbo_now"] is None or res["batch_axis"] is not None:
                 continue
-            assert leaf_dev(np.asarray(res["elbo_now"]), np.asarray(single["elbo_now"])) \
+            assert ranks.leaf_dev(np.asarray(res["elbo_now"]), np.asarray(single["elbo_now"])) \
                 <= TOL_SELF, (key, res["elbo_now"], single["elbo_now"])
             checked += 1
     assert checked >= 4 * D
@@ -620,8 +600,8 @@ def test_exporters_refuse_a_chunk_and_a_resumed_model_matches_the_single_process
             assert "gather_posterior" in res["refused"], (key, res["refused"])
             got = res["resumed"]
             assert abs(got["elbo"] - single["elbo"]) <= TOL_SELF * abs(single["elbo"]), key
-            for path, g, w in state_pairs(got["params"], single["params"]):
-                assert leaf_dev(g, w) <= TOL_SELF, (key, path, leaf_dev(g, w))
+            for path, g, w in ranks.state_pairs(got["params"], single["params"]):
+                assert ranks.leaf_dev(g, w) <= TOL_SELF, (key, path, ranks.leaf_dev(g, w))
 
 
 def test_an_e_step_outside_update_leaves_the_state_whole(world):
@@ -639,8 +619,8 @@ def test_an_e_step_outside_update_leaves_the_state_whole(world):
             assert not res["held_chunk"] and res["gathered"] == 0, (key, res)
             assert sorted(res["whole"]) == sorted(single), key
             for name in single:
-                for path, g, w in state_pairs(res["whole"][name], single[name]):
-                    assert leaf_dev(g, w) <= TOL_SELF, (key, name, path)
+                for path, g, w in ranks.state_pairs(res["whole"][name], single[name]):
+                    assert ranks.leaf_dev(g, w) <= TOL_SELF, (key, name, path)
 
 
 def test_an_observation_node_without_batch_sum_raises_in_a_split_sweep(monkeypatch):
