@@ -32,7 +32,8 @@ prints no result:
    H=6 at T=100 and 99 (N=300, 100), T=399 (N=75, 25) and T=200 (N=150,
    50), lane H=2 T=25 N=4000, logsemiring K=8 T=50 N=200, one transition
    and per time; leg (f)'s logsemiring K=4 N=300 and plane H=6 N=100 at
-   T=998 and 997; leg (g)'s lane H=2 N=1000 at T=100 and 1000);
+   T=998 and 997; leg (g)'s lane H=2 N=1000 at T=100 and 1000; leg (h)'s
+   NLDS lane H=2 T=200 N=2);
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
@@ -268,7 +269,15 @@ prints no result:
    launches a sweep on each rank at (100, 2, 1000) and no plain scan, the
    "systems" and "reduce" elements a sweep the same at T=1000 (one sweep),
    and "gather" the nodes' one all_gather a call, the same after 3 sweeps
-   at T=100 and 1 at T=1000.
+   at T=100 and 1 at T=1000; (h) under data_parallel_update (its check of
+   the ranks' ELBOs on): Tensor_HMM, HHMM and Factorial_HMM (phase 26's
+   states on phase 15's data, 50 trajectories a rank) and NLDS at phase
+   19's size (2 trajectories a rank) from a state with q(s) set and from
+   one without (q(s) drawn at the whole batch's size): each within 1e-4 of
+   its single-process card run, the parameter nodes equal on every rank
+   after the call, the tensor HMMs' "reduce" elements a sweep the same at
+   batch 800 (one sweep), NLDS's 2 lane Kalman launches a sweep on every
+   rank at (200, 2, 2) and no plain scan, the tensor HMMs no kernel.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -804,6 +813,10 @@ def phase_kernels(card, base=None):
     for T in (MIX["T"], MESH_SYSTEMS_LONG_T):
         cases.append((scan.KALMAN_LANE, f"H=2 T={T} N={N_mix // MESH_WORLD} (39g)",
                       lane_elems(rs, T, 2, N_mix // MESH_WORLD)))
+    # leg (h): NLDS's batch of 8 cut over 4 ranks, 2 trajectories a rank
+    cases.append((scan.KALMAN_LANE, f"H={NLDS_EX['hidden']} T={NLDS_EX['T']} "
+                  f"N={NLDS_EX['B'] // MESH_WORLD} (39h NLDS)",
+                  lane_elems(rs, NLDS_EX["T"], NLDS_EX["hidden"], NLDS_EX["B"] // MESH_WORLD)))
     cases.append((scan.LOGSEMIRING, f"K={hc['K']} T={hc['T'] // 4} N={hc['batch']} (39e HMM-core)",
                   (semiring_elems(rs, hc["T"] // 4, hc["K"], hc["batch"]),)))
     cases.append((scan.LOGSEMIRING,
@@ -3350,6 +3363,8 @@ MESH_BIG_BATCH = 400  # leg (c)'s reductions at 4 times DMBD-Lorenz's batch
 MESH_LONG_T = 10 * CFG["T"]  # leg (f): ten times bench.py's T
 MESH_MEM_SHARE = 0.5  # leg (f): each rank's peak allocation under this share of the single's
 MESH_SYSTEMS_LONG_T = 10 * MIX["T"]  # leg (g): the "systems" exchange at ten times the T
+MESH_TENSOR_BIG = 4  # leg (h): the tensor HMMs' reductions at 4 times HMM-core's batch
+TENSOR_HMM_LEGS = ("tensor_hmm", "hhmm", "factorial_hmm")  # leg (h), tensor_hmm_states' order
 WORLD1_TOL = 1e-6  # leg (a): one rank against the single process
 
 
@@ -3360,11 +3375,22 @@ def _mesh_inputs(workdir):
         lorenz=y, lorenz_big=np.concatenate([y] * (MESH_BIG_BATCH // CFG["batch"]), 1),
         lorenz_long=lorenz_data(torch.float32, "cpu", MESH_LONG_T).numpy(),
         mix=mixlds_data(), mix_long=mixlds_data(MESH_SYSTEMS_LONG_T),
-        hmm=hmm_data().float().numpy(),
         dhmm_u=dhmm_inputs().float().numpy(),
         dmbd_state=dmbd_state0(), mix_state=mixlds_state0(MIX["seed"]),
-        hmm_state=hmm_state0(HMM_CORE["seed"]), dhmm_state=dhmm_state0(DHMM_CORE["seed"]))
+        hmm_state=hmm_state0(HMM_CORE["seed"]), dhmm_state=dhmm_state0(DHMM_CORE["seed"]),
+        **data_leg_inputs())
     np.save(Path(workdir) / "inputs.npy", inputs, allow_pickle=True)
+    return inputs
+
+
+def data_leg_inputs():
+    """Leg (h)'s data (float32, numpy; HMM-core's, leg (e)'s too) and
+    states, built on the CPU."""
+    hmm = hmm_data().float().numpy()
+    inputs = dict(hmm=hmm, hmm_big=np.concatenate([hmm] * MESH_TENSOR_BIG, 1),
+                  nlds_y=nlds_data()[0].float().numpy(), **nlds_states0(NLDS_EX["seed"] + 2))
+    for name, (_, state) in zip(TENSOR_HMM_LEGS, tensor_hmm_states(TENSOR_HMM["seed"])):
+        inputs[f"{name}_state"] = state
     return inputs
 
 
@@ -3372,6 +3398,17 @@ def dmbd_state0():
     from pyvbmp_tpu_torch.utils.convert import dmbd_state
 
     return dmbd_state(build_model(torch.Generator().manual_seed(CFG["seed"])))
+
+
+def nlds_states0(seed):
+    """Leg (h)'s NLDS states at phase 19's size: with q(s) set (phase
+    19's blocky draw over the whole batch) and without it."""
+    from pyvbmp_tpu_torch.utils.convert import nlds_state
+
+    m = nlds_model(torch.Generator().manual_seed(seed), torch.float64, "cpu")
+    fresh = nlds_state(m)
+    m.p = m._initial_p(NLDS_EX["T"], NLDS_EX["B"], torch.zeros((), dtype=torch.float64))
+    return dict(nlds_state_p=nlds_state(m), nlds_state=fresh)
 
 
 # leg -> (model, how the sweeps run): every leg builds its model from one
@@ -3384,15 +3421,20 @@ MESH_LEGS = {
     "e_dhmm": ("dhmm", "time"), "f": ("dmbd_long", "time"),
     "g_2x2": ("mixlds", "data_model"), "g_1x4": ("mixlds", "model"),
     "g_long": ("mixlds_long", "data_model"),
+    **{f"h_{n}{big}": (f"{n}{big}", "data") for n in TENSOR_HMM_LEGS for big in ("", "_big")},
+    "h_nlds": ("nlds", "data"), "h_nlds_fresh": ("nlds_fresh", "data"),
 }
 FOUR_LEGS = ["b", "c", "c_big", "d", "e_mixlds", "e_hmm", "e_dhmm", "f", "g_2x2", "g_1x4",
-             "g_long"]
-ONE_SWEEP_LEGS = ("c_big", "g_long")  # legs that count the collectives at a larger size
+             "g_long", *(leg for leg in MESH_LEGS if leg.startswith("h_"))]
+# legs that count the collectives at a larger size
+ONE_SWEEP_LEGS = ("c_big", "g_long", *(f"h_{n}_big" for n in TENSOR_HMM_LEGS))
 SYSTEM_MESHES = ("data_model", "model")  # leg (g): MixLDS's systems cut over "model"
-MESH_TAGS = ("scan", "halo", "reduce", "gather", "replicate", "systems")
+MESH_TAGS = ("scan", "halo", "reduce", "gather", "replicate", "systems", "check")
 
 
-def _mesh_model(name, inputs, time_mesh):
+def _mesh_model(name, inputs, time_mesh, device="cuda"):
+    """(a function that builds the leg's model on ``device`` in float32, its data
+    there)."""
     from pyvbmp_tpu_torch.utils import convert
 
     kind, state, data = {
@@ -3403,11 +3445,15 @@ def _mesh_model(name, inputs, time_mesh):
         "mixlds_long": ("mixlds", "mix_state", ("mix_long",)),
         "hmm": ("hmm", "hmm_state", ("hmm",)),
         "dhmm": ("dhmm", "dhmm_state", ("dhmm_u", "hmm")),
+        **{f"{n}{big}": ("tensor_hmm", f"{n}_state", (f"hmm{big}",))
+           for n in TENSOR_HMM_LEGS for big in ("", "_big")},
+        "nlds": ("nlds", "nlds_state_p", ("nlds_y",)),
+        "nlds_fresh": ("nlds", "nlds_state", ("nlds_y",)),
     }[name]
     build = getattr(convert, f"{kind}_from_state")
     kw = {} if time_mesh is None else dict(time_mesh=time_mesh)
-    return (lambda: build(inputs[state], "cuda", torch.float32, **kw),
-            tuple(torch.from_numpy(inputs[k]).cuda() for k in data))
+    return (lambda: build(inputs[state], device, torch.float32, **kw),
+            tuple(torch.from_numpy(inputs[k]).to(device) for k in data))
 
 
 def _mesh_leg(leg, inputs, meshes):
@@ -3457,7 +3503,34 @@ def _mesh_leg(leg, inputs, meshes):
                    params=torch.cat([model.lds.A.mu.reshape(-1), model.lds.x0.mu.reshape(-1),
                                      model.lds.obs_model.mu.reshape(-1),
                                      model.pi.alpha]).cpu().numpy())
+    if leg.startswith("h_"):
+        out["params"] = _param_vector(model)
+        if name.startswith("nlds"):  # px (T, its trajectories, h, 1): the lane scan's lanes
+            T, b, h = model.px.mu.shape[:3]
+            out["scan_shape"] = (T, h, b)
     return out
+
+
+def _param_vector(model):
+    """Every number of a tensor HMM's or an NLDS's parameter nodes, in one
+    float64 vector: its numpy state less its configuration and q(s)."""
+    from pyvbmp_tpu_torch.utils import convert
+
+    state = (convert.nlds_state if hasattr(model, "pi0") else convert.tensor_hmm_state)(model)
+    leaves = []
+
+    def walk(v):
+        if isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            leaves.append(v.astype(np.float64).reshape(-1))
+
+    walk({k: v for k, v in state.items() if k not in ("config", "p", "obs_shapes")})
+    return np.concatenate(leaves)
 
 
 def _peak_reset():
@@ -3569,7 +3642,8 @@ def phase_mesh(card):
           f"{MESH_WORLD} ranks on one card (gloo, tensors on the card) in {t4:.1f} s; "
           f"card {card}")
     refs = {name: _single(name, inputs)
-            for name in ("dmbd", "mixlds", "hmm", "dhmm", "dmbd_long")}
+            for name in ("dmbd", "mixlds", "hmm", "dhmm", "dmbd_long", *TENSOR_HMM_LEGS, "nlds",
+                         "nlds_fresh")}
     for name, ref in refs.items():
         print(f"  single process {name}: {ref['rate']:.3f} sweeps/s, peak allocation "
               f"{ref['peak']} bytes; card {card}")
@@ -3599,6 +3673,8 @@ def phase_mesh(card):
             check_leg_launches(leg, name, ranks)
             if how in SYSTEM_MESHES:
                 check_systems_leg(leg, ranks)
+            if leg.startswith("h_"):
+                check_data_leg(leg, name, ranks)
             if leg in ONE_SWEEP_LEGS:
                 continue
             peaks = [r[leg]["peak"] for r in ranks]
@@ -3643,6 +3719,13 @@ def phase_mesh(card):
         fail("phase 39 (g): the exchanges of a sweep with the systems cut grow with T")
     if g["elements"]["gather"] != g_long["elements"]["gather"]:
         fail("phase 39 (g): a sweep with the systems cut gathered")
+    for n in TENSOR_HMM_LEGS:
+        h, h_big = four[0][f"h_{n}"], four[0][f"h_{n}_big"]
+        per = h["elements"]["reduce"] // h["sweeps"]
+        print(f"  (h) {n} reduce elements a sweep: batch {HMM_CORE['batch']} {per}, batch "
+              f"{MESH_TENSOR_BIG * HMM_CORE['batch']} {h_big['elements']['reduce']}")
+        if not per == h_big["elements"]["reduce"] > 0:
+            fail(f"phase 39 (h): {n}'s reductions grow with the batch")
     return total
 
 
@@ -3651,7 +3734,9 @@ def check_leg_launches(leg, name, ranks):
     ran no plain scan."""
     want = {"dmbd": SCAN_PAIR_WANT, "dmbd_big": SCAN_PAIR_WANT, "dmbd_long": SCAN_PAIR_WANT,
             "mixlds": LANE_WANT, "mixlds_long": LANE_WANT, "hmm": ROLE_SCAN_WANT,
-            "dhmm": ROLE_SCAN_WANT}[name]
+            "dhmm": ROLE_SCAN_WANT, "nlds": LANE_WANT, "nlds_fresh": LANE_WANT,
+            **{f"{n}{big}": {k: 0 for k in LANE_WANT} for n in TENSOR_HMM_LEGS
+               for big in ("", "_big")}}[name]
     want = per_sweep(want, ranks[0][leg]["sweeps"])
     print(f"    kernel launches on each rank {ranks[0][leg]['launches']} (want {want})")
     for i, r in enumerate(ranks):
@@ -3671,6 +3756,20 @@ def check_systems_leg(leg, ranks):
         fail(f"phase 39 ({leg}): lane scans at {shapes}, want {want}")
     if any(not np.array_equal(r[leg]["params"], ranks[0][leg]["params"]) for r in ranks):
         fail(f"phase 39 ({leg}): the ranks' parameters differ after the call")
+
+
+def check_data_leg(leg, name, ranks):
+    """Leg (h): every rank holds the same parameter nodes after the call;
+    NLDS's lane scans ran at each rank's block of the batch."""
+    if any(not np.array_equal(r[leg]["params"], ranks[0][leg]["params"]) for r in ranks):
+        fail(f"phase 39 ({leg}): the ranks' parameters differ after the call")
+    print(f"    parameter nodes equal on every rank ({ranks[0][leg]['params'].size} numbers)")
+    if name.startswith("nlds"):
+        want = (NLDS_EX["T"], NLDS_EX["hidden"], NLDS_EX["B"] // MESH_WORLD)
+        shapes = [tuple(r[leg]["scan_shape"]) for r in ranks]
+        print(f"    lane Kalman scan shape on each rank {shapes} (want {want})")
+        if any(sh != want for sh in shapes):
+            fail(f"phase 39 ({leg}): lane scans at {shapes}, want {want}")
 
 
 def record_line(name, source, replaces, launches, abs_err, r, library_ms=None):

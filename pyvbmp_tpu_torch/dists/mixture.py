@@ -5,6 +5,10 @@ One VB-EM iteration (``_mixture_step``: E-step assignments, ELBO, M-step)
 is a pure function of the (pi, dist) nodes; ``update`` runs it ``iters``
 times eagerly and fetches the ELBO trajectory from the device once.  It
 reaches no kernel: the JAX package's mixtures run no Pallas kernel either.
+Under ``parallel.data_parallel_update`` the E-step's ``batch_sum`` and the
+component node's complete the sums over the batch; a node that sums on its
+own (``MultivariateNormal``, ``MultivariateNormal_vector_format``) raises
+(``torchutils.completes_sums``).
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch
 
 from .dirichlet import Dirichlet
 from ..utils import math as um
-from ..utils.torchutils import batch_sum, sum_leading
+from ..utils.torchutils import batch_sum, completes_sums, sum_leading
 
 
 class Mixture:
@@ -69,7 +73,8 @@ class Mixture:
 
     def update_parms(self, X, lr=1.0):
         self.pi = self.pi.ss_update(self.NA, lr=lr)
-        self.dist = self.dist.raw_update(self._reshape_data(X), self.p, lr)
+        with completes_sums(self.dist):
+            self.dist = self.dist.raw_update(self._reshape_data(X), self.p, lr)
 
     def update(self, X, iters=1, lr=1.0, verbose=False):
         """``iters`` VB-EM iterations on data X: sample + batch + the
@@ -144,5 +149,6 @@ def _mixture_step(event_dim, batch_dim, pi, dist, Xv, lr):
     p, NA, logZ = _assignments(event_dim, batch_dim, pi, dist, Xv)
     ELBO = logZ - (dist.KLqprior().sum(tuple(range(-event_dim, 0))) + pi.KLqprior())
     pi = pi.ss_update(NA, lr=lr)
-    dist = dist.raw_update(Xv, p, lr)
+    with completes_sums(dist):
+        dist = dist.raw_update(Xv, p, lr)
     return pi, dist, p, NA, logZ, ELBO

@@ -12,7 +12,9 @@ and logZ back to it.  Both the ELBO (each sample's -y'<L>y/2 and q(z)'s
 mu'P mu/2 cancel from ~5e4 to ~20 at S=100000, o=64, h=8) and the noise
 update (sum_s y_s y_s' less the fitted part, ~1e5 to ~1e3) cancel three to
 four digits, which in float32 left the ELBO falling between two sweeps at
-chip_smoke.py phase 35's size.  No kernel is on this path.
+chip_smoke.py phase 35's size.  No kernel is on this path.  Under
+``parallel.data_parallel_update`` (``batch_axis=0``) one ``batch_sum`` a
+sweep completes logZ and the M-step's sums over the samples.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..transforms import MatrixNormalGamma
 from ..utils.linalg import mT, psd_inv
-from ..utils.torchutils import default_device
+from ..utils.torchutils import batch_sum, default_device
 
 F64 = torch.float64
 
@@ -93,6 +95,7 @@ class BayesianFactorAnalysis:
         SEyy = _sample_outer(Y, Y, 1)
         SEyz = _sample_outer(Y, pz.mean()[..., 0], 1)
         N = torch.as_tensor(float(Y.shape[0]), dtype=F64, device=Y.device)
+        SEzz, SEyz, SEyy, N = batch_sum(SEzz, SEyz, SEyy, N)
         self.A = self.A.to(dtype=F64).ss_update(SEzz, SEyz, SEyy, N, lr=lr).to(dtype=dtype)
 
     def raw_update(self, Y, iters=1, lr=1.0, verbose=False):
@@ -150,6 +153,8 @@ def _bfa_step(A, Y, lr, eye):
     N = torch.full(A.batch_shape + A.event_shape[:-2],
                    float(np.prod(Yv.shape[:ns], dtype=np.float64)), dtype=Y.dtype,
                    device=Y.device)
+    # the sums over the samples, completed over processes that split them
+    logZ, SEzz, SEyz, SEyy, N = batch_sum(logZ, SEzz, SEyz, SEyy, N)
     KL_pre = A.KLqprior()
     A = A.ss_update(SEzz, SEyz, SEyy, N, lr=lr)
     return A, logZ, pz, KL_pre

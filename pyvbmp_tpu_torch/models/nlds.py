@@ -14,7 +14,11 @@ kernels on the card) with per-time potentials mixed under q(s_t); q(s) is a
 Markov chain from the sequential input-driven forward-backward
 (``models/dhmm.py:driven_forward_backward``) with per-time transition
 logits from the MNLR at E[x_{t-1}].  The ELBO is the s-chain normalizer
-minus the parameter KLs.  ``batch_shape`` is ``()``.
+minus the parameter KLs.  ``batch_shape`` is ``()``.  Under
+``parallel.data_parallel_update`` two ``batch_sum``s a sweep (the q(x)
+step's statistics; q(s_0)'s and logZ) and the MNLR's own complete the sums
+over the batch, and q(s) is this process's block of the whole batch's
+(``_shard_samples``).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..transforms import MatrixNormalWishart, MultiNomialLogisticRegression
 from ..utils import math as um
 from ..utils.linalg import mT
-from ..utils.torchutils import default_device, sum_leading
+from ..utils.torchutils import batch_sum, default_device, sum_leading
 
 
 class NonLinearDynamicalSystems:
@@ -193,27 +197,26 @@ class NonLinearDynamicalSystems:
         # update below sees the freshly fitted parameters
         K = self.mixture_dim
         N0 = torch.as_tensor(float(np.prod(y.shape[1:2])), dtype=y.dtype, device=y.device)
-        self.x0 = self.x0.ss_update(
-            sum_leading(Sigma_x0_x0 + mu_x0 @ mT(mu_x0), 2),
-            sum_leading(mu_x0[..., 0], 1),
-            N0,
-            lr,
-        )
         ones = torch.ones_like(Ex[..., :1, :1])
         # dynamics A_s: regress x_t on [x_{t-1}; 1]
         Ex1x1 = torch.cat([torch.cat([Exx_prev, Ex_prev], -1),
                            torch.cat([mT(Ex_prev), ones], -1)], -2)   # (T,b,h+1,h+1)
         Ex_x1 = torch.cat([mT(C), Ex], -1)                             # (T,b,h,h+1)
+        # emissions B_s: regress y_t on [x_t; 1]
+        Exy1 = torch.cat([torch.cat([Exx, Ex], -1), torch.cat([mT(Ex), ones], -1)], -2)
+        SE_y_x1 = torch.cat([y @ mT(Ex), y @ ones], -1)
 
         def wsum(a):
             return torch.einsum("tbk,tbij->kij", p, a)
 
-        Nk = p.sum((0, 1))
-        self.A = self.A.ss_update(wsum(Ex1x1), wsum(Ex_x1), wsum(Exx), Nk, lr)
-        # emissions B_s: regress y_t on [x_t; 1]
-        Exy1 = torch.cat([torch.cat([Exx, Ex], -1), torch.cat([mT(Ex), ones], -1)], -2)
-        SE_y_x1 = torch.cat([y @ mT(Ex), y @ ones], -1)
-        self.B = self.B.ss_update(wsum(Exy1), wsum(SE_y_x1), wsum(y @ mT(y)), Nk, lr)
+        # the sums over the batch of the q(x) step, for x0, A and B
+        SExx0, SEx0, N0, *SE, Nk = batch_sum(
+            sum_leading(Sigma_x0_x0 + mu_x0 @ mT(mu_x0), 2), sum_leading(mu_x0[..., 0], 1),
+            N0, *(wsum(a) for a in (Ex1x1, Ex_x1, Exx, Exy1, SE_y_x1, y @ mT(y))),
+            p.sum((0, 1)))
+        self.x0 = self.x0.ss_update(SExx0, SEx0, N0, lr)
+        self.A = self.A.ss_update(*SE[:3], Nk, lr)
+        self.B = self.B.ss_update(*SE[3:], Nk, lr)
 
         # ---- q(s) given q(x) and the updated parameters
         dp = self._dyn_parms(self.A)
@@ -230,8 +233,9 @@ class NonLinearDynamicalSystems:
 
         # recurrent transition MNLR: features x_{t-1}, soft labels xi_t
         self.T.raw_update(feats[1:][..., None, :], SEzz[1:], iters=2, lr=lr)
-        # q(s_0) is the first smoothed marginal
-        self.pi0 = self.pi0.ss_update(sum_leading(ps[0], 1), lr)
+        # q(s_0) is the first smoothed marginal; its sum and logZ's over the batch
+        SEs0, logZ = batch_sum(sum_leading(ps[0], 1), logZs.sum())
+        self.pi0 = self.pi0.ss_update(SEs0, lr)
 
         KL = (
             self.x0.KLqprior()
@@ -240,7 +244,7 @@ class NonLinearDynamicalSystems:
             + self.T.KLqprior().sum()
             + self.pi0.KLqprior()
         )
-        return ps, px, logZs, logZs.sum() - KL
+        return ps, px, logZs, logZ - KL
 
     def _initial_p(self, T, b, like):
         """Symmetry breaking: q(s) half on a random state per segment of
@@ -253,6 +257,18 @@ class NonLinearDynamicalSystems:
         hard = torch.nn.functional.one_hot(states, K).to(dtype=like.dtype,
                                                          device=like.device)
         return 0.5 * hard + 0.5 / K
+
+    def _shard_samples(self, y, take):
+        """Before a data-parallel call on the whole ``y``: q(s) of the whole
+        batch (``self.p``, or the first update's draw at the whole batch's
+        size, from the same generator stream as a single process's) cut to
+        this process's block by ``take``.  A q(s) of another width (the
+        block of an earlier call) stays as it is."""
+        T, b = y.shape[:2]
+        if self.p is None:
+            self.p = self._initial_p(T, b, y)
+        if self.p.shape[1] == b:
+            self.p = take(self.p)
 
     # ------------------------------------------------------------- reference API
     def update(self, y, iters=1, lr=1.0, verbose=False):

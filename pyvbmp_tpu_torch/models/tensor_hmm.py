@@ -6,7 +6,9 @@ axes, two Python loops over T in plain PyTorch (the JAX package's two
 ``lax.scan``s), its filter normalized at each step; it runs no kernel on
 either device, as in the JAX package, which has no scan form of it.  The
 models loop their sweeps eagerly and fetch the ELBO trajectory from the
-device once per ``update``.
+device once per ``update``.  Under ``parallel.data_parallel_update`` the
+E-step's ``batch_sum`` and the observation node's complete the sums over
+the batch (``torchutils.completes_sums``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import torch
 from ..dists import Dirichlet, NormalInverseWishart
 from ..transforms.transition import HierarchicalTransition, Transition
 from ..utils import math as um
-from ..utils.torchutils import default_device, replace, sum_leading
+from ..utils.torchutils import (
+    batch_sum, completes_sums, default_device, replace, sum_leading,
+)
 
 
 def _unsq_right(x, ed):
@@ -153,8 +157,11 @@ class Tensor_HMM:
         p, SEzz, SEz0, logZ = tensor_forward_backward(
             transition.loggeomean(), initial.loggeomean(), logits, self.event_dim, self.ptemp)
         keep = self.batch_dim + self.event_dim
-        return (p, sum_leading(SEzz, keep + self.event_dim), sum_leading(SEz0, keep),
-                sum_leading(p.sum(0), keep), sum_leading(logZ, self.batch_dim))
+        # the E-step's sums over the batch, for the M-steps and the ELBO
+        SEzz, SEz0, NA, logZ = batch_sum(
+            sum_leading(SEzz, keep + self.event_dim), sum_leading(SEz0, keep),
+            sum_leading(p.sum(0), keep), sum_leading(logZ, self.batch_dim))
+        return p, SEzz, SEz0, NA, logZ
 
     def _post_markov_update(self, transition):
         return transition
@@ -167,7 +174,9 @@ class Tensor_HMM:
         p, SEzz, SEz0, NA, logZ = self._estep(transition, initial, obs_dist, X)
         transition = self._post_markov_update(transition.ss_update(SEzz, lr=lr, beta=beta))
         initial = initial.ss_update(SEz0, lr=lr, beta=beta)
-        obs_dist = obs_dist.raw_update(self._state_view(obs_dist, X), p=p, lr=lr, beta=beta)
+        with completes_sums(obs_dist):
+            obs_dist = obs_dist.raw_update(self._state_view(obs_dist, X), p=p, lr=lr,
+                                           beta=beta)
         ELBO = logZ - self._KL(transition, initial, obs_dist)
         return transition, initial, obs_dist, p, NA, logZ, ELBO
 
@@ -201,8 +210,9 @@ class Tensor_HMM:
         self.initial = self.initial.ss_update(SEz0, lr=lr, beta=beta)
 
     def update_obs_parms(self, X, lr=1.0, beta=None):
-        self.obs_dist = self.obs_dist.raw_update(
-            self._state_view(self.obs_dist, X), p=self.p, lr=lr, beta=beta)
+        with completes_sums(self.obs_dist):
+            self.obs_dist = self.obs_dist.raw_update(
+                self._state_view(self.obs_dist, X), p=self.p, lr=lr, beta=beta)
 
     def KLqprior(self):
         return self._KL(self.transition, self.initial, self.obs_dist)

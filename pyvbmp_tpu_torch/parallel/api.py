@@ -11,7 +11,7 @@ a call this package makes:
   three collectives over one axis (``all_reduce``, ``all_gather`` in list
   form and ``broadcast``) and counts the elements each one moves, by kind
   and by the caller's tag (``"scan"``, ``"halo"``, ``"reduce"``,
-  ``"gather"``, ``"systems"``);
+  ``"gather"``, ``"systems"``, ``"check"``);
 - ``data_parallel_update(model, y, ...)``: each rank takes its block of the
   batch (``shard_batch``) and runs the model's own sweep; every sum over
   the batch that feeds an M-step or the ELBO is completed by one
@@ -19,6 +19,8 @@ a call this package makes:
   forms it (``utils.torchutils.batch_sum``).  The parameters stay
   replicated, because every rank computes the same update from the same
   sums; per-sample state (a DMBD's px, the assignments p) stays local.
+  When the call ends one all_gather of the call's ELBOs over the mesh
+  (``"check"``) raises ``RuntimeError`` if the ranks' models differ.
   On a ``("data", "model")`` mesh a MixLDS's K systems are also cut over
   ``model`` (``_Systems``, the JAX package's expert-parallel placement):
   each rank smooths and updates its block of the systems, one all_gather
@@ -399,13 +401,40 @@ def _time_sharded(mesh, axes):
         torchutils.BATCH_REDUCE = saved
 
 
+# The largest relative difference between two ranks' ELBOs that
+# data_parallel_update's check lets pass: a sum left incomplete moves the ELBO
+# by O(1) relative, ranks that completed theirs agree bit for bit.
+AGREEMENT_RTOL = 1e-6
+
+
+def _check_agreement(mesh, model, elbos, device):
+    """One all_gather over the whole mesh (tag ``"check"``) of the ELBOs
+    this call appended; ``RuntimeError`` on every rank where any rank's
+    differ from the mesh's first rank's by more than ``AGREEMENT_RTOL``
+    relative."""
+    mine = torch.tensor([float(e) for e in elbos], dtype=torch.float64, device=device)
+    rows = torch.stack(mesh.all_gather(mine, mesh.axis_names, "check")).cpu().numpy()
+    differ = ~np.isclose(rows, rows[0], rtol=AGREEMENT_RTOL, atol=0.0, equal_nan=True)
+    if differ.any():
+        rank, sweep = np.argwhere(differ)[0]
+        raise RuntimeError(
+            f"data_parallel_update left the ranks of {mesh!r} with different models: "
+            f"{type(model).__name__}'s ELBO at sweep {sweep + 1} of {len(elbos)} is "
+            f"{rows[rank, sweep]!r} on mesh rank {int(mesh.ranks.reshape(-1)[rank])} and "
+            f"{rows[0, sweep]!r} on the first; a sum over the batch in its sweep is not "
+            f"completed over the ranks (torchutils.batch_sum)")
+
+
 def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
                          batch_axis=None):
     """Run the model's sweeps with the trajectory batch split over the
     mesh's ``data`` axis.  Every rank calls it with the whole ``y`` (as a
     JAX caller passes a global array) and the same model.
 
-    Works for LDS, MixLDS, DMBD, HMM and GMM: each rank takes its block of
+    Works for LDS, MixLDS, DMBD, HMM, the tensor HMMs (Tensor_HMM, HHMM,
+    Factorial_HMM), NLDS, BFA, the ChainedBayesianTransformer and the
+    mixtures (GMM, GMM_vector, the Poisson mixture, a ``Mixture`` over a node
+    that sums through ``batch_sum``): each rank takes its block of
     ``y`` (``shard_batch``) and runs the model's own sweep, in which every
     sum over the batch that feeds an M-step or the ELBO is completed by one
     all_reduce over ``data`` where it is formed (``torchutils.batch_sum``,
@@ -437,6 +466,23 @@ def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
     exporters refuse it until then.  A ``model`` axis longer than K raises
     ``ValueError``; one on another model, or beside a ``time_mesh``, raises
     ``NotImplementedError``.
+
+    Per-sample state that a model's first sweep reads (NLDS's q(s)) enters
+    as this rank's block of the whole batch's (``model._shard_samples``):
+    a q(s) of the whole batch that is already set is cut, and one that the
+    first sweep would draw is drawn at the whole batch's size from the
+    model's generator, so the ranks' blocks are the single process's draw.
+
+    The check: when the call ends, one all_gather over the whole mesh
+    (tag ``"check"``, the call's ``iters`` ELBOs in float64 from each
+    rank), and ``RuntimeError`` on every rank, naming the model's class and
+    the first sweep that differs, where a rank's ELBOs differ from the
+    first rank's by more than ``AGREEMENT_RTOL`` relative: a model that
+    forms a sum over the batch without ``batch_sum`` would leave each rank
+    with its own model.  A model with no ``ELBO_save`` is not checked.
+    ``y`` must be one tensor: the ARHMMs' tuples of observations raise
+    ``NotImplementedError``, as the JAX package's ``shard_batch`` places
+    one array.
     """
     if mesh is None:
         mesh = make_mesh()
@@ -446,6 +492,11 @@ def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
     if "data" not in mesh.shape:
         raise ValueError(f"data_parallel_update splits the batch over a 'data' axis; "
                          f"{mesh!r} has none")
+    if not isinstance(y, torch.Tensor):
+        raise NotImplementedError(
+            f"data_parallel_update splits one tensor y along its batch axis; "
+            f"{type(model).__name__} was given a {type(y).__name__}, which it cannot split "
+            f"(the JAX package's shard_batch places one array too)")
     systems = contextlib.nullcontext()
     if mesh.shape.get("model", 1) > 1:
         if not hasattr(model, "_split_systems"):
@@ -453,6 +504,8 @@ def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
                 f"a 'model' mesh axis cuts a MixLDS's systems; the JAX package shards no "
                 f"other model's components, so {type(model).__name__} has none to cut")
         systems = model._split_systems(_Systems(mesh, "model", model.num_systems))
+    elbos = getattr(model, "ELBO_save", None)
+    n_elbos = None if elbos is None else len(elbos)
     with _data_parallel(mesh, "data"), systems:
         if hasattr(model, "_update_reshaped") and hasattr(model, "reshape_inputs"):
             y, u, r = model.reshape_inputs(y, u, r)
@@ -462,5 +515,9 @@ def data_parallel_update(model, y, u=None, r=None, mesh=None, iters=1, lr=1.0,
             # the model's own step dispatcher: the code path update() runs
             model._update_reshaped(y, u, r, iters=iters, lr=lr)
         else:
+            if hasattr(model, "_shard_samples"):
+                model._shard_samples(y, lambda x: shard_batch(mesh, x, batch_axis))
             model.update(shard_batch(mesh, y, batch_axis), iters=iters, lr=lr)
+    if n_elbos is not None:
+        _check_agreement(mesh, model, model.ELBO_save[n_elbos:], y.device)
     return model

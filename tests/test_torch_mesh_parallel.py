@@ -10,7 +10,17 @@ max relative deviation 1e-8 against JAX, 1e-10 against the single process.
 
 - LDS, DMBD, HMM, GMM (``batch_axis=0``; NormalInverseWishart components,
   and also NormalGamma and the Poisson mixture's Gamma against the single
-  process) and MixLDS;
+  process; GMM_vector), MixLDS, Tensor_HMM, HHMM, Factorial_HMM, NLDS
+  (from a q(s) of the whole batch; and with none, drawn at the whole
+  batch's size, against the single process only: each rank's q(s) its
+  block of the single's), BFA and the ChainedBayesianTransformer: the ELBOs
+  and every parameter node bit-equal on every rank;
+- the check that ends every call: one all_gather of the call's ELBOs
+  (``"check"``), every other tag's elements as before it; a model that
+  sums on its own (``LocalSums``) raises ``RuntimeError`` on every rank;
+  every exported class with a one-tensor ``update(y, iters=, lr=)`` is a
+  case here or refused with its reason (``REFUSED``: the ARHMMs' tuples),
+  and a Mixture over ``MultivariateNormal`` raises;
 - DMBD with ``time_mesh`` and ``data_parallel_update`` on one 2 x 2 (seq x
   data) mesh;
 - the collectives (the counterpart of the JAX test of the compiled HLO):
@@ -48,6 +58,9 @@ from pyvbmp_tpu.models import GaussianMixtureModel as JGMM
 from pyvbmp_tpu.models import LinearDynamicalSystems as JLDS
 from pyvbmp_tpu.models import MixtureofLinearDynamicalSystems as JMixLDS
 from pyvbmp_tpu.models import PoissonMixtureModel as JPMM
+from pyvbmp_tpu import dists as JD
+from pyvbmp_tpu import models as JM
+from pyvbmp_tpu import transforms as JT
 from jax.sharding import Mesh as JMesh
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as P
@@ -67,6 +80,24 @@ def gmm_points():
     return np.concatenate([rs.randn(80, 2) + c for c in ([-3, 0], [3, 0], [0, 3])], 0)
 
 
+def hmm_data(T=30, B=16, D=3, K=4, seed=9):
+    """Sticky K-state chains seen through Gaussian means (the HMM-core
+    recipe, ``benchmarks/core_models_bench.py:hmm_data``, at T=30, batch 16,
+    d=3)."""
+    rs = np.random.RandomState(seed)
+    mus = rs.randn(K, D) * 3
+    z = np.zeros((T, B), np.int64)
+    for t in range(1, T):
+        z[t] = np.where(rs.rand(B) < 0.9, z[t - 1], rs.randint(0, K, B))
+    return mus[z] + rs.randn(T, B, D)
+
+
+def with_q_s(jm, T=30, B=16, seed=1):
+    """The JAX NLDS with a q(s) of the whole batch set."""
+    jm.p = jnp.asarray(np.random.RandomState(seed).dirichlet(np.ones(jm.mixture_dim), (T, B)))
+    return jm
+
+
 # name -> (kind, JAX model builder, data, sweeps, seed, batch_axis, compared with JAX)
 CASES = {
     "lds": ("lds", lambda: JLDS(obs_shape=(4,), hidden_dim=2),
@@ -83,8 +114,36 @@ CASES = {
     "poisson": ("gmm", lambda: JPMM(3, 2),
                 np.random.RandomState(6).poisson([[2.0, 5.0]], (240, 2)).astype(float), 4,
                 13, 0, False),
+    "gmm vector": ("gmm", lambda: JD.GMM_vector(3, 2), gmm_points()[..., None], 3, 13, 0,
+                   True),
+    "tensor_hmm": ("tensor_hmm",
+                   lambda: JM.Tensor_HMM(JNIW.create((3,), batch_shape=(2, 2)), (2, 2)),
+                   hmm_data(), 3, 19, None, True),
+    "hhmm": ("tensor_hmm", lambda: JM.HHMM(JNIW.create((3,), batch_shape=(2, 2)), event_dim=2),
+             hmm_data(), 3, 19, None, True),
+    "factorial_hmm": ("tensor_hmm", lambda: JM.Factorial_HMM(2, (2,), (3,)), hmm_data(), 3,
+                      19, None, True),
+    "nlds": ("nlds", lambda: with_q_s(JM.NLDS((3,), hidden_dim=2, mixture_dim=3)),
+             hmm_data(seed=10), 3, 21, None, True),
+    # q(s) unset: the ranks draw the single process's q(s) from torch's
+    # generator, which is not JAX's key
+    "nlds fresh": ("nlds", lambda: JM.NLDS((3,), hidden_dim=2, mixture_dim=3),
+                   hmm_data(seed=10), 3, 21, None, False),
+    "bfa": ("bfa", lambda: JM.BayesianFactorAnalysis(5, 2),
+            np.random.RandomState(12).randn(64, 5), 3, 23, 0, True),
+    "cbt": ("cbt", lambda: JT.ChainedBayesianTransformer(1, 1, 2, 2),
+            np.random.RandomState(14).randn(64, 3, 2), 3, 25, 0, True),
 }
-COMPARED = ("elbo", "A_mu", "alpha", "mu", "pi")
+COMPARED = ("elbo", "A_mu", "alpha", "mu", "pi", "params")
+# The exported classes with update(y, iters=, lr=) that data_parallel_update
+# refuses, with the reason (each raises on the ranks, ``job_refused``); every
+# other is a class of a model in CASES
+REFUSED = {
+    "ARHMM": "observations are a tuple (X, Y), which data_parallel_update cannot split "
+             "(the JAX package's shard_batch places one array)",
+    "ARHMM_prXY": "observations are a tuple of messages (pX, pY), as above",
+    "ARHMM_prXRY": "observations are a tuple (pX, R, Y), as above",
+}
 
 
 @pytest.fixture(scope="module")
@@ -109,21 +168,24 @@ def jax_fit(jm, name):
 
 
 def summary(kind, m):
-    out = {"elbo": np.asarray(m.ELBO_save, np.float64)}
+    out = {"elbo": np.asarray(m.ELBO_save, np.float64)} if hasattr(m, "ELBO_save") else {}
     for key, val in ranks._summary(kind, m).items():
-        if key in COMPARED:
+        if key == "params":
+            out[key] = val
+        elif key in COMPARED:
             out[key] = np.asarray(val.detach().numpy() if isinstance(val, torch.Tensor) else val)
     return out
 
 
 def single_fit(state, name, parallel_scan=None):
+    """The port's single-process fit: its summary, and NLDS's q(s)."""
     kind, _, data, sweeps, *_ = CASES[name]
     state = copy.deepcopy(state)
     if parallel_scan is not None:
         state["config"]["parallel_scan"] = parallel_scan
     m = getattr(convert, f"{kind}_from_state")(state, device="cpu", dtype=torch.float64)
     ranks._fit(m, kind, (data,), sweeps)
-    return summary(kind, m)
+    return summary(kind, m), m.p.numpy() if kind == "nlds" else None
 
 
 def dmbd_batch(B):
@@ -223,6 +285,8 @@ def world(built, tmp_path_factory):
         state, data = dmbd_batch(B)
         jobs[f"dmbd batch {B}"] = ("data_parallel", dict(kind="dmbd", state=state, data=data,
                                                          sweeps=1))
+    jobs["check"] = ("check", dict(data=np.random.RandomState(3).randn(5, 16, 3), sweeps=2))
+    jobs["refused"] = ("refused", dict(data=np.random.RandomState(3).randn(5, 16, 2)))
     jobs["shard shapes"] = ("shard_shapes", dict(shapes=[((4, 16, 3), 1), ((4, 10, 3), 1),
                                                          ((240, 2), 0)]))
     jobs["replicate"] = ("replicate", dict(state=dstate))
@@ -235,8 +299,8 @@ def world(built, tmp_path_factory):
                     for (K, _, _, _, _, _, shape) in SYSTEM_CASES.values() if shape
                     for jm in (systems[K][0],)}
         for name in CASES:
-            refs[name] = {"self": single_fit(built[name][1], name)}
-        refs["dmbd both"] = {"self": single_fit(dstate, "dmbd", parallel_scan=True)}
+            refs[name] = dict(zip(("self", "self_p"), single_fit(built[name][1], name)))
+        refs["dmbd both"] = {"self": single_fit(dstate, "dmbd", parallel_scan=True)[0]}
         for name, (K, T, b, n, _, _, shape) in SYSTEM_CASES.items():
             system_refs[name] = {"self": single_systems(states[K], system_data(T, b), n)}
         for name, f in futs.items():
@@ -256,20 +320,129 @@ def rel(out, ref):
     return np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-300)
 
 
+def leaves(summ):
+    """(key, array) of every numeric value of a summary, the parameter
+    nodes' leaves included."""
+    for k, v in summ.items():
+        if k in ("counts", "p_block"):
+            continue
+        if k == "params":
+            for path, leaf, _ in ranks.state_pairs(v, v):
+                if leaf.dtype.kind in "fiub" and leaf.size:
+                    yield f"params{path}", leaf
+        else:
+            yield k, v
+
+
 @pytest.mark.parametrize("name", list(CASES) + ["dmbd both"])
 def test_data_parallel_update_matches_jax_and_the_single_process(world, name):
     refs, results, *_ = world
-    out = results[0][name]
+    out = dict(leaves(results[0][name]))
+    assert set(out) == set(dict(leaves(refs[name]["self"]))), name
     for other in results[1:]:  # the sums are completed: every rank agrees
-        for k in refs[name]["self"]:
-            assert np.array_equal(other[name][k], out[k]), k
+        for k, v in leaves(other[name]):
+            if k in out:
+                assert np.array_equal(v, out[k]), k
     for which, tol in (("jax", TOL_JAX), ("self", TOL_SELF)):
         if which not in refs[name]:
             continue
-        ref = refs[name][which]
-        for k, v in ref.items():
+        for k, v in leaves(refs[name][which]):
             assert rel(out[k], v) <= tol, (name, which, k, out[k], v)
-    assert out["counts"]["reduce"] > 0
+    assert results[0][name]["counts"]["reduce"] > 0
+
+
+@pytest.mark.parametrize("name", [n for n in CASES if CASES[n][0] == "nlds"])
+def test_nlds_starts_each_rank_from_its_block_of_the_single_process_q_s(world, name):
+    """q(s) of the whole batch, set or drawn at the whole batch's size,
+    is cut to each rank's block: after the fit each rank holds its block of
+    the single process's q(s)."""
+    refs, results, *_ = world
+    whole = refs[name]["self_p"]
+    for rank, r in enumerate(results):
+        want = np.array_split(whole, WORLD, axis=1)[rank]
+        assert r[name]["p_block"].shape == want.shape
+        assert ranks.leaf_dev(r[name]["p_block"], want) <= TOL_SELF, rank
+
+
+# The elements each case's collectives moved by tag before the check was
+# added (the parent's, nonzero tags only): the check adds its own tag alone
+BEFORE_THE_CHECK = {
+    "lds": {"reduce": 130}, "dmbd": {"reduce": 746}, "hmm": {"reduce": 231},
+    "gmm": {"reduce": 100}, "mixlds": {"reduce": 222}, "gmm isotropic": {"reduce": 76},
+    "poisson": {"reduce": 64}, "dmbd both": {"scan": 2992, "halo": 1044, "reduce": 750},
+}
+
+
+@pytest.mark.parametrize("name", list(CASES) + ["dmbd both"])
+def test_the_check_adds_one_gather_and_moves_no_other_count(world, name):
+    """The call's check: one all_gather of the call's ELBOs over the whole
+    mesh, ``sweeps`` elements from each of its 4 ranks (none for a model
+    without ``ELBO_save``); every other tag's elements are those of the
+    same call before the check was added."""
+    _, results, *_ = world
+    sweeps = 2 if name == "dmbd both" else CASES[name][3]
+    for r in results:
+        counts = r[name]["counts"]
+        assert counts["check"] == (sweeps * WORLD if "elbo" in r[name] else 0), counts
+        if name in BEFORE_THE_CHECK:
+            assert {k: v for k, v in counts.items() if v and k != "check"} == \
+                BEFORE_THE_CHECK[name], counts
+
+
+def test_a_model_that_sums_on_its_own_raises_on_every_rank(world):
+    """``LocalSums``, whose ELBO is the sum of its block, leaves each rank
+    with its own ELBOs: the check raises ``RuntimeError`` on every rank,
+    naming the class and the first sweep."""
+    _, results, *_ = world
+    for r in results:
+        kind, msg = r["check"]["error"]
+        assert kind == "RuntimeError", msg
+        assert "LocalSums" in msg and "sweep 1 of 2" in msg, msg
+        assert r["check"]["counts"]["check"] == 2 * WORLD
+
+
+def data_parallel_classes():
+    """Every exported model class of the port that ``data_parallel_update``
+    can hand its data: ``update(y, iters=..., lr=...)`` with y its one
+    required argument."""
+    import inspect
+
+    from pyvbmp_tpu_torch import dists, models, transforms
+
+    out = set()
+    for mod in (models, dists, transforms):
+        for name in dir(mod):
+            cls = getattr(mod, name)
+            if not inspect.isclass(cls) or not callable(getattr(cls, "update", None)):
+                continue
+            params = list(inspect.signature(cls.update).parameters.values())[1:]
+            required = [p for p in params if p.default is inspect.Parameter.empty]
+            names = {p.name for p in params}
+            if len(required) == 1 and {"iters", "lr"} <= names:
+                out.add(cls.__name__)
+    return out
+
+
+def test_every_model_with_a_one_tensor_update_is_a_case_or_refused(world, built):
+    """Each such class is the class of a model in CASES (or one it
+    derives from), or in REFUSED, whose classes raise on every rank with
+    their reason; a Mixture over a node that sums on its own
+    (MultivariateNormal: the JAX package's fails in its KL) raises too."""
+    _, results, *_ = world
+    covered = {c.__name__ for jm, _ in built.values() for c in type(jm).__mro__}
+    classes = data_parallel_classes()
+    assert {"Tensor_HMM", "HHMM", "Factorial_HMM", "NonLinearDynamicalSystems",
+            "Mixture", "ARHMM"} <= classes
+    missing = classes - covered - set(REFUSED)
+    assert not missing, f"neither a case nor refused: {sorted(missing)}"
+    assert not set(REFUSED) & covered
+    for r in results:
+        got = r["refused"]
+        for name in REFUSED:
+            assert got[name][0] == "NotImplementedError", (name, got[name])
+            assert "tuple" in got[name][1], (name, got[name])
+        kind, msg = got["Mixture over MultivariateNormal"]
+        assert kind == "NotImplementedError" and "batch_sum" in msg, msg
 
 
 def test_dmbd_reductions_do_not_grow_with_the_batch(world):

@@ -57,7 +57,7 @@ def _meshes(world):
 
 
 def _counts(meshes):
-    tags = ("scan", "halo", "reduce", "gather", "replicate", "systems")
+    tags = ("scan", "halo", "reduce", "gather", "replicate", "systems", "check")
     return {t: sum(m.elements(t) for m in meshes.values()) for t in tags}
 
 
@@ -131,6 +131,10 @@ def _summary(kind, m):
         return {"A_mu": m.lds.A.mu, "p": m.p}
     if kind == "dmbd":
         return {"A_mu": m.A.mu, "p": m.obs_model.p, "px_mu": m.px.mu}
+    if kind in ("tensor_hmm", "nlds"):
+        return {"params": _params(kind, m), "p": m.p}
+    if kind in ("bfa", "cbt"):
+        return {"params": _params(kind, m)}
     return {"mu": m.dist.mu if hasattr(m.dist, "mu") else m.dist.alpha,
             "pi": m.pi.alpha}  # a mixture
 
@@ -237,21 +241,29 @@ def _params(kind, m):
 
     state = getattr(convert, f"{kind}_state")(m)
     return {k: v for k, v in state.items() if k not in ("config", "px", "p", "expand_to_batch",
-                                                         "obs_config")}
+                                                         "obs_config", "kind", "ptemp",
+                                                         "obs_shapes")}
 
 
 def job_data_parallel(meshes, kind, state, data, sweeps, mesh="data", batch_axis=None,
                       time_mesh=None):
     """``data_parallel_update`` of a model from ``state`` over meshes[mesh]
-    (with ``time_mesh`` = meshes[time_mesh] too, when given)."""
+    (with ``time_mesh`` = meshes[time_mesh] too, when given).  NLDS's q(s)
+    (``p_block``) is returned: this rank's block."""
     from pyvbmp_tpu_torch.parallel import data_parallel_update
 
     m = _build(kind, state, None if time_mesh is None else meshes[time_mesh])
-    y = _t(data[0])
-    data_parallel_update(m, y, mesh=meshes[mesh], iters=sweeps, batch_axis=batch_axis)
+    data_parallel_update(m, _t(data[0]), mesh=meshes[mesh], iters=sweeps,
+                         batch_axis=batch_axis)
     s = _summary(kind, m)
+    p_block = s.pop("p", None) if kind == "nlds" else None
     s.pop("p", None), s.pop("px_mu", None)  # per-sample state stays this rank's block
-    return {"elbo": np.asarray(m.ELBO_save), **_np(s)}
+    out = _np(s)
+    if hasattr(m, "ELBO_save"):
+        out["elbo"] = np.asarray(m.ELBO_save)
+    if p_block is not None:
+        out["p_block"] = _np(p_block)
+    return out
 
 
 def job_systems(meshes, state, data, sweeps, mesh):
@@ -301,6 +313,61 @@ def job_refusals(meshes, lds_state, mix_state, data):
             data_parallel_update(build(), y, mesh=meshes[mesh])
             out[name] = ("", "")
         except (NotImplementedError, ValueError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+class LocalSums:
+    """A model whose sweep sums over its block of the batch on its own: its
+    ELBO is the sum of the data it was given."""
+
+    def __init__(self):
+        self.ELBO_save = []
+
+    def update(self, X, iters=1, lr=1.0):
+        for _ in range(iters):
+            self.ELBO_save.append(float(X.sum()))
+
+
+def job_check(meshes, data, sweeps):
+    """``data_parallel_update`` of a ``LocalSums``: the error it raises,
+    type and message."""
+    from pyvbmp_tpu_torch.parallel import data_parallel_update
+
+    try:
+        data_parallel_update(LocalSums(), _t(data), mesh=meshes["data"], iters=sweeps)
+    except RuntimeError as e:
+        return {"error": ("RuntimeError", str(e))}
+    return {"error": ("", "")}
+
+
+def job_refused(meshes, data):
+    """What ``data_parallel_update`` raises for each model it refuses: the
+    ARHMMs, whose observations are a tuple, and a Mixture over a
+    MultivariateNormal, which sums on its own (class -> (error type,
+    message))."""
+    from pyvbmp_tpu_torch import models
+    from pyvbmp_tpu_torch.dists import Mixture, MultivariateNormal
+    from pyvbmp_tpu_torch.parallel import data_parallel_update
+
+    kw = dict(generator=torch.Generator().manual_seed(0), dtype=torch.float64, device="cpu")
+    X = _t(data)[..., None, :, None]  # (T, batch, 1, 2, 1)
+    cases = {
+        "ARHMM": (models.ARHMM(3, 2, 2, **kw), (X, X)),
+        "ARHMM_prXY": (models.ARHMM_prXY(3, 2, 2, **kw), (X, X)),
+        "ARHMM_prXRY": (models.ARHMM_prXRY(3, 2, 2, 1, **kw), (X, X[..., :1, :], X)),
+        "Mixture over MultivariateNormal": (
+            Mixture(MultivariateNormal(mu=torch.tensor(np.random.RandomState(1).randn(3, 2)),
+                                       Sigma=torch.eye(2, dtype=torch.float64).expand(3, 2, 2)),
+                    (3,)), _t(data).reshape(-1, 2)),
+    }
+    out = {}
+    for name, (m, y) in cases.items():
+        try:
+            data_parallel_update(m, y, mesh=meshes["data"], batch_axis=0 if "Mixture" in name
+                                 else None)
+            out[name] = ("", "")
+        except (NotImplementedError, RuntimeError) as e:
             out[name] = (type(e).__name__, str(e))
     return out
 
