@@ -49,6 +49,7 @@ from ..utils.torchutils import (
     replace,
     sum_leading,
 )
+from ..utils.trace import span
 from ..parallel.seq_parallel import time_sweep
 from .arhmm import ARHMM_prXRY
 from .hmm import smoother_dispatch
@@ -416,45 +417,50 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         om = self.obs_model
         # warm-up passes (latent_iters - 1): roles from a fresh px, then the
         # latents given them (reference DMBD.update:191-194)
-        for _ in range(latent_iters - 1):
-            p, _, _ = self._role_estep(transition, initial, B, self._init_px(r), y, r)
-            px, _ = self._latents_given_p(x0, A, B, p, y, u, r)
+        if latent_iters > 1:
+            with span("dmbd.warmup"):
+                for _ in range(latent_iters - 1):
+                    p, _, _ = self._role_estep(transition, initial, B, self._init_px(r), y, r)
+                    px, _ = self._latents_given_p(x0, A, B, p, y, u, r)
         # role E-step; its sums over the batch are read by the role M-step
         # and by the ELBO
-        p, SEzz, SEz0 = self._role_estep(transition, initial, B, px, y, r)
-        SEzz, SEz0 = batch_sum(SEzz, SEz0)
-        # role M-step
-        transition = transition.ss_update(SEzz, lr=lr)
-        initial = initial.ss_update(SEz0, lr=lr)
-        unsdim = om.event_dim + 2
-        px4r = self._px4r(px, r)
-        XRY = (px4r, r.unsqueeze(-unsdim), y.unsqueeze(-unsdim))
-        B = om._obs_update(B, XRY, p, lr, None)
+        with span("dmbd.role_estep"):
+            p, SEzz, SEz0 = self._role_estep(transition, initial, B, px, y, r)
+            SEzz, SEz0 = batch_sum(SEzz, SEz0)
+        with span("dmbd.role_mstep"):
+            transition = transition.ss_update(SEzz, lr=lr)
+            initial = initial.ss_update(SEz0, lr=lr)
+        with span("dmbd.obs_update"):
+            unsdim = om.event_dim + 2
+            px4r = self._px4r(px, r)
+            XRY = (px4r, r.unsqueeze(-unsdim), y.unsqueeze(-unsdim))
+            B = om._obs_update(B, XRY, p, lr, None)
         # latent E-step with updated roles
-        px, ss = self._latents_given_p(x0, A, B, p, y, u, r)
-        logZ = ss["logZ"]
-        # ELBO
-        KL = x0.KLqprior() + A.KLqprior()
-        for _ in range(len(self.offset)):
-            if KL.ndim > 0:
-                KL = KL[..., 0] if KL.shape[-1] == 1 else KL
-        KL = KL + (
-            B.KLqprior().sum(-1)
-            + transition.KLqprior().sum(-1)
-            + initial.KLqprior()
-        )
-        lgm = transition.loggeomean()
-        contrib = torch.where(
-            torch.isfinite(lgm), lgm * SEzz, torch.zeros_like(lgm)
-        ).sum()
-        contrib = contrib + (initial.loggeomean() * SEz0).sum()
-        safe_p = torch.where(p > 1e-8, p, torch.ones_like(p))
-        ent = torch.where(p > 1e-8, p * torch.log(safe_p), torch.zeros_like(p)).sum()
-        data, ent = batch_sum(sum_leading(logZ, self.batch_dim).sum(), ent)
-        contrib = contrib - ent
-        ELBO = data - KL.sum() + contrib
-        # latent M-step
-        x0, A, _ = self._ss_update(x0, A, ss, lr=lr)
+        with span("dmbd.latent_estep"):
+            px, ss = self._latents_given_p(x0, A, B, p, y, u, r)
+        with span("dmbd.elbo"):
+            logZ = ss["logZ"]
+            KL = x0.KLqprior() + A.KLqprior()
+            for _ in range(len(self.offset)):
+                if KL.ndim > 0:
+                    KL = KL[..., 0] if KL.shape[-1] == 1 else KL
+            KL = KL + (
+                B.KLqprior().sum(-1)
+                + transition.KLqprior().sum(-1)
+                + initial.KLqprior()
+            )
+            lgm = transition.loggeomean()
+            contrib = torch.where(
+                torch.isfinite(lgm), lgm * SEzz, torch.zeros_like(lgm)
+            ).sum()
+            contrib = contrib + (initial.loggeomean() * SEz0).sum()
+            safe_p = torch.where(p > 1e-8, p, torch.ones_like(p))
+            ent = torch.where(p > 1e-8, p * torch.log(safe_p), torch.zeros_like(p)).sum()
+            data, ent = batch_sum(sum_leading(logZ, self.batch_dim).sum(), ent)
+            contrib = contrib - ent
+            ELBO = data - KL.sum() + contrib
+        with span("dmbd.latent_mstep"):
+            x0, A, _ = self._ss_update(x0, A, ss, lr=lr)
         return x0, A, transition, initial, B, px, p, logZ, ELBO
 
     def update(self, y, u=None, r=None, iters=1, latent_iters=1, lr=1.0,
@@ -462,9 +468,10 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         """``iters`` VB-EM sweeps on data y: (T,) + sample + obs_shape, each
         after ``latent_iters - 1`` warm-up passes of the role and latent
         E-steps (the JAX package's signature)."""
-        y, u, r = self.reshape_inputs(y, u, r)
-        self._update_reshaped(y, u, r, iters=iters, latent_iters=latent_iters, lr=lr,
-                              verbose=verbose)
+        with span("dmbd.update"):
+            y, u, r = self.reshape_inputs(y, u, r)
+            self._update_reshaped(y, u, r, iters=iters, latent_iters=latent_iters, lr=lr,
+                                  verbose=verbose)
 
     def _update_reshaped(self, y, u, r, iters=1, latent_iters=1, lr=1.0, verbose=False):
         """VB sweeps on already-reshaped inputs: the step dispatcher that
@@ -478,10 +485,11 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
             if chunk is not None:
                 y, u, r = chunk.take(y), chunk.take(u), chunk.take(r)
             px = self._init_px(r) if self.px is None else self.px
-            for _ in range(iters):
-                x0, A, transition, initial, B, px, p, logZ, ELBO = self._dmbd_step(
-                    x0, A, transition, initial, B, px, y, u, r, lr, latent_iters
-                )
+            for i in range(iters):
+                with span("dmbd.sweep", {"sweep": self.iters + i}):
+                    x0, A, transition, initial, B, px, p, logZ, ELBO = self._dmbd_step(
+                        x0, A, transition, initial, B, px, y, u, r, lr, latent_iters
+                    )
                 ELBOs.append(ELBO)
             if chunk is not None:  # each sequence's logZ, whole over time
                 logZ, = chunk.complete_time(logZ)
@@ -490,7 +498,9 @@ class DynamicMarkovBlanketDiscovery(LinearDynamicalSystems):
         om.p, self.px, self.logZ = p, px, logZ
         self.iters += iters
         # one host fetch for the whole trajectory
-        for e in torch.stack(ELBOs).cpu().tolist():
+        with span("dmbd.elbo_fetch"):
+            elbos = torch.stack(ELBOs).cpu().tolist()
+        for e in elbos:
             if verbose:
                 print(
                     "Percent Change in ELBO = ",

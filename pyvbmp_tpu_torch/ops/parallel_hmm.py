@@ -19,6 +19,7 @@ import math
 import torch
 
 from ..utils import math as um
+from ..utils.trace import span
 from . import scan
 
 
@@ -107,11 +108,12 @@ def _hmm_plane_core(M, init_logits, ptemp, offset, chain=scan.CHAIN):
 def _forward_backward(trans_logits, init_logits, obs_logits, ptemp, driven, chain):
     """The two smoothers below on ``chain``'s rows (a ``ShardedChain``'s:
     this process's rows in, its rows and parts out)."""
-    obs_logits, offset = _shift_obs(obs_logits)
-    M = trans_logits + obs_logits[..., None, :]
-    p, xi, SEz0, logZ = _hmm_plane_core(M, init_logits, ptemp,
-                                        offset.expand(M.shape[1:-2]), chain)
-    return p, (xi if driven else xi.sum(0)), SEz0, logZ
+    with span("hmm.forward_backward"):
+        obs_logits, offset = _shift_obs(obs_logits)
+        M = trans_logits + obs_logits[..., None, :]
+        p, xi, SEz0, logZ = _hmm_plane_core(M, init_logits, ptemp,
+                                            offset.expand(M.shape[1:-2]), chain)
+        return p, (xi if driven else xi.sum(0)), SEz0, logZ
 
 
 def forward_backward_parallel(trans_logits, init_logits, obs_logits, ptemp=1.0,

@@ -37,6 +37,7 @@ import torch
 
 from ..utils import math as um
 from ..utils.linalg import mT, psd_inv, psd_solve_and_logdet
+from ..utils.trace import span
 from . import planemat as pm
 from . import scan
 from . import smallmat as sm
@@ -489,19 +490,20 @@ def kalman_smoother_rows(parms, x0, like, u, chain, lane_form=None, plane_form=N
     process holding row 0, and the x_{-1} marginal (there) and logZ_total
     (on the process holding the last row) are zeros elsewhere, so that one
     all_reduce over the time axis completes them."""
-    hdim = parms["invQ"].shape[-1]
-    if lane_form is None:
-        lane_form = hdim <= LANE_KALMAN_MAX_H and plane_form is not True
-    if lane_form and hdim > LANE_KALMAN_MAX_H:
-        raise ValueError(f"the lane form serves h <= {LANE_KALMAN_MAX_H}, got h={hdim}")
-    if not lane_form and plane_form is None:
-        plane_form = hdim <= PLANE_KALMAN_MAX_H
-    elems, bshape, T, hdim = _build_elements(parms, x0, like, u, prior=chain.holds_first)
-    if lane_form:
-        out = _lane_smoother(elems, bshape, T, hdim, chain)
-    elif plane_form:
-        out = _plane_smoother(elems, bshape, T, hdim, chain)
-    else:
-        out = _dense_smoother(elems, bshape, T, hdim, chain)
-    Sigma, mu, Js, hs, Sigma_cross, Sigma_x0_x0, mu_x0, logZ_total = out
-    return (Sigma, mu, Js, hs), Sigma_cross, Sigma_x0_x0, mu_x0, logZ_total
+    with span("kalman.smoother"):
+        hdim = parms["invQ"].shape[-1]
+        if lane_form is None:
+            lane_form = hdim <= LANE_KALMAN_MAX_H and plane_form is not True
+        if lane_form and hdim > LANE_KALMAN_MAX_H:
+            raise ValueError(f"the lane form serves h <= {LANE_KALMAN_MAX_H}, got h={hdim}")
+        if not lane_form and plane_form is None:
+            plane_form = hdim <= PLANE_KALMAN_MAX_H
+        elems, bshape, T, hdim = _build_elements(parms, x0, like, u, prior=chain.holds_first)
+        if lane_form:
+            out = _lane_smoother(elems, bshape, T, hdim, chain)
+        elif plane_form:
+            out = _plane_smoother(elems, bshape, T, hdim, chain)
+        else:
+            out = _dense_smoother(elems, bshape, T, hdim, chain)
+        Sigma, mu, Js, hs, Sigma_cross, Sigma_x0_x0, mu_x0, logZ_total = out
+        return (Sigma, mu, Js, hs), Sigma_cross, Sigma_x0_x0, mu_x0, logZ_total

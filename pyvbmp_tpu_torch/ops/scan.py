@@ -53,6 +53,7 @@ import os
 
 import torch
 
+from ..utils.trace import span
 from ._cuda import load_library
 
 # The sizes the kernels take: every K a C int holds (csrc/logsemiring_scan.cu
@@ -153,6 +154,7 @@ class Scan:
     def __init__(self, name, symbol, source, replaces, sizes, combine,
                  leaf_shapes, size_of, fold_auto=True):
         self.name = name
+        self.span_name = "scan." + name  # the span its calls open (utils/trace.py)
         self.symbol = symbol
         self.source = source
         self.replaces = replaces
@@ -177,10 +179,11 @@ class Scan:
         folded = self.fold_plan(leaves[0].shape[0], leaves[0].shape[-1]) is not None
         route = self.folded if folded else self
         device = leaves[0].device
-        if device.type == "cpu":
-            return route.plain(leaves, reverse)
-        if device.type == "cuda":
-            return route.kernel(leaves, reverse)
+        with span(route.span_name):
+            if device.type == "cpu":
+                return route.plain(leaves, reverse)
+            if device.type == "cuda":
+                return route.kernel(leaves, reverse)
         raise ValueError(f"{route.name}: no version for device {device}")
 
     def plain(self, leaves, reverse=False):
@@ -250,6 +253,7 @@ class FoldedScan:
     def __init__(self, scan):
         self.scan = scan
         self.name = scan.name + "_folded"
+        self.span_name = "scan." + self.name
         self.source = scan.source
         self.launches = 0
         self.plain_calls = 0
