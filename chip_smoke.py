@@ -7,7 +7,7 @@ Phases, each reported on a line of its own; any failure exits non-zero and
 prints no result:
 
 1. guard: a CUDA card is present; its name and power limit; TF32 off; the
-   four kernels build from pyvbmp_tpu_torch/csrc with nvcc (one process per
+   kernels build from pyvbmp_tpu_torch/csrc with nvcc (one process per
    source, all at once);
 2. each kernel against its plain PyTorch version, forward and reverse (max
    relative error <= 1e-4, logw relative to its scale, the -inf pattern
@@ -37,8 +37,9 @@ prints no result:
 3. DMBD on batched Lorenz trajectories (T=399, batch=100, obs (3,2),
    role_dims (1,2,1), hidden_dims (2,2,2)) for 10 sweeps on the card: the
    ELBO is finite and rises at every sweep, the logsemiring and plane Kalman
-   kernels ran 2 x sweeps times, the lane Kalman kernel 0 times, and no
-   plain scan ran;
+   kernels ran 2 x sweeps times, the lane Kalman kernel 0 times, the SPD
+   inverse 14 x sweeps times (SPD_PER_SWEEP), and no plain scan or plain
+   inverse ran (the latter counts the library route, n > 32 or float64);
 4. the same initial state (carried as a numpy state dict) and data for 3
    sweeps on the card (float32) and on the CPU (float64, plain scans): the
    ELBO trajectories agree within relative 1e-4;
@@ -84,7 +85,8 @@ prints no result:
    finite and rises at every sweep; launches (fold off: 2 per sweep each of
    the one-pass logsemiring and plane Kalman kernels, 0 folded; fold on: 2
    per sweep of each folded scan, 0 one-pass; the lane kernels and
-   weighted_outer 0; no plain version); particular_assignment() is (T,
+   weighted_outer 0; either way the SPD inverse 14 a sweep; no plain
+   version); particular_assignment() is (T,
    batch, 12) with values in 0..3.  The two ELBO trajectories agree within
    relative 1e-4;
 13. the same state and data for 3 sweeps on the card (float32, fold on) and
@@ -277,7 +279,20 @@ prints no result:
    its single-process card run, the parameter nodes equal on every rank
    after the call, the tensor HMMs' "reduce" elements a sweep the same at
    batch 800 (one sweep), NLDS's 2 lane Kalman launches a sweep on every
-   rank at (200, 2, 2) and no plain scan, the tensor HMMs no kernel.
+   rank at (200, 2, 2) and no plain scan, the tensor HMMs no kernel;
+40. the batched SPD inverse (ops/spd_inverse.py, csrc/spd_inverse.cu) at
+   the DMBD cells' shapes (SPD_SHAPES): the latent smoother's plane
+   matrices (399, 6, 6, 100), (399, 6, 6, 1000), (150, 26, 26, 20) and
+   (1200, 26, 26, 4), read by their lower triangle, and the observation
+   update's dense (4, 7, 7), (4, 2, 2), (26, 27, 27), (26, 4, 4),
+   symmetrized: inverse and log-determinant within relative 1e-4 of the
+   plain version (float32 on the card) and of float64, with the kernel's
+   time (per call; a launch replayed from a CUDA graph of 50, which the
+   share reads; and on the device from a profiler trace), its bound
+   (n^2 floats out a matrix and as many in as it reads: n^2 symmetrized,
+   n(n+1)/2 by the lower triangle; or n^3 FP32 operations), the plain
+   version's time and one cholesky_ex + cholesky_inverse call's on a
+   contiguous dense copy (the library yardstick); it runs before phase 39.
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
@@ -308,6 +323,7 @@ import argparse
 import contextlib
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -333,6 +349,20 @@ FLOCK = dict(T=150, batch=20, n_birds=12, obs_dim=4, role_dims=(2, 2, 2),
              seed=0)
 SCATTER_SHAPES = [("digits", 1347, 65, 9), ("weighted_scatter.py:16", 400000, 32, 16),
                   ("dMixture gate (phase 31)", 400000, 32, 15), ("MNIST-16x16", 60000, 257, 9)]
+# phase 40: the SPD inverse at a DMBD sweep's shapes: (label, batch shape, n,
+# plane); plane matrices are read by their lower triangle
+# (bsym_inv_and_logdet), dense ones symmetrized (psd_inv_and_logdet)
+# a DMBD sweep's calls of the SPD inverse on the card: 7 in the latent
+# E-step (the plane smoother), 4 in its M-step, 3 in the observation update
+SPD_PER_SWEEP = 14
+SPD_SHAPES = [("lorenz.b100 smoother", (399, 100), 6, True),
+              ("lorenz.b1000 smoother", (399, 1000), 6, True),
+              ("flocking.b20 smoother", (150, 20), 26, True),
+              ("flocking.T1200.b4 smoother", (1200, 4), 26, True),
+              ("lorenz observation update", (4,), 7, False),
+              ("lorenz observation update", (4,), 2, False),
+              ("flocking observation update", (26,), 27, False),
+              ("flocking observation update", (26,), 4, False)]
 # phase 2's other sizes: every logsemiring rung (K <= 4, 8, 16, 32) and the
 # generic K > 32; the plane Kalman kernel's one-solve-per-thread design (H
 # <= 14) and its looped one (H >= 15), exact rungs and padded sizes
@@ -520,14 +550,14 @@ def time_ms(fn, reps, warm=True):
 
 def build_baseline(csrc):
     """The kernels of another csrc directory, built as ours are (into a build
-    directory beside it) and bound with the earlier scatter signature when
-    the directory has it."""
+    directory beside it; an entry point it lacks is left unbound) and bound
+    with the earlier scatter signature when the directory has it."""
     import ctypes
 
     from pyvbmp_tpu_torch.ops import _cuda
 
     csrc = Path(csrc).resolve()
-    lib = _cuda.build(csrc, csrc.parent / "_build")
+    lib = _cuda.build(csrc, csrc.parent / "_build", strict=False)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if "int group" not in (csrc / "weighted_outer.cu").read_text():
         lib.weighted_outer_f32.argtypes = [vp] * 4 + [ci] * 5 + [vp]
@@ -688,9 +718,14 @@ def phase_guard(baseline=None):
     with ThreadPoolExecutor(2) as pool:
         ours = pool.submit(_cuda.load_library)
         base = pool.submit(build_baseline, baseline) if baseline else None
-        ours.result()
+        ours_lib = ours.result()
         build_s = time.perf_counter() - t0
         base_lib = base.result() if base else None
+    # an entry point the earlier csrc lacks is ours on the baseline's turns
+    # too, so the two sides differ only in the kernels both have
+    for name in _cuda.SIGNATURES if base_lib is not None else ():
+        if not hasattr(base_lib, name):
+            setattr(base_lib, name, getattr(ours_lib, name))
     print(f"phase 1 guard: {torch.cuda.get_device_name(0)}; card {card}; "
           f"kernels built and loaded in {build_s:.2f} s"
           + (f" (baseline {baseline} built beside them)" if baseline else ""))
@@ -921,7 +956,7 @@ def phase_dmbd(card):
         fail("ELBO did not rise at every sweep")
     check_launches("DMBD", launches, plain, {
         "logsemiring_scan": 2 * sweeps, "kalman_plane_scan": 2 * sweeps,
-        "kalman_lane_scan": 0, "weighted_outer": 0})
+        "kalman_lane_scan": 0, "weighted_outer": 0, "spd_inverse": SPD_PER_SWEEP * sweeps})
     p = model.obs_model.p
     mu = model.px.mu
     if p.shape != (CFG["T"], CFG["batch"], CFG["obs_shape"][0], 4):
@@ -1104,6 +1139,57 @@ def phase_scatter(card, base=None):
     return rec
 
 
+def spd_work(count, n, symmetrize):
+    """(bytes, FP32 operations) of inverting ``count`` n x n SPD matrices:
+    n^2 floats written a matrix, and read n^2 when symmetrized, else the
+    lower triangle's n(n+1)/2 (the kernel loads no more); Cholesky,
+    triangular inverse and product, n^3 / 3 each."""
+    read = n * n if symmetrize else n * (n + 1) // 2
+    return 4 * count * (read + n * n), count * n ** 3
+
+
+def phase_spd_inverse(card):
+    from pyvbmp_tpu_torch.ops import spd_inverse as si
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(CFG["seed"])
+    rec = dict(abs=0.0, ms=None, plain_ms=None, library_ms=None, bound=None)
+    for label, batch, n, plane in SPD_SHAPES:
+        X = torch.randn(batch + (n, n), generator=gen, device="cuda")
+        dense = X @ X.transpose(-1, -2) / n + 0.5 * torch.eye(n, device="cuda")
+        A = dense.movedim(-3, -1).contiguous() if plane else dense
+        sym = not plane
+        ours = lambda: si.SPD_INVERSE.kernel(A, plane, sym, logdet=True)
+        plain = lambda: si.spd_inverse_plain(A, plane, sym, logdet=True)
+        inv, ld = ours()
+        inv32, ld32 = plain()
+        inv64, ld64 = si.spd_inverse_plain(A.double(), plane, sym, logdet=True)
+        errs = [rel_err(x.double(), ref) for x, ref in
+                ((inv, inv32.double()), (ld, ld32.double()), (inv, inv64), (ld, ld64))]
+        err = max(e[0] for e in errs)
+        count = math.prod(batch)
+        bound = bound_ms(*spd_work(count, n, sym))
+        reps = 20 if count * n * n < 10**7 else 5
+        ms = time_ms(ours, 20)
+        graph = graph_ms(ours, 50)
+        dev = device_ms(ours)
+        plain_ms = time_ms(plain, reps)
+        library_ms = time_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(dense).L),
+                             reps)
+        layout = f"plane {tuple(A.shape)}" if plane else f"dense {tuple(A.shape)}"
+        print(f"phase 40 spd_inverse {label} {layout}: max rel err {err:.3e} against the "
+              f"plain version and float64; kernel {ms:.4f} ms (from a CUDA graph {graph:.4f} "
+              f"ms, profiler device time {dev:.4f} ms), plain {plain_ms:.4f} ms, cholesky_ex "
+              f"+ cholesky_inverse {library_ms:.4f} ms; {share(graph, bound)} (graph); card "
+              f"{card}")
+        if not err <= REL_TOL:
+            fail(f"spd_inverse {label}: kernel disagrees with plain or float64 ({err:.3e})")
+        rec["abs"] = max(rec["abs"], max(e[1] for e in errs[:2]))
+        if label == "lorenz.b1000 smoother":
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound=bound)
+    return rec
+
+
 def digits():
     """The bake-off's digits split as float64 CPU tensors: Xtr, Ytr (one-hot),
     Xte, and the test labels yte (numpy)."""
@@ -1118,9 +1204,9 @@ def digits():
 
 
 def kernel_counts():
-    from pyvbmp_tpu_torch.ops import scan, weighted_scatter as ws
+    from pyvbmp_tpu_torch.ops import scan, spd_inverse as si, weighted_scatter as ws
 
-    return (*scan.SCANS, *scan.FOLDED_SCANS, ws.WEIGHTED_OUTER)
+    return (*scan.SCANS, *scan.FOLDED_SCANS, ws.WEIGHTED_OUTER, si.SPD_INVERSE)
 
 
 def reset_counts():
@@ -1128,11 +1214,15 @@ def reset_counts():
     for k in kernel_counts():
         k.launches = 0
         k.plain_calls = 0
+        if hasattr(k, "library_calls"):
+            k.library_calls = 0
 
 
 def read_counts():
+    """(launches, plain calls) by kernel; the SPD inverse's plain calls
+    count its library route (a CUDA call the kernel does not take) too."""
     return ({k.name: k.launches for k in kernel_counts()},
-            {k.name: k.plain_calls for k in kernel_counts()})
+            {k.name: k.plain_calls + getattr(k, "library_calls", 0) for k in kernel_counts()})
 
 
 def fit_mnlr(m, X, Y):
@@ -1178,7 +1268,7 @@ def phase_mnlr(card, data):
     if launches["weighted_outer"] != want or plain["weighted_outer"] != 0:
         fail(f"MNLR: weighted_outer launched {launches['weighted_outer']} times "
              f"(want {want}), plain {plain['weighted_outer']} (want 0)")
-    if any(launches[s] or plain[s] for s in launches if s != "weighted_outer"):
+    if any(launches[s] or plain[s] for s in NO_KERNEL if s != "weighted_outer"):
         fail("MNLR: a scan ran on the classifier's path")
     if not tf32_kept:
         fail("the precision pin did not restore the caller's TF32 setting")
@@ -1245,7 +1335,7 @@ def phase_other_arms(card, data):
         acc = float((labels.cpu().numpy() == yte).mean())
         print(f"phase 10 {name} digits, float32: fit and predict {dt:.4f} s (first "
               f"run, no warm-up); test accuracy {acc:.4f}; ELBO {elbo:.6e}; card {card}")
-        if any(launches.values()) or any(plain.values()):
+        if any(launches[k] or plain[k] for k in NO_KERNEL):
             fail(f"{name}: a kernel or a plain version ran ({launches}, {plain})")
         if not acc >= DIGITS["min_acc"]:
             fail(f"{name} digits accuracy {acc:.4f} < {DIGITS['min_acc']}")
@@ -1336,7 +1426,8 @@ def phase_flocking(card):
     state = flocking_state(FLOCK["seed"])
     sweeps = FLOCK["sweeps"]
     fit = dict(iters=sweeps, latent_iters=1, lr=1.0)
-    zero = {"kalman_lane_scan": 0, "kalman_lane_scan_folded": 0, "weighted_outer": 0}
+    zero = {"kalman_lane_scan": 0, "kalman_lane_scan_folded": 0, "weighted_outer": 0,
+            "spd_inverse": SPD_PER_SWEEP * sweeps}
     want = {
         "0": {"logsemiring_scan": 2 * sweeps, "kalman_plane_scan": 2 * sweeps,
               "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0, **zero},
@@ -1663,7 +1754,7 @@ def phase_sequential(card):
         f"phase 18 DMBD-Lorenz parallel_scan=False T={CFG['T']} batch={CFG['batch']}",
         dmbd_from_state, state, (lorenz_data(torch.float64, "cpu"),), n, card)
     print(f"  card and CPU runs {time.perf_counter() - t0:.3f} s")
-    check_launches("DMBD sequential", launches, plain, {k: 0 for k in launches})
+    check_launches("DMBD sequential", launches, plain, NO_KERNEL)
     elbo = np.asarray(gpu.ELBO_save, np.float64)
     kl = gpu.KLqprior()
     print(f"  ELBO steps {np.diff(elbo).tolist()}; ELBO() {gpu.ELBO():.6e}; "
@@ -2072,7 +2163,7 @@ def phase_gmm(card):
         fail("GMM-core: ELBO not finite")
     if not elbo[-1] > elbo[0]:
         fail("GMM-core: ELBO ended below where it started")
-    check_launches("GMM-core", launches, plain, {k: 0 for k in launches})
+    check_launches("GMM-core", launches, plain, NO_KERNEL)
     if tuple(model.p.shape) != (c["n"], c["nc"]):
         fail(f"GMM-core: p has shape {tuple(model.p.shape)}")
     compare_card_cpu("phase 25 GMM-core", gmm_from_state, gmm_state0(c["seed"] + 1, X64),
@@ -2140,7 +2231,7 @@ def phase_tensor_hmm(card):
             fail(f"{label}: ELBO not finite")
         if not elbo[-1] > elbo[0]:
             fail(f"{label}: ELBO ended below where it started")
-        check_launches(label, launches, plain, {k: 0 for k in launches})
+        check_launches(label, launches, plain, NO_KERNEL)
         if tuple(model.p.shape) != (HMM_CORE["T"], HMM_CORE["batch"]) + model.event_shape:
             fail(f"{label}: p has shape {tuple(model.p.shape)}")
         gpu, _, _, cpu = compare_card_cpu(f"phase 26 {label}", tensor_hmm_from_state,
@@ -2182,7 +2273,7 @@ def phase_gmm_vector(card):
         fail("GMM_vector: ELBO not finite")
     if not elbo[-1] > elbo[0]:
         fail("GMM_vector: ELBO ended below where it started")
-    check_launches("GMM_vector", launches, plain, {k: 0 for k in launches})
+    check_launches("GMM_vector", launches, plain, NO_KERNEL)
     gpu, _, _, cpu = compare_card_cpu("phase 27 GMM_vector", gmm_from_state,
                                       gmm_vector_state0(c["seed"] + 1, X64), (X64,),
                                       c["compare_iters"], card)
@@ -2358,7 +2449,7 @@ def phase_moons(card):
         fail(f"two moons: accuracy {acc:.4f} below {c['min_acc']}")
     if not agree >= c["min_agree"]:
         fail(f"two moons: card and CPU predictions agree on only {agree:.4f}")
-    check_launches("two moons", launches, plain, {k: 0 for k in launches})
+    check_launches("two moons", launches, plain, NO_KERNEL)
 
 
 def node_cases(B):
@@ -2567,7 +2658,7 @@ def phase_nodes(card):
     launches, plain = read_counts()
     print(f"phase 30 {len(worst)} nodes at batch ({NODE_BATCH},): worst {max(worst.values()):.3e} "
           f"({max(worst, key=worst.get)}); {time.perf_counter() - t0:.3f} s; card {card}")
-    check_launches("node suite", launches, plain, {k: 0 for k in launches})
+    check_launches("node suite", launches, plain, NO_KERNEL)
     bad = {k: v for k, v in worst.items() if not v <= REL_TOL}
     if bad:
         fail(f"node suite: card and CPU differ: {bad}")
@@ -2676,7 +2767,7 @@ def phase_dmixture(card):
           f"regions (up to labels) on {acc:.4f}; card {card}")
     check_rising("phase 31 dMixture", m.ELBO_save)
     check_launches("dMixture", launches, plain,
-                   {k: (2 * c["sweeps"] if k == "weighted_outer" else 0) for k in launches})
+                   dict(NO_KERNEL, weighted_outer=2 * c["sweeps"]))
     want = ((c["S"], c["p"] + 1), (c["S"], c["K"] - 1))
     if set(shapes) != {want}:
         fail(f"dMixture: the scatter ran at {sorted(set(shapes))}, want X, W {want}")
@@ -2756,7 +2847,7 @@ def phase_moe_arms(card, data):
               f"warm-up); test accuracy {acc:.4f} (CPU f64 {(labels_cpu == yte).mean():.4f}); "
               f"card and CPU argmax agree on {agree:.4f}; ELBO {e_gpu[0]:.6e} -> "
               f"{e_gpu[-1]:.6e}, max rel dev from the CPU's {dev:.3e}; card {card}")
-        check_launches(name, launches, plain, {k: 0 for k in launches})
+        check_launches(name, launches, plain, NO_KERNEL)
         if not np.isfinite(e_gpu).all():
             fail(f"{name}: ELBO not finite")
         if not dev <= REL_TOL:
@@ -2818,7 +2909,7 @@ def phase_transformers(card):
               f"hidden 2, pad_X), {c['sweeps']} sweeps: {c['sweeps'] / dt:.3f} sweeps/s "
               f"({dt:.3f} s); card {card}")
         check_rising(f"phase 33 {name}", m.ELBO_save)
-        check_launches(name, launches, plain, {k: 0 for k in launches})
+        check_launches(name, launches, plain, NO_KERNEL)
         gpu, cpu = from_state(state, "cuda", torch.float32), from_state(state, "cpu")
         gpu.raw_update(Y, iters=c["compare_sweeps"])
         cpu.raw_update(Y64, iters=c["compare_sweeps"])
@@ -2851,7 +2942,7 @@ def phase_transformers(card):
           f"{1 - p.sum(-1)[0]:.4f}, P(y1 <- y0) {p[1, 0]:.4f}, P(y2 <- y1) {p[2, 1]:.4f}; "
           f"card {card}")
     check_rising("phase 33 CBT", elbo)
-    check_launches("CBT", launches, plain, {k: 0 for k in launches})
+    check_launches("CBT", launches, plain, NO_KERNEL)
     if not (1 - p.sum(-1)[0] > 0.9 and p[1, 0] > 0.9 and p[2, 1] > 0.9):
         fail(f"CBT did not recover the chain: {p.tolist()}")
     gpu, cpu = convert.cbt_from_state(state, "cuda", torch.float32), \
@@ -2935,7 +3026,7 @@ def phase_small_transforms(card):
         cpu = run(from_state(state, "cpu"), data)
         print(f"phase 34 {name} S={S}, {n} updates: {dt:.3f} s on the card (first run); "
               f"card {card}")
-        check_launches(name, launches, plain, {k: 0 for k in launches})
+        check_launches(name, launches, plain, NO_KERNEL)
         close_outputs(f"phase 34 {name}", {k: (gpu[k], cpu[k]) for k in cpu}, card)
 
 
@@ -3740,7 +3831,7 @@ def check_leg_launches(leg, name, ranks):
     want = per_sweep(want, ranks[0][leg]["sweeps"])
     print(f"    kernel launches on each rank {ranks[0][leg]['launches']} (want {want})")
     for i, r in enumerate(ranks):
-        if r[leg]["launches"] != want or any(r[leg]["plain"].values()):
+        if any(r[leg]["launches"][k] != n or r[leg]["plain"][k] for k, n in want.items()):
             fail(f"phase 39 ({leg}) rank {i}: launches {r[leg]['launches']}, plain "
                  f"versions {r[leg]['plain']}, want {want} and none")
 
@@ -3832,6 +3923,9 @@ def main():
     run("36", phase_bayesnet, card, data)
     run("37", phase_checkpoint, card)
     launches_examples = run("38", phase_examples, card)
+    # the profiler has recorded no device event in phase 40 in some runs,
+    # before 39 and after it; its share reads a CUDA graph's time instead
+    spd = run("40", phase_spd_inverse, card)
     launches_mesh = run("39", phase_mesh, card)
     if args.trace:
         run("trace", phase_trace, card)
@@ -3859,6 +3953,14 @@ def main():
     kernels.append(record_line(w.name, w.source, w.replaces,
                                launches_mnlr[w.name] + launches_dmix[w.name],
                                scatter["abs"], scatter, scatter["library_ms"]))
+    from pyvbmp_tpu_torch.ops import spd_inverse as si
+
+    kernels.append(record_line(si.SPD_INVERSE.name, si.SPD_INVERSE.source,
+                               si.SPD_INVERSE.replaces,
+                               launches_dmbd[si.SPD_INVERSE.name]
+                               + sum(launches[si.SPD_INVERSE.name]
+                                     for launches in launches_flock.values()),
+                               spd["abs"], spd, spd["library_ms"]))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s (seconds by phase: "
           f"{seconds}); card {card}")
     print(json.dumps({"kernels": kernels}))

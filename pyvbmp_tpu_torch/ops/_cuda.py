@@ -38,29 +38,40 @@ def _find_nvcc():
     return nvcc
 
 
-def _bind(lib):
-    """Declare each entry point's argument types: pointers and the stream
-    as c_void_p (ctypes would cut them to 32-bit ints), sizes as c_int."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    signatures = {
-        # leaves, outputs, chunk totals; T, size, N, chunks, L, offset, reverse
-        "logsemiring_scan_f32": [vp] * 3 + [ci] * 7 + [vp],
-        "kalman_plane_scan_f32": [vp] * 18 + [ci] * 7 + [vp],
-        "kalman_lane_scan_f32": [vp] * 18 + [ci] * 7 + [vp],
-        "weighted_outer_f32": [vp] * 4 + [ci] * 7 + [vp],
-    }
-    for name, argtypes in signatures.items():
+# each entry point's argument types: pointers and the stream as c_void_p
+# (ctypes would cut them to 32-bit ints), sizes as c_int, element counts and
+# strides as c_longlong
+_vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {
+    # leaves, outputs, chunk totals; T, size, N, chunks, L, offset, reverse
+    "logsemiring_scan_f32": [_vp] * 3 + [_ci] * 7 + [_vp],
+    "kalman_plane_scan_f32": [_vp] * 18 + [_ci] * 7 + [_vp],
+    "kalman_lane_scan_f32": [_vp] * 18 + [_ci] * 7 + [_vp],
+    "weighted_outer_f32": [_vp] * 4 + [_ci] * 7 + [_vp],
+    # A, inv, logdet; n; count, lanes, 4 input and 4 output strides; symmetrize, jitter
+    "spd_inverse_f32": [_vp] * 3 + [_ci] + [_cll] * 10 + [_ci, ctypes.c_float, _vp],
+}
+
+
+def _bind(lib, strict=True):
+    """Declare each entry point's argument types (``SIGNATURES``).  An entry
+    point the library lacks raises, unless not ``strict`` (a baseline built
+    from an earlier csrc), where it is left unbound."""
+    for name, argtypes in SIGNATURES.items():
+        if not strict and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ci
+        fn.restype = _ci
 
 
-def build(csrc_dir, build_dir):
+def build(csrc_dir, build_dir, strict=True):
     """Build (once per hash of the sources and the ``*.cuh`` headers they
     include) every ``*.cu`` of ``csrc_dir`` into one shared library under
-    ``build_dir`` and load it; returns the bound
-    ``ctypes.CDLL``.  The compiler's report (registers, spills) is kept
-    beside the library as ``<name>.log``, with each source's compile time."""
+    ``build_dir`` and load it; returns the bound ``ctypes.CDLL``
+    (``strict``: see ``_bind``).  The compiler's report (registers, spills)
+    is kept beside the library as ``<name>.log``, with each source's
+    compile time."""
     sources = sorted(Path(csrc_dir).glob("*.cu"))
     headers = sorted(Path(csrc_dir).glob("*.cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -102,7 +113,7 @@ def build(csrc_dir, build_dir):
             )
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    _bind(lib)
+    _bind(lib, strict)
     return lib
 
 

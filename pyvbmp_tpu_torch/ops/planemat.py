@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 
-import torch
+from .spd_inverse import spd_inverse
 
 
 def bT(A):
@@ -74,11 +74,8 @@ def unpack_vec(x, bshape):
 
 def bsym_inv_and_logdet(A):
     """Inverse + logdet of a symmetric PD plane matrix (..., h, h, N), from
-    one batched Cholesky factor (the JAX package's Schur split existed to
-    suit the TPU's layout).  As in the JAX package, a factorization that
-    fails raises no error (``cholesky_ex``), so the card never waits on a
-    check."""
-    L = torch.linalg.cholesky_ex(A.movedim(-1, -3)).L
-    inv = torch.cholesky_inverse(L)
-    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
-    return inv.movedim(-3, -1), logdet
+    one batched Cholesky factor of its lower triangle (the JAX package's
+    Schur split existed to suit the TPU's layout), through
+    ``ops/spd_inverse.py``.  As in the JAX package, a factorization that
+    fails raises no error, so the card never waits on a check."""
+    return spd_inverse(A, plane=True, logdet=True)

@@ -2,7 +2,8 @@
 
 Every PSD operation goes through one batched Cholesky factor, taken with
 ``cholesky_ex``: as in the JAX package, a factorization that fails raises no
-error, and the card never waits on a check.  The JAX
+error, and the card never waits on a check.  The inverses go through
+``ops/spd_inverse.py`` (on the card, one kernel for n <= 32).  The JAX
 package's straight-line Schur inverses (``sym_*``) and their matmul-precision
 pins were TPU workarounds; the port has only the Cholesky path.
 """
@@ -52,7 +53,9 @@ def psd_solve_and_logdet(A, B):
 
 
 def psd_inv(A):
-    return torch.cholesky_inverse(chol(A))
+    from ..ops.spd_inverse import spd_inverse  # ops imports this module
+
+    return spd_inverse(A, symmetrize=True)[0]
 
 
 def psd_logdet(A):
@@ -61,8 +64,9 @@ def psd_logdet(A):
 
 def psd_inv_and_logdet(A):
     """Inverse + logdet off one Cholesky factor."""
-    L = chol(A)
-    return torch.cholesky_inverse(L), _logdet_from_chol(L)
+    from ..ops.spd_inverse import spd_inverse
+
+    return spd_inverse(A, symmetrize=True, logdet=True)
 
 
 def block_diag_matrix_builder(A, B):
