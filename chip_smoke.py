@@ -355,6 +355,9 @@ SCATTER_SHAPES = [("digits", 1347, 65, 9), ("weighted_scatter.py:16", 400000, 32
 # a DMBD sweep's calls of the SPD inverse on the card: 7 in the latent
 # E-step (the plane smoother), 4 in its M-step, 3 in the observation update
 SPD_PER_SWEEP = 14
+# utils/linalg.py:product's routes a DMBD sweep takes at the Lorenz and Flocking
+# sizes: 5 outer products, the message and likelihood products, 2 role averages
+PRODUCTS_PER_SWEEP = {"broadcast": 11, "folded_gemm": 4, "matmul": 0}
 SPD_SHAPES = [("lorenz.b100 smoother", (399, 100), 6, True),
               ("lorenz.b1000 smoother", (399, 1000), 6, True),
               ("flocking.b20 smoother", (150, 20), 26, True),
@@ -936,6 +939,19 @@ def check_launches(path, launches, plain, want):
             fail(f"{path}: plain {name} ran {plain[name]} times on the card's path")
 
 
+def check_products(path, sweeps):
+    """The DMBD sweeps since ``reset_counts`` took ``utils/linalg.py:product``'s
+    routes PRODUCTS_PER_SWEEP times each: no product over the data's axes
+    reached cuBLAS's batched GEMM one problem an entry."""
+    from pyvbmp_tpu_torch.utils import linalg
+
+    got = linalg.PRODUCTS.counts()
+    want = {route: n * sweeps for route, n in PRODUCTS_PER_SWEEP.items()}
+    print(f"  product routes {got} (want {want})")
+    if got != want:
+        fail(f"{path}: product routes {got}, want {want}")
+
+
 def phase_dmbd(card):
     from pyvbmp_tpu_torch.utils.convert import dmbd_from_state, dmbd_state
 
@@ -957,6 +973,7 @@ def phase_dmbd(card):
     check_launches("DMBD", launches, plain, {
         "logsemiring_scan": 2 * sweeps, "kalman_plane_scan": 2 * sweeps,
         "kalman_lane_scan": 0, "weighted_outer": 0, "spd_inverse": SPD_PER_SWEEP * sweeps})
+    check_products("DMBD", sweeps)
     p = model.obs_model.p
     mu = model.px.mu
     if p.shape != (CFG["T"], CFG["batch"], CFG["obs_shape"][0], 4):
@@ -1210,7 +1227,10 @@ def kernel_counts():
 
 
 def reset_counts():
+    from pyvbmp_tpu_torch.utils import linalg
+
     torch.cuda.synchronize()
+    linalg.PRODUCTS.reset()
     for k in kernel_counts():
         k.launches = 0
         k.plain_calls = 0
@@ -1461,6 +1481,7 @@ def phase_flocking(card):
         if not (np.diff(elbo) > 0).all():
             fail(f"Flocking (fold {fold}): ELBO did not rise at every sweep")
         check_launches(f"Flocking (fold {fold})", launches, plain, want[fold])
+        check_products(f"Flocking (fold {fold})", sweeps)
         pa = model.particular_assignment()
         shape = (FLOCK["T"], FLOCK["batch"], FLOCK["n_birds"])
         if tuple(pa.shape) != shape or pa.min() < 0 or pa.max() > FLOCK["number_of_objects"]:

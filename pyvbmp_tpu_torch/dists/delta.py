@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.linalg import mT
+from ..utils.linalg import mT, outer
 from ..utils.torchutils import Node, node
 
 
@@ -39,7 +39,7 @@ class Delta(Node):
         return self.X
 
     def EXXT(self):
-        return self.X @ mT(self.X)
+        return outer(self.X, self.X)
 
     def EXTX(self):
         return mT(self.X) @ self.X

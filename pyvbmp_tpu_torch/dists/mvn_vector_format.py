@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..utils import math as um
-from ..utils.linalg import mT, psd_inv, psd_logdet, psd_solve
+from ..utils.linalg import mT, outer, psd_inv, psd_logdet, psd_solve
 from ..utils.torchutils import Node, node, replace, sum_leading
 
 
@@ -112,7 +112,7 @@ class MultivariateNormal_vector_format(Node):
         return self.mean()
 
     def EXXT(self):
-        return self.ESigma() + self.mean() @ mT(self.mean())
+        return self.ESigma() + outer(self.mean(), self.mean())
 
     def Res(self):
         """-0.5 mu' Lambda mu + 0.5 logdet Lambda - d/2 log 2pi."""

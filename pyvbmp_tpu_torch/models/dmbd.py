@@ -41,7 +41,7 @@ from ..dists import NormalInverseWishart
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
 from ..transforms import MatrixNormalGamma
 from ..utils import math as um
-from ..utils.linalg import mT, psd_inv_and_logdet
+from ..utils.linalg import mT, product, psd_inv_and_logdet
 from ..utils.torchutils import (
     batch_sum,
     brole_avg,
@@ -660,13 +660,13 @@ def _arhmm_elog_like_X(om, B, YR, p):
     natural parameters with the regressors R conditioned out."""
     Y, R = YR
     p1 = om.p1
-    d = Y - B.mu[..., p1:] @ R
-    Wd = B.EinvSigma() @ d
+    d = Y - product(B.mu[..., p1:], R)
+    Wd = product(B.EinvSigma(), d)
     invSigma_x_x = B.EXTinvUX()[..., :p1, :p1]
-    invSigmamu_x = mT(B.mu[..., :p1]) @ Wd - B.n * B.V[..., :p1, p1:] @ R
+    invSigmamu_x = product(mT(B.mu[..., :p1]), Wd) - B.n * product(B.V[..., :p1, p1:], R)
     Residual = (
         -0.5 * (d * Wd).sum((-1, -2))
-        - 0.5 * B.n * (mT(R) @ B.V[..., p1:, p1:] @ R)[..., 0, 0]
+        - 0.5 * B.n * product(product(mT(R), B.V[..., p1:, p1:]), R)[..., 0, 0]
         - 0.5 * B.n * um.LOG2PI
         + 0.5 * B.ElogdetinvSigma()
     )

@@ -18,6 +18,8 @@ from ..utils import math as um
 from ..utils.linalg import (
     block_precision_marginalizer,
     mT,
+    outer,
+    product,
     psd_inv,
     psd_inv_and_logdet,
     psd_logdet,
@@ -229,7 +231,7 @@ class MatrixNormalWishart(Node):
         if p is None:
             SExx = pX.EXXT().sum(sdims)
             SEyy = pY.EXXT().sum(sdims)
-            SEyx = (pY.EX() @ mT(pX.EX())).sum(sdims)
+            SEyx = outer(pY.EX(), pX.EX()).sum(sdims)
             nsamp = float(np.prod(sample_shape, dtype=np.float64))
             N = SExx.new_full(self.batch_shape + self.event_shape[:-2], nsamp)
         else:
@@ -238,7 +240,7 @@ class MatrixNormalWishart(Node):
             ns = len(sdims)
             SExx = bweighted_sum(pX.EXXT(), pv, ns)
             SEyy = bweighted_sum(pY.EXXT(), pv, ns)
-            SEyx = bweighted_sum(pY.EX() @ mT(pX.EX()), pv, ns)
+            SEyx = bweighted_sum(outer(pY.EX(), pX.EX()), pv, ns)
         pad = ()
         if self.pad_X:
             if p is None:
@@ -347,7 +349,7 @@ class MatrixNormalWishart(Node):
             ELL = ELL - (EXTinvUX[..., -1:, :-1] @ pX.mean())[..., 0, 0]
             ELL = ELL - 0.5 * EXTinvUX[..., -1, -1]
         else:
-            ELL = ELL + (mT(pY.mean()) @ self.EinvUX() @ pX.mean())[..., 0, 0]
+            ELL = ELL + product(product(mT(pY.mean()), self.EinvUX()), pX.mean())[..., 0, 0]
             ELL = ELL - 0.5 * bcontract_pp(pX.EXXT(), self.EXTinvUX())
         ELL = ELL + 0.5 * self.ElogdetinvSigma() - 0.5 * self.n * um.LOG2PI
         for _ in range(self.event_dim - 2):

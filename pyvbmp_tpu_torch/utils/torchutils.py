@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from .linalg import product
+
 
 def node(cls):
     """Decorate a node class: a frozen dataclass."""
@@ -192,8 +194,11 @@ def bweighted_sum(X, pv, ns):
 
 def brole_avg(M, p):
     """``sum_k p[..., k] * M[..., k, :, :]``: the role average of
-    per-role matrix messages."""
-    return torch.einsum("...kij,...k->...ij", M, p)
+    per-role matrix messages, as the product p (..., 1, K) @ M (..., K, a*b)
+    (``linalg.product``): one GEMM where M is a parameter broadcast over the
+    data's axes, a broadcast product and a sum where M varies along them."""
+    avg = product(p.unsqueeze(-2), M.flatten(-2))
+    return avg.reshape(avg.shape[:-2] + M.shape[-2:])
 
 
 def bquad(X, W):
