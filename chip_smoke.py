@@ -296,8 +296,9 @@ prints no result:
 
 Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
 says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
-bound (BOUND_MS: bytes in once and out once over 3.35 TB/s, or FP32
-operations over 67 TFLOP/s, whichever is larger) and its share of it.
+bound (the benchmark's cardbench/work.py:bound_ms: bytes in once and out
+once over 3.35 TB/s, or FP32 operations over 67 TFLOP/s, whichever is
+larger) and its share of it.
 
 --baseline CSRC_DIR builds a second set of kernels from CSRC_DIR (an earlier
 version of pyvbmp_tpu_torch/csrc, e.g. unpacked with git archive into a
@@ -307,7 +308,7 @@ phase-11 scan shapes whose size the earlier kernels took (BASELINE_SIZES).
 With --baseline, MixLDS (phase 5's data and state) is also timed end to
 end with our lane kernel and the baseline's, in 12 alternating pairs.  --trace profiles 3
 sweeps of DMBD-Lorenz, of DMBD-Flocking on both routes and of MixLDS with
-the fold off and forced on (device busy time, kernel time by kind, wall
+the fold off and forced on (device busy time, kernel time by scan group, wall
 clock), of NLDS, dHMM and ARHMM, of DMBD-life, DMBD-artificial-life and
 GMM-core (3 iterations), of the three tensor HMMs, GMM_vector, LDS-core
 with the pad_X observation model and two moons, and of dMixture (phase 31),
@@ -332,6 +333,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from cardbench.work import bound_ms, group_of, scan_work, union_seconds
 
 CFG = dict(T=399, batch=100, obs_shape=(3, 2), role_dims=(1, 2, 1),
            hidden_dims=(2, 2, 2), sweeps=10, compare_sweeps=3, seed=0)
@@ -483,33 +486,8 @@ EXAMPLE_CUTS = {
 CALCIUM_CMP = dict(compare_sweeps=3, seed=0)
 SIM_TOL = 1e-6  # a simulator on the card against the same simulator on the CPU
 REL_TOL = 1e-4
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (dense FP32 below)
-FP32_FLOP_PER_S = 67e12
 L2_BYTES = 50 * 2**20  # H100 L2 cache
 SCAN_REPS = 50  # launches a scan kernel is timed over (scan_ms)
-
-
-def bound_ms(nbytes, flops):
-    """(least time in ms, what bounds it) for a function that must move
-    ``nbytes`` and do ``flops`` FP32 operations on one H100."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-
-
-def scan_work(name, T, size, N):
-    """(bytes, FP32 operations) of one inclusive scan of T elements on N
-    lanes: each element read once and each prefix written once, and one
-    combine per row after the first.  logsemiring: K^3 adds, exps and sums;
-    plane Kalman: Cholesky (2/3 H^3), 2H+1 solves ((2H+1) H^2), A'A, B'B,
-    A'B (6 H^3) and A'c, B'c, c'c; lane Kalman: the same on h <= 3."""
-    if name.startswith("logsemiring"):
-        floats, ops = size * size, 3 * size ** 3
-    else:
-        H = size
-        packed = name.startswith("kalman_lane")
-        floats = (H * (H + 1) + H * H if packed else 3 * H * H) + 2 * H + 1
-        ops = 2 * H ** 3 / 3 + (2 * H + 1) * H * H + 6 * H ** 3 + 4 * H * H + 2 * H
-    return 2 * 4 * T * N * floats, (T - 1) * N * ops
 
 
 def scatter_work(S, p, K):
@@ -553,15 +531,20 @@ def time_ms(fn, reps, warm=True):
 
 def build_baseline(csrc):
     """The kernels of another csrc directory, built as ours are (into a build
-    directory beside it; an entry point it lacks is left unbound) and bound
-    with the earlier scatter signature when the directory has it."""
+    directory beside it) and bound here: each entry point of
+    ``_cuda.SIGNATURES`` that the library has, with the earlier scatter
+    signature when the directory has it; one it lacks is left unbound."""
     import ctypes
 
     from pyvbmp_tpu_torch.ops import _cuda
 
     csrc = Path(csrc).resolve()
-    lib = _cuda.build(csrc, csrc.parent / "_build", strict=False)
+    lib = _cuda.build(csrc, csrc.parent / "_build")
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name, argtypes in _cuda.SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ci
     if "int group" not in (csrc / "weighted_outer.cu").read_text():
         lib.weighted_outer_f32.argtypes = [vp] * 4 + [ci] * 5 + [vp]
         lib.baseline_scatter_args = 5
@@ -3055,8 +3038,9 @@ def trace_sweeps(card, label, model, args, fit, fold, n=3):
     """Per sweep of ``model.update(*args, iters=n, **fit)`` under the time
     fold ``fold``: the untraced wall clock (median of 5 runs), then one
     traced run: device busy time (the union of kernel intervals), kernel
-    time by kind and the three largest other kernels by name, and host and
-    device event counts."""
+    time by scan group (the benchmark's ``cardbench/work.py:group_of``, fix-up
+    and folded kernels with their scan) and the three largest other kernels
+    by name, and host and device event counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3077,20 +3061,10 @@ def trace_sweeps(card, label, model, args, fit, fold, n=3):
     if not kernels:
         print(f"trace {label}: the profiler saw no device events; card {card}")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo, hi = busy + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    busy += hi - lo
+    busy = union_seconds((e.time_range.start, e.time_range.end) for e in kernels)
     kinds, others = {}, {}
     for e in kernels:
-        kind = next((k for k in ("kalman_plane_scan_kernel", "kalman_plane_fixup_kernel",
-                                 "logsemiring", "kalman_lane_scan_kernel",
-                                 "kalman_lane_fixup_kernel", "weighted_outer")
-                     if k in e.name), "other")
+        kind = group_of(e.name) or "other"
         span = e.time_range.end - e.time_range.start
         kinds[kind] = kinds.get(kind, 0.0) + span
         if kind == "other":

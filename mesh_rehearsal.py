@@ -3,7 +3,7 @@
 NLDS under data_parallel_update on four gloo ranks of the CPU, in float32,
 at the leg's widths, data and states.
 
-    python3 pyvbmp_tpu_torch/probes/mesh_rehearsal.py
+    python3 mesh_rehearsal.py
 
 Needs no card.  For each model of leg (h) it prints, on rank 0, the
 collectives' bytes and elements a sweep by tag, whether every rank ends
@@ -15,7 +15,6 @@ the CPU's and say nothing of the card's.
 from __future__ import annotations
 
 import datetime
-import sys
 import tempfile
 from pathlib import Path
 
@@ -24,10 +23,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-ROOT = Path(__file__).resolve().parents[2]
-sys.path.insert(0, str(ROOT))
-
-import chip_smoke as cs  # noqa: E402
+import chip_smoke as cs
 
 WORLD = 4
 LEGS = [leg for leg in cs.MESH_LEGS if leg.startswith("h_")]

@@ -53,25 +53,21 @@ SIGNATURES = {
 }
 
 
-def _bind(lib, strict=True):
-    """Declare each entry point's argument types (``SIGNATURES``).  An entry
-    point the library lacks raises, unless not ``strict`` (a baseline built
-    from an earlier csrc), where it is left unbound."""
+def _bind(lib):
+    """Declare each entry point's argument types (``SIGNATURES``); an entry
+    point the library lacks raises."""
     for name, argtypes in SIGNATURES.items():
-        if not strict and not hasattr(lib, name):
-            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _ci
 
 
-def build(csrc_dir, build_dir, strict=True):
+def build(csrc_dir, build_dir):
     """Build (once per hash of the sources and the ``*.cuh`` headers they
     include) every ``*.cu`` of ``csrc_dir`` into one shared library under
-    ``build_dir`` and load it; returns the bound ``ctypes.CDLL``
-    (``strict``: see ``_bind``).  The compiler's report (registers, spills)
-    is kept beside the library as ``<name>.log``, with each source's
-    compile time."""
+    ``build_dir`` and load it; returns the ``ctypes.CDLL``, unbound.  The
+    compiler's report (registers, spills) is kept beside the library as
+    ``<name>.log``, with each source's compile time."""
     sources = sorted(Path(csrc_dir).glob("*.cu"))
     headers = sorted(Path(csrc_dir).glob("*.cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -112,9 +108,7 @@ def build(csrc_dir, build_dir, strict=True):
                 "building the CUDA kernels failed:\n" + "".join(logs)[-4000:]
             )
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _bind(lib, strict)
-    return lib
+    return ctypes.CDLL(str(so))
 
 
 def load_library():
@@ -122,5 +116,7 @@ def load_library():
     loaded once per process."""
     global _library
     if _library is None:
-        _library = build(CSRC_DIR, BUILD_DIR)
+        lib = build(CSRC_DIR, BUILD_DIR)
+        _bind(lib)
+        _library = lib
     return _library

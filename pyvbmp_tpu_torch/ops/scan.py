@@ -27,9 +27,9 @@ chunk totals; (3) one combine of each chunk's carry-in with each of its
 rows.  "1" folds every scan that can be cut into chunks of >= 2 rows, "0"
 (the default, as in the JAX package) none.  A lane scan folds only under
 "1": the JAX package's automatic dispatch never sends a lane-layout scan at
-small N to the Pallas kernel.  The switch and thresholds are read from the
-JAX package's environment variables once, into module attributes that a
-caller (or a test) may set.
+small N to the Pallas kernel.  The switch and thresholds are module
+attributes that a caller (or a test) may set.  Only the switch is read from
+the environment, from the JAX package's ``PYVBMP_PALLAS_TIME_FOLD``, once.
 
 Dispatch is by the device of the input: a CPU tensor goes through the plain
 version (a sequential fold of the combine; folded, the three phases above in
@@ -63,9 +63,9 @@ LOGSEMIRING_SIZES = range(1, 2**31)
 PLANE_MAX_H = 32
 
 TIME_FOLD = os.environ.get("PYVBMP_PALLAS_TIME_FOLD", "0")
-TIME_FOLD_MAX_N = int(os.environ.get("PYVBMP_PALLAS_TIME_FOLD_MAX_N", "256"))
-TIME_FOLD_MIN_T = int(os.environ.get("PYVBMP_PALLAS_TIME_FOLD_MIN_T", "96"))
-TIME_FOLD_CP = int(os.environ.get("PYVBMP_PALLAS_TIME_FOLD_CP", "8"))
+TIME_FOLD_MAX_N = 256
+TIME_FOLD_MIN_T = 96
+TIME_FOLD_CP = 8
 
 
 def _time_fold_cp(T, N):
