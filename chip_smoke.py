@@ -76,7 +76,13 @@ prints no result:
    L=19), forward and reverse, against their plain versions (max relative
    error <= 1e-4), and the folded lane kernel at the MixLDS shape (Cp=4,
    L=25) at H = 1, 2, 3; kernel, folded-scan (all three phases) and plain
-   times;
+   times; then the plane Kalman kernel at the benchmark's Flocking cells'
+   latent chains (H=26 on rung 32: T=1200 N=4 and T=150 N=20) folded under
+   the card's plan (scan.plane_plan from the card's SM count), forward and
+   reverse, against the one-pass kernel and the plain version (max relative
+   error <= 1e-4): the folded and one-pass times (scan_ms) and the folded
+   route's device ms by kernel, phase 1 and the fused phases 2-3, with
+   their shares;
 12. DMBD on Flocking (benchmarks/flocking_bench.py:19: T=150, batch=20, 12
    birds x 4 channels, role_dims (2,2,2), hidden_dims (2,2,2), three
    objects: K = H = 14) in float32 on the card, update(y, iters=10,
@@ -88,9 +94,17 @@ prints no result:
    weighted_outer 0; either way the SPD inverse 14 a sweep; no plain
    version); particular_assignment() is (T,
    batch, 12) with values in 0..3.  The two ELBO trajectories agree within
-   relative 1e-4;
+   relative 1e-4.  Then the same data at the benchmark cells' widths (six
+   objects: K = H = 26), fold "0", from one numpy state twice: the card's
+   plan (2 folded plane Kalman launches a sweep, 0 one-pass; 2 one-pass
+   logsemiring), then the plane scan held to one pass
+   (scan.PLANE_FOLD_MIN_L past T; 2 one-pass plane launches a sweep): sweeps/s,
+   the ELBO finite and ending above where it started, the two trajectories
+   within relative 1e-4;
 13. the same state and data for 3 sweeps on the card (float32, fold on) and
    on the CPU (float64, fold off): ELBO trajectories within relative 1e-4;
+   and the same at K = H = 26 with the card at fold "0" (2 folded plane and
+   2 one-pass logsemiring launches a sweep);
 14. MixLDS (phase 5's data and state) for 3 sweeps with the fold off, then
    forced on ("1", the only switch that folds a lane scan): the one-pass,
    then the folded lane kernel ran 2 x sweeps times, every other kernel 0
@@ -294,8 +308,10 @@ prints no result:
    version's time and one cholesky_ex + cholesky_inverse call's on a
    contiguous dense copy (the library yardstick); it runs before phase 39.
 
-Phases 1-10 run with the time fold off, whatever PYVBMP_PALLAS_TIME_FOLD
-says; phases 11-14 set it themselves.  Phases 2, 7 and 11 print each kernel's
+Phases 1-10 run with the time fold at "0", whatever PYVBMP_PALLAS_TIME_FOLD
+says (the card's plan folds none of their scans: no plane scan of theirs
+has H >= 15), so "fold off" below means "0"; phases 11-14 set it
+themselves.  Phases 2, 7 and 11 print each kernel's
 bound (the benchmark's cardbench/work.py:bound_ms: bytes in once and out
 once over 3.35 TB/s, or FP32 operations over 67 TFLOP/s, whichever is
 larger) and its share of it.
@@ -484,6 +500,13 @@ EXAMPLE_CUTS = {
                                 "comparison follows"),
 }
 CALCIUM_CMP = dict(compare_sweeps=3, seed=0)
+# the benchmark's Flocking cells (cardbench/configs/dmbd-flocking.json: 6
+# objects, so K = H = 26 on the rung-32 kernels), their latent chains as (T,
+# lanes): phase 11 times the plane scan there under scan.plane_plan, phases
+# 12 and 13 fit FLOCK's data at those widths
+FLOCK_WIDE = dict(FLOCK, number_of_objects=6)
+FLOCK_CELLS = ((1200, 4), (150, 20))
+FLOCK_CELL_H = 26
 SIM_TOL = 1e-6  # a simulator on the card against the same simulator on the CPU
 REL_TOL = 1e-4
 L2_BYTES = 50 * 2**20  # H100 L2 cache
@@ -589,9 +612,10 @@ def in_turns(ours, theirs, reps, clock=time_ms):
     return (o1 + o2) / 2, (b1 + b2) / 2
 
 
-def scan_launches(s, leaves, reverse, folded=False, reps=SCAN_REPS):
+def scan_launches(s, leaves, reverse, folded=False, reps=SCAN_REPS, plan=None):
     """lib -> a call that launches scan ``s``'s kernel (its time fold when
-    ``folded``: both CUDA kernels) through ``lib``'s C entry point with
+    ``folded``: both CUDA kernels, into ``plan``'s (Cp, L), the JAX
+    package's fold_shape where None) through ``lib``'s C entry point with
     Scan.launch's arguments.  Each call reads and writes its own copy of
     the inputs and outputs, rotating over enough copies that those of a
     call have left the L2 before they come round again (every shape whose
@@ -599,7 +623,7 @@ def scan_launches(s, leaves, reverse, folded=False, reps=SCAN_REPS):
     from pyvbmp_tpu_torch.ops import scan
 
     T, size, N = s.check(leaves)
-    args = scan.fold_args(T, N, reverse) if folded else dict(chunks=1, L=T, offset=0)
+    args = scan.fold_args(T, N, reverse, plan) if folded else dict(chunks=1, L=T, offset=0)
     C = args["chunks"]
     nbytes = 2 * 4 * sum(x.numel() for x in leaves)
     sets = min(reps, -(-4 * L2_BYTES // nbytes))
@@ -624,13 +648,13 @@ def scan_launches(s, leaves, reverse, folded=False, reps=SCAN_REPS):
     return launches
 
 
-def scan_ms(s, leaves, reverse, folded=False, base=None, reps=SCAN_REPS):
+def scan_ms(s, leaves, reverse, folded=False, base=None, reps=SCAN_REPS, plan=None):
     """(our ms, baseline ms or None): one launch of scan ``s``'s kernel
     (scan_launches) by graph_ms over ``reps`` launches, from our library
     and, in turns, from a baseline library."""
     from pyvbmp_tpu_torch.ops import _cuda
 
-    launches = scan_launches(s, leaves, reverse, folded, reps)
+    launches = scan_launches(s, leaves, reverse, folded, reps, plan)
     ours = launches(_cuda.load_library())
     if base is None:
         return graph_ms(ours, reps), None
@@ -663,10 +687,9 @@ def baseline_scatter(lib, X, W):
     return out
 
 
-def device_ms(fn, reps=10):
-    """Device time of one ``fn()`` in ms: the sum of its kernels' durations
-    in a profiler trace of ``reps`` calls (free of the host's dispatch time,
-    which sets the event-timed figure for a call this short)."""
+def kernel_ms(fn, reps=10):
+    """{kernel name: device ms a call of ``fn``} from a profiler trace of
+    ``reps`` calls, names cut at the template's bracket."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -676,9 +699,20 @@ def device_ms(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    return sum(spans) / reps / 1e3 if spans else float("nan")
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("<")[0].split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / reps / 1e3
+    return out
+
+
+def device_ms(fn, reps=10):
+    """Device time of one ``fn()`` in ms: the sum of its kernels' durations
+    in a profiler trace of ``reps`` calls (free of the host's dispatch time,
+    which sets the event-timed figure for a call this short)."""
+    by_kernel = kernel_ms(fn, reps)
+    return sum(by_kernel.values()) if by_kernel else float("nan")
 
 
 def share(ms, bound):
@@ -1397,7 +1431,51 @@ def phase_fold_kernels(card, base=None):
                 rec["abs"] = max(rec["abs"], abs_err)
                 if not reverse and ("Flocking" in label or "MixLDS" in label):
                     rec["ms"], rec["plain_ms"], rec["bound"] = ms, plain_ms, bound
+    phase_plane_plan(card)
     return folded, one_pass
+
+
+def phase_plane_plan(card):
+    """Phase 11's rung-32 rows: the plane Kalman kernel at the Flocking
+    cells' latent chains (FLOCK_CELLS), folded under the card's plan
+    (scan.plane_plan) and in one pass, forward and reverse: the folded
+    kernel against the one-pass kernel and the plain version (max relative
+    error <= 1e-4), each route's time (scan_ms) and share of its bound, and
+    the folded route's device ms by kernel: phase 1 and the fused phases
+    2-3."""
+    from pyvbmp_tpu_torch.ops import _cuda, scan
+
+    s, H = scan.KALMAN_PLANE, FLOCK_CELL_H
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rs = np.random.RandomState(FLOCK["seed"] + 1)
+    for T, N in FLOCK_CELLS:
+        plan = scan.plane_plan(T, H, N, sms)
+        if plan is None:
+            fail(f"plane_plan({T}, {H}, {N}, {sms}) plans no fold at a Flocking cell")
+        leaves = tuple(torch.as_tensor(a, dtype=torch.float32).contiguous().cuda()
+                       for a in kalman_elems(rs, T, H, N))
+        bound = bound_ms(*scan_work(s.name, T, H, N))
+        label = f"H={H} T={T} N={N} (Flocking cell; {sms} SMs: Cp={plan[0]}, L={plan[1]})"
+        for reverse in (False, True):
+            out = s.folded.kernel(leaves, reverse, plan=plan)
+            one = s.kernel(leaves, reverse)
+            ref = s.plain(leaves, reverse)
+            err_one = max(rel_err(o, r)[0] for o, r in zip(out, one))
+            err = max(rel_err(o, r)[0] for o, r in zip(out, ref))
+            ms, _ = scan_ms(s, leaves, reverse, True, plan=plan)
+            one_ms, _ = scan_ms(s, leaves, reverse)
+            by = kernel_ms(scan_launches(s, leaves, reverse, True, plan=plan)(
+                _cuda.load_library()))
+            p1 = sum(v for k, v in by.items() if "kalman_plane_scan_kernel" in k)
+            p23 = sum(v for k, v in by.items() if "kalman_plane_fixup_kernel" in k)
+            print(f"phase 11 {s.folded.name} {label} {'reverse' if reverse else 'forward'}: "
+                  f"max rel err {err:.3e} (against the one-pass kernel {err_one:.3e}); folded "
+                  f"scan {ms:.4f} ms, {share(ms, bound)}; one pass {one_ms:.4f} ms, "
+                  f"{share(one_ms, bound)}; device: phase 1 {p1:.4f} ms, phases 2-3 "
+                  f"{p23:.4f} ms ({100 * p23 / max(p1 + p23, 1e-12):.1f}%); card {card}")
+            if not max(err, err_one) <= REL_TOL:
+                fail(f"{s.folded.name} {label}: the planned fold disagrees ({err:.3e}, "
+                     f"{err_one:.3e})")
 
 
 def flocking_data(dtype, device):
@@ -1408,13 +1486,13 @@ def flocking_data(dtype, device):
     return y.to(device=device, dtype=dtype)
 
 
-def flocking_state(seed):
+def flocking_state(seed, cfg=FLOCK):
     from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
     from pyvbmp_tpu_torch.utils.convert import dmbd_state
 
     return dmbd_state(DynamicMarkovBlanketDiscovery(
-        obs_shape=(FLOCK["n_birds"], FLOCK["obs_dim"]), role_dims=FLOCK["role_dims"],
-        hidden_dims=FLOCK["hidden_dims"], number_of_objects=FLOCK["number_of_objects"],
+        obs_shape=(cfg["n_birds"], cfg["obs_dim"]), role_dims=cfg["role_dims"],
+        hidden_dims=cfg["hidden_dims"], number_of_objects=cfg["number_of_objects"],
         parallel_scan=True, generator=torch.Generator().manual_seed(seed),
         dtype=torch.float64,
     ))
@@ -1477,7 +1555,72 @@ def phase_flocking(card):
     print(f"  fold on vs off: max rel ELBO dev {dev:.3e}")
     if not dev <= REL_TOL:
         fail(f"Flocking: the fold changes the ELBO trajectory by {dev:.3e}")
+    launches_by_route["wide"] = phase_flocking_wide(card, y)
     return launches_by_route
+
+
+@contextlib.contextmanager
+def plane_one_pass():
+    """The card's plan of the plane scan (scan.plane_plan) held to one pass
+    for the block: no chain holds two of its shortest chunks."""
+    from pyvbmp_tpu_torch.ops import scan
+
+    old, scan.PLANE_FOLD_MIN_L = scan.PLANE_FOLD_MIN_L, 2**31
+    try:
+        yield
+    finally:
+        scan.PLANE_FOLD_MIN_L = old
+
+
+def phase_flocking_wide(card, y):
+    """Phase 12 at the benchmark cells' widths (FLOCK_WIDE: 6 objects, K = H
+    = 26) on phase 12's data, the time fold at its default "0": the card's
+    plan folds the plane scan (2 folded launches a sweep, 0 one-pass), the
+    logsemiring scan runs one pass; then the same state with the plane scan
+    held to one pass, whose ELBO trajectory the folded one follows within
+    relative 1e-4.  Returns the planned run's launches."""
+    from pyvbmp_tpu_torch.utils.convert import dmbd_from_state
+
+    state = flocking_state(FLOCK_WIDE["seed"], FLOCK_WIDE)
+    sweeps = FLOCK_WIDE["sweeps"]
+    fit = dict(iters=sweeps, latent_iters=1, lr=1.0)
+    zero = {"kalman_lane_scan": 0, "kalman_lane_scan_folded": 0, "weighted_outer": 0,
+            "logsemiring_scan_folded": 0, "logsemiring_scan": 2 * sweeps,
+            "spd_inverse": SPD_PER_SWEEP * sweeps}
+    want = {"planned": {"kalman_plane_scan": 0, "kalman_plane_scan_folded": 2 * sweeps, **zero},
+            "one pass": {"kalman_plane_scan": 2 * sweeps, "kalman_plane_scan_folded": 0,
+                         **zero}}
+    elbos, out = {}, None
+    for route in ("planned", "one pass"):
+        with time_fold("0"), (plane_one_pass() if route == "one pass"
+                              else contextlib.nullcontext()):
+            dmbd_from_state(state, device="cuda", dtype=torch.float32).update(
+                y, iters=1, latent_iters=1, lr=1.0)
+            model = dmbd_from_state(state, device="cuda", dtype=torch.float32)
+            reset_counts()
+            t0 = time.perf_counter()
+            model.update(y, **fit)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches, plain = read_counts()
+        elbo = np.asarray(model.ELBO_save, np.float64)
+        print(f"phase 12 DMBD-Flocking T={FLOCK['T']} batch={FLOCK['batch']} "
+              f"objects={FLOCK_WIDE['number_of_objects']} (K=H=26), time fold 0, plane scan "
+              f"{route}, {sweeps} sweeps: {sweeps / dt:.3f} sweeps/s ({dt:.3f} s); card {card}")
+        print(f"  ELBO {elbo[0]:.6e} -> {elbo[-1]:.6e}; steps {np.diff(elbo).tolist()}")
+        if not np.isfinite(elbo).all():
+            fail(f"Flocking K=H=26 ({route}): ELBO not finite")
+        if not elbo[-1] > elbo[0]:
+            fail(f"Flocking K=H=26 ({route}): the ELBO ends below where it started")
+        check_launches(f"Flocking K=H=26 ({route})", launches, plain, want[route])
+        check_products(f"Flocking K=H=26 ({route})", sweeps)
+        elbos[route] = elbo
+        out = launches if route == "planned" else out
+    dev = (np.abs(elbos["planned"] - elbos["one pass"]) / np.abs(elbos["one pass"])).max()
+    print(f"  planned fold vs one pass: max rel ELBO dev {dev:.3e}")
+    if not dev <= REL_TOL:
+        fail(f"Flocking K=H=26: the planned fold changes the ELBO trajectory by {dev:.3e}")
+    return out
 
 
 def phase_flocking_compare(card):
@@ -1486,6 +1629,14 @@ def phase_flocking_compare(card):
     compare_card_cpu("phase 13 DMBD-Flocking (card: fold on)", dmbd_from_state,
                      flocking_state(FLOCK["seed"] + 1), (flocking_data(torch.float64, "cpu"),),
                      FLOCK["compare_sweeps"], card, card_fold="auto")
+    _, launches, plain, _ = compare_card_cpu(
+        "phase 13 DMBD-Flocking K=H=26 (card: fold 0, the card's plan)", dmbd_from_state,
+        flocking_state(FLOCK_WIDE["seed"] + 1, FLOCK_WIDE),
+        (flocking_data(torch.float64, "cpu"),), FLOCK_WIDE["compare_sweeps"], card)
+    n = FLOCK_WIDE["compare_sweeps"]
+    check_launches("Flocking K=H=26 (card vs CPU)", launches, plain, {
+        "logsemiring_scan": 2 * n, "kalman_plane_scan": 0, "kalman_plane_scan_folded": 2 * n,
+        "logsemiring_scan_folded": 0})
 
 
 def phase_mixlds_folded(card):
@@ -3933,6 +4084,7 @@ def main():
         kernels.append(record_line(
             s.name, s.source, s.replaces,
             launches_dmbd[s.name] + launches_mix[s.name] + launches_flock["0"][s.name]
+            + launches_flock["wide"][s.name]
             + launches_hmm[s.name] + launches_cradle[s.name] + launches_flame[s.name]
             + launches_nlds[s.name] + launches_dhmm[s.name] + launches_arhmm[s.name]
             + launches_life[s.name] + launches_alife[s.name] + launches_unique[s.name]
@@ -3942,7 +4094,8 @@ def main():
     for s in scan.FOLDED_SCANS:
         kernels.append(record_line(
             s.name, s.source, s.replaces,
-            launches_flock["auto"][s.name] + launches_mix_folded[s.name],
+            launches_flock["auto"][s.name] + launches_flock["wide"][s.name]
+            + launches_mix_folded[s.name],
             folded[s.name]["abs"], folded[s.name]))
     w = ws.WEIGHTED_OUTER
     kernels.append(record_line(w.name, w.source, w.replaces,

@@ -18,18 +18,30 @@ identity element, in chain order:
   packed by components (``ops/smallmat.py``), the combine is
   ``parallel_kalman._combine_lane`` (the latent chain, h <= 3).
 
-Time fold (pyvbmp_tpu/ops/pallas_scan.py:80-101, 477-585): with
-``TIME_FOLD`` = "auto" a scan of T >= ``TIME_FOLD_MIN_T`` rows over
-N <= ``TIME_FOLD_MAX_N`` lanes is cut into Cp = ``_time_fold_cp(T, N)``
-chunks of L = ceil(T / Cp) rows and run as a three-phase block scan: (1) the
-in-chunk scans, the chunks as a batch axis; (2) an exclusive scan of the
-chunk totals; (3) one combine of each chunk's carry-in with each of its
-rows.  "1" folds every scan that can be cut into chunks of >= 2 rows, "0"
-(the default, as in the JAX package) none.  A lane scan folds only under
-"1": the JAX package's automatic dispatch never sends a lane-layout scan at
-small N to the Pallas kernel.  The switch and thresholds are module
-attributes that a caller (or a test) may set.  Only the switch is read from
-the environment, from the JAX package's ``PYVBMP_PALLAS_TIME_FOLD``, once.
+Time fold (pyvbmp_tpu/ops/pallas_scan.py:80-101, 477-585): a scan cut into
+Cp chunks of L = ceil(T / Cp) rows runs as a three-phase block scan: (1)
+the in-chunk scans, the chunks as a batch axis; (2) an exclusive scan of
+the chunk totals; (3) one combine of each chunk's carry-in with each of its
+rows.  Which scans fold is set by ``TIME_FOLD``, read once from the JAX
+package's ``PYVBMP_PALLAS_TIME_FOLD``:
+
+- "0" (the default): the card's plan.  A plane Kalman scan on a CUDA
+  tensor folds where ``plane_plan(T, H, N, sms)`` plans it: at the rungs
+  where one lane's combine fills a block, on lanes that leave more than
+  half of the card's SMs idle, into as many chunks as the card and the
+  chain's length call for.  Every other scan, and every scan on a CPU
+  tensor, runs one pass.
+- "auto": the JAX package's plan.  A scan of T >= ``TIME_FOLD_MIN_T``
+  rows over N <= ``TIME_FOLD_MAX_N`` lanes is cut into Cp =
+  ``_time_fold_cp(T, N)`` chunks, on either device.  A lane scan does not
+  fold: the JAX package's automatic dispatch never sends a lane-layout
+  scan at small N to the Pallas kernel.
+- "1": the JAX package's plan for every scan that can be cut into chunks
+  of >= 2 rows, the lane scan too.
+
+The switch and the thresholds are module attributes that a caller (or a
+test) may set.  ``Scan.launch(..., chunks=1)`` runs one pass whatever the
+switch says.
 
 Dispatch is by the device of the input: a CPU tensor goes through the plain
 version (a sequential fold of the combine; folded, the three phases above in
@@ -37,7 +49,8 @@ torch ops, with the JAX package's duplicate-edge padding), a CUDA tensor
 launches the kernel and raises on anything the kernel does not take.  There
 is no fallback from one to the other.  A folded kernel launch runs two CUDA
 kernels: phase 1, then phases 2-3 fused; it counts once, on the scan's
-``folded`` counter.
+``folded`` counter, under the span ``scan.<name>_folded`` with the chunk
+count as its args (``{"chunks": Cp}``).
 
 The kernels are built and loaded by ``ops/_cuda.py``.
 
@@ -49,6 +62,8 @@ from ``parallel/seq_parallel.py``.
 """
 from __future__ import annotations
 
+import functools
+import math
 import os
 
 import torch
@@ -66,6 +81,13 @@ TIME_FOLD = os.environ.get("PYVBMP_PALLAS_TIME_FOLD", "0")
 TIME_FOLD_MAX_N = 256
 TIME_FOLD_MIN_T = 96
 TIME_FOLD_CP = 8
+
+# The plane Kalman kernel's rungs (csrc/kalman_plane_scan.cu): potentials of
+# size h run at the first rung >= h.
+PLANE_RUNGS = (4, 6, 8, 10, 12, 14, 16, 24, 32)
+# plane_plan's shortest chunk: the fastest of a card sweep at T = 64 (PERF.md
+# section 6).
+PLANE_FOLD_MIN_L = 8
 
 
 def _time_fold_cp(T, N):
@@ -97,13 +119,56 @@ def fold_shape(T, N):
     return Cp, L
 
 
-def fold_args(T, N, reverse):
-    """The folded kernels' launch arguments (``Scan.launch``): chunks, L and
-    offset, chunk c holding rows [c L + offset, (c + 1) L + offset) clipped
-    to [0, T).  In reverse the chunks sit C L - T rows to the left, so the
-    one short chunk is the last in chain order, whose total no other chunk
-    needs."""
-    Cp, L = fold_shape(T, N)
+def plane_rung(h):
+    """The rung the plane Kalman kernel runs potentials of size h at (None
+    past the widest, a size the kernel refuses)."""
+    return next((H for H in PLANE_RUNGS if H >= h), None)
+
+
+def plane_plan(T, H, N, sms):
+    """(Cp, L) of the card's time fold of a plane Kalman scan of T rows of
+    size H over N lanes on a card of ``sms`` SMs, or None for one pass.
+
+    It folds only where one lane's combine fills a block (its rung's 2 H + 1
+    right-hand sides outnumber a warp's threads, from rung 16 on:
+    csrc/kalman_plane_scan.cuh:kLanes) and the N lane blocks leave more
+    than half of the SMs idle, into
+
+        Cp = min(sms // N, T // PLANE_FOLD_MIN_L, isqrt(5 T / 4))
+
+    chunks, then the fewest chunks of L = ceil(T / Cp) rows that hold T, so
+    that every chunk is non-empty (fold_shape's rule).  sms // N keeps the
+    fix-up's N Cp blocks in one wave (one a SM at rung 32).  The cap
+    balances the two serial walks: the last chunk's in-chunk scan of L rows,
+    then its fix-up, which folds the Cp - 2 totals before it in series and
+    combines the carry-in with L / 4 rows a warp; L + Cp + L / 4 is least
+    at Cp = sqrt(5 T / 4)."""
+    rung = plane_rung(H)
+    if rung is None or 2 * rung + 1 <= 32 or 2 * N >= sms:
+        return None
+    Cp = min(sms // N, T // PLANE_FOLD_MIN_L, math.isqrt(5 * T // 4))
+    if Cp < 2:
+        return None
+    L = -(-T // Cp)
+    return -(-T // L), L
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    """The SM count of CUDA device ``index`` (None: the current one), read
+    once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fold_args(T, N, reverse, plan=None):
+    """The folded kernels' launch arguments (``Scan.launch``) for the plan
+    (Cp, L), ``fold_shape(T, N)`` where None: chunks, L and offset, chunk c
+    holding rows [c L + offset, (c + 1) L + offset) clipped to [0, T).  In
+    reverse the chunks sit C L - T rows to the left, so the one short chunk
+    is the last in chain order, whose total no other chunk needs."""
+    Cp, L = fold_shape(T, N) if plan is None else plan
+    if Cp < 2 or L < 1 or not 0 <= Cp * L - T < L:
+        raise ValueError(f"no fold of T={T} into {Cp} non-empty chunks of {L} rows")
     return dict(chunks=Cp, L=L, offset=T - Cp * L if reverse else 0)
 
 
@@ -152,7 +217,7 @@ class Scan:
     ``plain_calls`` counts runs of the one-pass plain version."""
 
     def __init__(self, name, symbol, source, replaces, sizes, combine,
-                 leaf_shapes, size_of, fold_auto=True):
+                 leaf_shapes, size_of, fold_auto=True, card_plan=None):
         self.name = name
         self.span_name = "scan." + name  # the span its calls open (utils/trace.py)
         self.symbol = symbol
@@ -163,12 +228,19 @@ class Scan:
         self.leaf_shapes = leaf_shapes  # (T, size, N) -> shape of each leaf
         self.size_of = size_of  # leaves -> K or H
         self.fold_auto = fold_auto  # whether TIME_FOLD="auto" may fold it
+        self.card_plan = card_plan  # (T, size, N, sms) -> plan under TIME_FOLD="0"
         self.launches = 0
         self.plain_calls = 0
         self.folded = FoldedScan(self)
 
-    def fold_plan(self, T, N):
-        """(Cp, L) when the time-fold switch folds this scan, else None."""
+    def fold_plan(self, T, N, size=None, device=None):
+        """(Cp, L) when the time-fold switch folds this scan of T rows of
+        ``size`` over N lanes on ``device``, else None.  Under "0" only a
+        scan with a ``card_plan`` folds, and only on a CUDA device."""
+        if TIME_FOLD == "0":
+            if self.card_plan is None or device is None or device.type != "cuda":
+                return None
+            return self.card_plan(T, size, N, _sm_count(device.index))
         if TIME_FOLD == "auto" and not self.fold_auto:
             return None
         if not _time_fold_ok(None, T, N):
@@ -176,14 +248,18 @@ class Scan:
         return fold_shape(T, N)
 
     def __call__(self, leaves, reverse=False):
-        folded = self.fold_plan(leaves[0].shape[0], leaves[0].shape[-1]) is not None
-        route = self.folded if folded else self
         device = leaves[0].device
-        with span(route.span_name):
+        plan = self.fold_plan(leaves[0].shape[0], leaves[0].shape[-1], self.size_of(leaves),
+                              device)
+        if plan is None:
+            route, how, args = self, {}, None
+        else:
+            route, how, args = self.folded, {"plan": plan}, {"chunks": plan[0]}
+        with span(route.span_name, args):
             if device.type == "cpu":
-                return route.plain(leaves, reverse)
+                return route.plain(leaves, reverse, **how)
             if device.type == "cuda":
-                return route.kernel(leaves, reverse)
+                return route.kernel(leaves, reverse, **how)
         raise ValueError(f"{route.name}: no version for device {device}")
 
     def plain(self, leaves, reverse=False):
@@ -258,14 +334,18 @@ class FoldedScan:
         self.launches = 0
         self.plain_calls = 0
 
-    def shape(self, leaves):
+    def shape(self, leaves, plan=None):
+        """The plan (Cp, L), the JAX package's ``fold_shape`` where None;
+        raises where it does not cut T rows into non-empty chunks."""
         T, N = leaves[0].shape[0], leaves[0].shape[-1]
-        plan = fold_shape(T, N)
         if plan is None:
-            raise ValueError(f"{self.name}: T={T} cannot be folded into chunks")
+            plan = fold_shape(T, N)
+            if plan is None:
+                raise ValueError(f"{self.name}: T={T} cannot be folded into chunks")
+        fold_args(T, N, False, plan)  # raises on a plan with an empty chunk
         return plan
 
-    def plain(self, leaves, reverse=False):
+    def plain(self, leaves, reverse=False, plan=None):
         """The three phases in torch ops, as _time_folded_scan runs them.
         Time is padded to Cp L rows with copies of the edge element (the
         last row forward; the first row in reverse, where the JAX package
@@ -273,7 +353,7 @@ class FoldedScan:
         self.plain_calls += 1
         combine = self.scan.combine
         T = leaves[0].shape[0]
-        Cp, L = self.shape(leaves)
+        Cp, L = self.shape(leaves, plan)
         pad = Cp * L - T
 
         def padded(x):
@@ -301,10 +381,10 @@ class FoldedScan:
         out = [x.transpose(0, 1).reshape((Cp * L,) + x.shape[2:]) for x in local]
         return [x[pad:] if reverse else x[:T] for x in out]
 
-    def kernel(self, leaves, reverse=False):
-        self.shape(leaves)  # raises where T cannot be folded
-        out = self.scan.launch(leaves, reverse,
-                               **fold_args(leaves[0].shape[0], leaves[0].shape[-1], reverse))
+    def kernel(self, leaves, reverse=False, plan=None):
+        T, N = leaves[0].shape[0], leaves[0].shape[-1]
+        plan = self.shape(leaves, plan)  # raises where T cannot be folded
+        out = self.scan.launch(leaves, reverse, **fold_args(T, N, reverse, plan))
         self.launches += 1
         return out
 
@@ -328,6 +408,7 @@ KALMAN_PLANE = Scan(
     combine=_combine_plane,
     leaf_shapes=lambda T, H, N: [(T, H, H, N)] * 3 + [(T, H, N)] * 2 + [(T, N)],
     size_of=lambda leaves: leaves[0].shape[1],
+    card_plan=plane_plan,
 )
 KALMAN_LANE = Scan(
     "kalman_lane_scan",

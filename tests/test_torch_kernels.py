@@ -137,6 +137,30 @@ def test_folded_kernel_matches_folded_plain(cuda, which, size, T, N, reverse):
         assert rel_err(o, r) <= TOL
 
 
+# the plane Kalman scan through its dispatch at the default fold "0", which
+# folds it under the card's plan (scan.plane_plan from the card's SM count),
+# against the one-pass kernel: the benchmark's Flocking latent chains (H = 26
+# on rung 32) and the first and last rungs that plan folds, H = 16 and 32
+PLANE_PLAN_CASES = [(1200, 26, 4), (150, 26, 20), (300, 16, 8), (300, 32, 8)]
+
+
+@pytest.mark.parametrize("T,H,N", PLANE_PLAN_CASES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plane_kernel_under_plane_plan(cuda, T, H, N, reverse, monkeypatch):
+    monkeypatch.setattr(scan, "TIME_FOLD", "0")
+    s = scan.KALMAN_PLANE
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert scan.plane_plan(T, H, N, sms) is not None
+    leaves = kalman(np.random.RandomState(T + H + N), T, H, N, cuda)
+    launches, one_pass = s.folded.launches, s.launches
+    out = scan.kalman_plane_scan(leaves, reverse)
+    torch.cuda.synchronize()
+    assert s.folded.launches == launches + 1 and s.launches == one_pass
+    ref = s.launch(leaves, reverse, chunks=1)
+    for o, r in zip(out, ref):
+        assert rel_err(o, r) <= TOL
+
+
 # the warp-per-lane plane Kalman kernels at H=14: lane counts that are not a
 # multiple of the block's lanes, one and two rows, and folds with a short
 # chunk, each against the one-pass plain scan
@@ -270,6 +294,33 @@ def test_dmbd_flocking_sweep_launches_per_route(cuda, fold, monkeypatch):
     assert [c.plain_calls for c in counters] == plain
     assert np.isfinite(m.ELBO_save).all()
     assert m.particular_assignment().shape == (40, 3, 5)
+
+
+def test_dmbd_wide_flocking_sweep_folds_the_plane_scan(cuda, monkeypatch):
+    """Four objects (K = H = 18, the rung-32 kernels) at the default fold
+    "0": the card's plan folds the latent chain's two plane scans a sweep
+    and no one-pass plane scan runs; the role chain's two logsemiring scans
+    run one pass; never a plain scan."""
+    from pyvbmp_tpu_torch.models import DynamicMarkovBlanketDiscovery
+    from pyvbmp_tpu_torch.simulations import Flocking
+
+    monkeypatch.setattr(scan, "TIME_FOLD", "0")
+    T, batch = 64, 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert scan.plane_plan(T, 18, batch, sms) is not None
+    g = torch.Generator().manual_seed(0)
+    y = Flocking(n_birds=5, Tmax=T, batch_size=batch).simulate(g, torch.float32, device=cuda)
+    m = DynamicMarkovBlanketDiscovery(
+        (5, 4), (2, 2, 2), (2, 2, 2), number_of_objects=4, parallel_scan=True,
+        generator=g, dtype=torch.float32, device=cuda,
+    )
+    counters = [*scan.SCANS, *scan.FOLDED_SCANS]
+    before = [c.launches for c in counters]
+    plain = [c.plain_calls for c in counters]
+    m.update(y, iters=2)
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 0, 0, 0, 4, 0]
+    assert [c.plain_calls for c in counters] == plain
+    assert np.isfinite(m.ELBO_save).all()
 
 
 # the Newton's-cradle widths (K = 6, h = 6) and the Flame widths (K = 3,
