@@ -135,8 +135,9 @@ prints no result:
    (make_data(T=200, B=8): obs 3, two rotation regimes switching every 50
    steps; NLDS((3,), hidden_dim=2, mixture_dim=2)), fit(iters=30,
    restarts=6) in float32 on the card: sweeps/s, the segmentation accuracy
-   against the true regimes (max(acc, 1 - acc)), 2 lane Kalman launches a
-   sweep and no other kernel or plain version, the best restart's ELBO
+   against the true regimes (max(acc, 1 - acc)), 2 logsemiring and 2 lane
+   Kalman launches a sweep and no other kernel or plain version, the best
+   restart's ELBO
    rises; then 3 sweeps from one numpy state (q(s) included), card f32 vs
    CPU f64 within relative 1e-4;
 20. dHMM with parallel_scan=True at the HMM-core widths (phase 15's data,
@@ -255,7 +256,8 @@ prints no result:
    on the card at full width, at its own depth unless EXAMPLE_CUTS cuts it
    (printed with the reason): seconds, sweeps/s, first and last ELBO (the
    accuracy for two moons and NLDS), and launches: flocking 2 logsemiring
-   and 2 plane Kalman a sweep, NLDS 2 lane Kalman a sweep, the rest none;
+   and 2 plane Kalman a sweep, NLDS 2 logsemiring and 2 lane Kalman a
+   sweep, the rest none;
    then calcium's configuration (zero-width z blocks) card f32 vs CPU f64
    over 3 sweeps within relative 1e-4;
 39. the parallel layer (pyvbmp_tpu_torch/parallel), ranks started with
@@ -292,8 +294,9 @@ prints no result:
    one without (q(s) drawn at the whole batch's size): each within 1e-4 of
    its single-process card run, the parameter nodes equal on every rank
    after the call, the tensor HMMs' "reduce" elements a sweep the same at
-   batch 800 (one sweep), NLDS's 2 lane Kalman launches a sweep on every
-   rank at (200, 2, 2) and no plain scan, the tensor HMMs no kernel;
+   batch 800 (one sweep), NLDS's 2 logsemiring and 2 lane Kalman
+   launches a sweep on every rank, the lane scans at (200, 2, 2), and no
+   plain scan, the tensor HMMs no kernel;
 40. the batched SPD inverse (ops/spd_inverse.py, csrc/spd_inverse.cu) at
    the DMBD cells' shapes (SPD_SHAPES): the latent smoother's plane
    matrices (399, 6, 6, 100), (399, 6, 6, 1000), (150, 26, 26, 20) and
@@ -1984,10 +1987,7 @@ def phase_nlds(card):
         fail("NLDS ELBO not finite")
     if not elbo[-1] > elbo[0]:
         fail("NLDS: the best restart's ELBO did not rise")
-    check_launches("NLDS", launches, plain, {
-        "logsemiring_scan": 0, "kalman_plane_scan": 0, "kalman_lane_scan": 2 * sweeps,
-        "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
-        "kalman_lane_scan_folded": 0, "weighted_outer": 0})
+    check_launches("NLDS", launches, plain, per_sweep(NLDS_WANT, sweeps))
     if hard.shape != ztrue.shape:
         fail(f"NLDS assignment has shape {hard.shape}")
     start = nlds_model(torch.Generator().manual_seed(NLDS_EX["seed"] + 1), torch.float64,
@@ -1996,7 +1996,8 @@ def phase_nlds(card):
     n = NLDS_EX["compare_sweeps"]
     _, launches_cmp, plain_cmp, _ = compare_card_cpu(
         "phase 19 NLDS", nlds_from_state, nlds_state(start), (y64,), n, card)
-    check_launches("NLDS (card vs CPU)", launches_cmp, plain_cmp, {"kalman_lane_scan": 2 * n})
+    check_launches("NLDS (card vs CPU)", launches_cmp, plain_cmp,
+                   {"logsemiring_scan": 2 * n, "kalman_lane_scan": 2 * n})
     return launches
 
 
@@ -2474,6 +2475,8 @@ def lds_core_state0(seed):
 LANE_WANT = {"logsemiring_scan": 0, "kalman_plane_scan": 0, "kalman_lane_scan": 2,
              "logsemiring_scan_folded": 0, "kalman_plane_scan_folded": 0,
              "kalman_lane_scan_folded": 0, "weighted_outer": 0}
+# NLDS: q(x)'s lane Kalman pair and q(s)'s logsemiring pair on per-time elements
+NLDS_WANT = dict(LANE_WANT, logsemiring_scan=2)
 
 
 def phase_lds_obs(card):
@@ -3525,7 +3528,7 @@ def example_launch_want(name, sweeps):
     if name == "flocking_example":
         return per_sweep(SCAN_PAIR_WANT, sweeps)
     if name == "nlds_example":
-        return dict(NO_KERNEL, kalman_lane_scan=2 * sweeps)
+        return per_sweep(NLDS_WANT, sweeps)
     return NO_KERNEL
 
 
@@ -3540,8 +3543,8 @@ def phase_examples(card):
     and its own depth (cut where EXAMPLE_CUTS says, printed): seconds of
     main (data made and model built included), sweeps/s over them, the
     first and last ELBO (accuracy for two moons and NLDS), and launches:
-    flocking 2 logsemiring and 2 plane Kalman a sweep, NLDS 2 lane Kalman a
-    sweep, the rest none, and no plain version.  Then calcium's
+    flocking 2 logsemiring and 2 plane Kalman a sweep, NLDS 2 logsemiring
+    and 2 lane Kalman a sweep, the rest none, and no plain version.  Then calcium's
     configuration (zero-width z blocks) card f32 vs CPU f64 from one numpy
     state over 3 sweeps within relative 1e-4.  Returns the launches by
     example."""
@@ -3971,7 +3974,7 @@ def check_leg_launches(leg, name, ranks):
     ran no plain scan."""
     want = {"dmbd": SCAN_PAIR_WANT, "dmbd_big": SCAN_PAIR_WANT, "dmbd_long": SCAN_PAIR_WANT,
             "mixlds": LANE_WANT, "mixlds_long": LANE_WANT, "hmm": ROLE_SCAN_WANT,
-            "dhmm": ROLE_SCAN_WANT, "nlds": LANE_WANT, "nlds_fresh": LANE_WANT,
+            "dhmm": ROLE_SCAN_WANT, "nlds": NLDS_WANT, "nlds_fresh": NLDS_WANT,
             **{f"{n}{big}": {k: 0 for k in LANE_WANT} for n in TENSOR_HMM_LEGS
                for big in ("", "_big")}}[name]
     want = per_sweep(want, ranks[0][leg]["sweeps"])

@@ -11,14 +11,23 @@ Generative model:
 Structured mean-field VB: q(x) is a Gaussian chain from the scan-based
 Kalman smoother (``ops.parallel_kalman``: the lane or plane Kalman scan
 kernels on the card) with per-time potentials mixed under q(s_t); q(s) is a
-Markov chain from the sequential input-driven forward-backward
-(``models/dhmm.py:driven_forward_backward``) with per-time transition
-logits from the MNLR at E[x_{t-1}].  The ELBO is the s-chain normalizer
-minus the parameter KLs.  ``batch_shape`` is ``()``.  Under
+Markov chain with per-time transition logits from the MNLR at E[x_{t-1}],
+from ``ops.parallel_hmm.driven_forward_backward_parallel`` (the logsemiring
+scan pair over per-time elements: the CUDA kernel for float32 tensors on
+the card, with no loop over T and no host sync; the plain fold on the CPU).
+The JAX package runs the sequential driven forward-backward
+(``models/dhmm.py:driven_forward_backward`` here), which the scan pair
+follows to float64 rounding.  The ELBO is the s-chain normalizer minus the
+parameter KLs.  ``batch_shape`` is ``()``.  Under
 ``parallel.data_parallel_update`` two ``batch_sum``s a sweep (the q(x)
 step's statistics; q(s_0)'s and logZ) and the MNLR's own complete the sums
 over the batch, and q(s) is this process's block of the whole batch's
 (``_shard_samples``).
+
+Spans (``utils/trace.py``): ``nlds.update`` > ``nlds.sweep`` (args: the
+sweep's index) > ``nlds.x_estep``, ``nlds.mstep``, ``nlds.s_estep``,
+``nlds.gate``, ``nlds.elbo``; then ``nlds.elbo_fetch`` inside
+``nlds.update``.
 """
 from __future__ import annotations
 
@@ -27,10 +36,12 @@ import torch
 
 from ..dists import Dirichlet, NormalInverseWishart
 from ..dists.mvn_vector_format import MultivariateNormal_vector_format as MVN_vf
+from ..ops.parallel_hmm import driven_forward_backward_parallel
 from ..transforms import MatrixNormalWishart, MultiNomialLogisticRegression
 from ..utils import math as um
 from ..utils.linalg import mT
 from ..utils.torchutils import batch_sum, default_device, sum_leading
+from ..utils.trace import span
 
 
 class NonLinearDynamicalSystems:
@@ -181,70 +192,74 @@ class NonLinearDynamicalSystems:
         """One sweep from q(s) = p: q(x), then the M-steps weighted by p, then
         q(s) from the updated parameters, then the transition MNLR and pi0.
         Updates the nodes in place; returns (new q(s), q(x), logZ, ELBO)."""
-        from .dhmm import driven_forward_backward
-
-        dp = self._dyn_parms(self.A)
-        op = self._obs_parms(self.B)
-
         # ---- q(x) given q(s)
-        px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, _ = self._x_step(
-            self.x0, dp, op, p, y
-        )
-        moments = self._moments(px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0)
-        Exx, Ex, C, Exx_prev, Ex_prev = moments
+        with span("nlds.x_estep"):
+            dp = self._dyn_parms(self.A)
+            op = self._obs_parms(self.B)
+            px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0, _ = self._x_step(
+                self.x0, dp, op, p, y
+            )
+            moments = self._moments(px, Sigma_cross, Sigma_x0_cross, Sigma_x0_x0, mu_x0)
+            Exx, Ex, C, Exx_prev, Ex_prev = moments
 
         # ---- M-steps first, weighted by the input q(s), so that the q(s)
         # update below sees the freshly fitted parameters
-        K = self.mixture_dim
-        N0 = torch.as_tensor(float(np.prod(y.shape[1:2])), dtype=y.dtype, device=y.device)
-        ones = torch.ones_like(Ex[..., :1, :1])
-        # dynamics A_s: regress x_t on [x_{t-1}; 1]
-        Ex1x1 = torch.cat([torch.cat([Exx_prev, Ex_prev], -1),
-                           torch.cat([mT(Ex_prev), ones], -1)], -2)   # (T,b,h+1,h+1)
-        Ex_x1 = torch.cat([mT(C), Ex], -1)                             # (T,b,h,h+1)
-        # emissions B_s: regress y_t on [x_t; 1]
-        Exy1 = torch.cat([torch.cat([Exx, Ex], -1), torch.cat([mT(Ex), ones], -1)], -2)
-        SE_y_x1 = torch.cat([y @ mT(Ex), y @ ones], -1)
+        with span("nlds.mstep"):
+            K = self.mixture_dim
+            N0 = torch.as_tensor(float(np.prod(y.shape[1:2])), dtype=y.dtype, device=y.device)
+            ones = torch.ones_like(Ex[..., :1, :1])
+            # dynamics A_s: regress x_t on [x_{t-1}; 1]
+            Ex1x1 = torch.cat([torch.cat([Exx_prev, Ex_prev], -1),
+                               torch.cat([mT(Ex_prev), ones], -1)], -2)   # (T,b,h+1,h+1)
+            Ex_x1 = torch.cat([mT(C), Ex], -1)                             # (T,b,h,h+1)
+            # emissions B_s: regress y_t on [x_t; 1]
+            Exy1 = torch.cat([torch.cat([Exx, Ex], -1), torch.cat([mT(Ex), ones], -1)], -2)
+            SE_y_x1 = torch.cat([y @ mT(Ex), y @ ones], -1)
 
-        def wsum(a):
-            return torch.einsum("tbk,tbij->kij", p, a)
+            def wsum(a):
+                return torch.einsum("tbk,tbij->kij", p, a)
 
-        # the sums over the batch of the q(x) step, for x0, A and B
-        SExx0, SEx0, N0, *SE, Nk = batch_sum(
-            sum_leading(Sigma_x0_x0 + mu_x0 @ mT(mu_x0), 2), sum_leading(mu_x0[..., 0], 1),
-            N0, *(wsum(a) for a in (Ex1x1, Ex_x1, Exx, Exy1, SE_y_x1, y @ mT(y))),
-            p.sum((0, 1)))
-        self.x0 = self.x0.ss_update(SExx0, SEx0, N0, lr)
-        self.A = self.A.ss_update(*SE[:3], Nk, lr)
-        self.B = self.B.ss_update(*SE[3:], Nk, lr)
+            # the sums over the batch of the q(x) step, for x0, A and B
+            SExx0, SEx0, N0, *SE, Nk = batch_sum(
+                sum_leading(Sigma_x0_x0 + mu_x0 @ mT(mu_x0), 2), sum_leading(mu_x0[..., 0], 1),
+                N0, *(wsum(a) for a in (Ex1x1, Ex_x1, Exx, Exy1, SE_y_x1, y @ mT(y))),
+                p.sum((0, 1)))
+            self.x0 = self.x0.ss_update(SExx0, SEx0, N0, lr)
+            self.A = self.A.ss_update(*SE[:3], Nk, lr)
+            self.B = self.B.ss_update(*SE[3:], Nk, lr)
 
         # ---- q(s) given q(x) and the updated parameters
-        dp = self._dyn_parms(self.A)
-        op = self._obs_parms(self.B)
-        obs_logits = self._s_logits(dp, op, moments, y)       # (T,b,K)
-        # transition logits at E[x_{t-1}] per source state; the t=0 row
-        # carries the initial distribution (a uniform pseudo-state before it)
-        feats = Ex_prev[..., 0]                                # (T,b,h)
-        trans = self.T.log_predict(feats[..., None, :])        # (T,b,K,K)
-        init_row = self.pi0.loggeomean()[..., None, :].expand(trans.shape[1:])
-        trans = torch.cat([init_row[None], trans[1:]], 0)
-        init_logits = torch.full((K,), -np.log(float(K)), dtype=y.dtype, device=y.device)
-        ps, SEzz, _, logZs = driven_forward_backward(trans, init_logits, obs_logits, 1.0)
+        with span("nlds.s_estep"):
+            dp = self._dyn_parms(self.A)
+            op = self._obs_parms(self.B)
+            obs_logits = self._s_logits(dp, op, moments, y)       # (T,b,K)
+            # transition logits at E[x_{t-1}] per source state; the t=0 row
+            # carries the initial distribution (a uniform pseudo-state before it)
+            feats = Ex_prev[..., 0]                                # (T,b,h)
+            trans = self.T.log_predict(feats[..., None, :])        # (T,b,K,K)
+            init_row = self.pi0.loggeomean()[..., None, :].expand(trans.shape[1:])
+            trans = torch.cat([init_row[None], trans[1:]], 0)
+            init_logits = torch.full((K,), -np.log(float(K)), dtype=y.dtype, device=y.device)
+            ps, SEzz, _, logZs = driven_forward_backward_parallel(
+                trans, init_logits, obs_logits, 1.0)
 
-        # recurrent transition MNLR: features x_{t-1}, soft labels xi_t
-        self.T.raw_update(feats[1:][..., None, :], SEzz[1:], iters=2, lr=lr)
-        # q(s_0) is the first smoothed marginal; its sum and logZ's over the batch
-        SEs0, logZ = batch_sum(sum_leading(ps[0], 1), logZs.sum())
-        self.pi0 = self.pi0.ss_update(SEs0, lr)
+        with span("nlds.gate"):
+            # recurrent transition MNLR: features x_{t-1}, soft labels xi_t
+            self.T.raw_update(feats[1:][..., None, :], SEzz[1:], iters=2, lr=lr)
+            # q(s_0) is the first smoothed marginal; its sum and logZ's over the batch
+            SEs0, logZ = batch_sum(sum_leading(ps[0], 1), logZs.sum())
+            self.pi0 = self.pi0.ss_update(SEs0, lr)
 
-        KL = (
-            self.x0.KLqprior()
-            + self.A.KLqprior().sum(-1)
-            + self.B.KLqprior().sum(-1)
-            + self.T.KLqprior().sum()
-            + self.pi0.KLqprior()
-        )
-        return ps, px, logZs, logZ - KL
+        with span("nlds.elbo"):
+            KL = (
+                self.x0.KLqprior()
+                + self.A.KLqprior().sum(-1)
+                + self.B.KLqprior().sum(-1)
+                + self.T.KLqprior().sum()
+                + self.pi0.KLqprior()
+            )
+            ELBO = logZ - KL
+        return ps, px, logZs, ELBO
 
     def _initial_p(self, T, b, like):
         """Symmetry breaking: q(s) half on a random state per segment of
@@ -277,16 +292,21 @@ class NonLinearDynamicalSystems:
         is already set."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
-        if y.ndim == 3:
-            y = y[..., None]
-        p = self.p if self.p is not None else self._initial_p(*y.shape[:2], y)
-        ELBOs = []
-        for _ in range(iters):
-            p, px, logZ, ELBO = self._vb_step(p, y, lr)
-            ELBOs.append(ELBO)
-        self.p, self.logZ = p, logZ
-        self.px = MVN_vf(mu=px.mu, Sigma=px.Sigma)
-        for e in torch.stack(ELBOs).cpu().numpy():  # one host fetch
+        with span("nlds.update"):
+            if y.ndim == 3:
+                y = y[..., None]
+            p = self.p if self.p is not None else self._initial_p(*y.shape[:2], y)
+            ELBOs = []
+            done = len(self.ELBO_save)
+            for i in range(iters):
+                with span("nlds.sweep", {"sweep": done + i}):
+                    p, px, logZ, ELBO = self._vb_step(p, y, lr)
+                ELBOs.append(ELBO)
+            self.p, self.logZ = p, logZ
+            self.px = MVN_vf(mu=px.mu, Sigma=px.Sigma)
+            with span("nlds.elbo_fetch"):
+                elbos = torch.stack(ELBOs).cpu().numpy()  # one host fetch
+        for e in elbos:
             if verbose:
                 print("Percent Change in ELBO = ",
                       (e - self.ELBO_last) / np.abs(self.ELBO_last) * 100)

@@ -37,6 +37,23 @@ def _stick_breaking_stats(Y):
     return N[..., :-1], YmN[..., :-1]
 
 
+def _pg_c(q):
+    """The Polya-Gamma c = sqrt(x' <w w'> x) from its quadratic form q.  q
+    is >= 0, but in float32 a form near 0 (a sample on a class boundary,
+    <w w'> ~ mu mu') can round below it; it is floored at the dtype's
+    smallest normal number, where pgb / 2 / c * tanh(c / 2) is still
+    pgb / 4, rather than giving NaN."""
+    return torch.sqrt(q.clamp_min(torch.finfo(q.dtype).tiny))
+
+
+def _log_cosh(x):
+    """log cosh x for x >= 0, as x + log1p(exp(-2 x)) - log 2: cosh itself
+    overflows float32 above x ~ 89 (sharp transitions, c = |w'x| in the
+    hundreds), and the bound's 0 * inf for the sticks past a class would
+    then give NaN."""
+    return x + torch.log1p(torch.exp(-2.0 * x)) - um.LOG2
+
+
 def _ones_col(X):
     return torch.ones(X.shape[:-1] + (1,), dtype=X.dtype, device=X.device)
 
@@ -124,7 +141,7 @@ class MultiNomialLogisticRegression:
         SEyx, = batch_sum(SEyx)
         new_beta = beta_node
         for _ in range(iters):
-            pgc = torch.sqrt((new_beta.EXXT() * EXXT).sum((-1, -2)))
+            pgc = _pg_c((new_beta.EXXT() * EXXT).sum((-1, -2)))
             Ew = (pgb / 2.0 / pgc * torch.tanh(pgc / 2.0))[..., None, None]
             if p is None:
                 SExx = (Ew * EXXT).sum(sdims)
@@ -161,7 +178,7 @@ class MultiNomialLogisticRegression:
             XB = (EX @ BBT.permute(1, 0, 2).reshape(pdim, -1)).reshape(
                 S, self.n, pdim
             )
-            pgc = torch.sqrt((XB * EX[:, None, :]).sum(-1))
+            pgc = _pg_c((XB * EX[:, None, :]).sum(-1))
             Ew = pgb / 2.0 / pgc * torch.tanh(pgc / 2.0)  # (S, n)
             SExx = weighted_outer(EX, Ew.contiguous())  # (n, p, p)
             new_beta = new_beta.ss_update(SExx, SEyx, lr=lr, beta=beta)
@@ -182,7 +199,7 @@ class MultiNomialLogisticRegression:
             SEyx = (YmN * EX * p[..., None, None, None]).sum(sdims)
         new_beta = beta_node
         for _ in range(iters):
-            pgc = torch.sqrt((new_beta.EXXT() * EXXT).sum((-1, -2)))
+            pgc = _pg_c((new_beta.EXXT() * EXXT).sum((-1, -2)))
             Ew = (pgb / 2.0 / pgc * torch.tanh(pgc / 2.0))[..., None, None]
             if p is None:
                 SExx = (Ew * EXXT).sum(sdims)
@@ -201,7 +218,7 @@ class MultiNomialLogisticRegression:
     def _bound(self, SEyxb, pgb, pgc):
         return (
             SEyxb.sum(-1)
-            - (pgb * torch.log(torch.cosh(0.5 * pgc))).sum(-1)
+            - (pgb * _log_cosh(0.5 * pgc)).sum(-1)
             - pgb.sum(-1) * um.LOG2
         )
 
@@ -215,7 +232,7 @@ class MultiNomialLogisticRegression:
         SEyxb = YmN * (Xr * self.beta.mean()[..., 0]).sum(-1)
         # x' <b b'> x for every class: one (samples, p) @ (p, n p) matmul for
         # unbatched weights (bquad), not a (p, p) @ (p, 1) product a sample
-        pgc = torch.sqrt(bquad(Xr, self.beta.EXXT()))
+        pgc = _pg_c(bquad(Xr, self.beta.EXXT()))
         return self._bound(SEyxb, pgb, pgc)
 
     @highest_precision
@@ -223,7 +240,7 @@ class MultiNomialLogisticRegression:
         EX, EXXT = self._padded_moments(pX)
         pgb, YmN = _stick_breaking_stats(Y)
         SEyxb = (YmN[..., None] * EX[..., 0] * self.beta.mean()[..., 0]).sum(-1)
-        pgc = torch.sqrt((EXXT * self.beta.EXXT()).sum((-1, -2)))
+        pgc = _pg_c((EXXT * self.beta.EXXT()).sum((-1, -2)))
         return self._bound(SEyxb, pgb, pgc)
 
     # -- latent-X message (reference MNLR.Elog_like_X :208-242) --------------------
@@ -232,7 +249,7 @@ class MultiNomialLogisticRegression:
         pgb, YmN = _stick_breaking_stats(pY)
 
         BBT = self.beta.EXXT()
-        pgc = torch.sqrt(BBT.sum((-1, -2)))
+        pgc = _pg_c(BBT.sum((-1, -2)))
         Ew = pgb / 2.0 / pgc * torch.tanh(pgc / 2.0)
         bmean = self.beta.mean()
 
@@ -248,7 +265,7 @@ class MultiNomialLogisticRegression:
                 invSigma = like_X.EinvSigma() + invSigma
                 Sigma = psd_inv(invSigma)
                 mu = Sigma @ invSigmamu
-                pgc = torch.sqrt(
+                pgc = _pg_c(
                     (
                         BBT[..., :-1, :-1] * (Sigma + mu @ mT(mu))[..., None, :, :]
                     ).sum((-1, -2))
@@ -262,7 +279,7 @@ class MultiNomialLogisticRegression:
                 invSigma = like_X.EinvSigma() + invSigma
                 Sigma = psd_inv(invSigma)
                 mu = Sigma @ invSigmamu
-                pgc = torch.sqrt(
+                pgc = _pg_c(
                     (BBT * (Sigma + mu @ mT(mu))[..., None, :, :]).sum((-1, -2))
                 )
             Ew = pgb / 2.0 / pgc * torch.tanh(pgc / 2.0)
@@ -276,7 +293,7 @@ class MultiNomialLogisticRegression:
             Res = -pgb.sum(-1) * um.LOG2 + (
                 YmN * (bmean * mu[..., None, :, :]).sum((-1, -2))
             ).sum(-1)
-        Res = Res - (pgb * torch.log(torch.cosh(0.5 * pgc))).sum(-1) + like_X.Res()
+        Res = Res - (pgb * _log_cosh(0.5 * pgc)).sum(-1) + like_X.Res()
         return invSigma, invSigmamu, Sigma, mu, Res
 
     @highest_precision
@@ -308,8 +325,8 @@ class MultiNomialLogisticRegression:
         X = self._padded(X)
         lnpsb = X @ mT(self.beta.mean()[..., 0])
         Xc = X[..., None, :, None]
-        pgc = torch.sqrt((Xc * (self.beta.EXXT() @ Xc)).sum(-2)[..., 0])
-        lnpsb_N = -torch.log(torch.cosh(0.5 * pgc)) - um.LOG2
+        pgc = _pg_c((Xc * (self.beta.EXXT() @ Xc)).sum(-2)[..., 0])
+        lnpsb_N = -_log_cosh(0.5 * pgc) - um.LOG2
         lnpsb_0 = -0.5 * lnpsb.sum(-1, keepdim=True) + lnpsb_N.sum(-1, keepdim=True)
         lnpsb = lnpsb - 0.5 * torch.cumsum(lnpsb, -1) + torch.cumsum(lnpsb_N, -1)
         return torch.cat([lnpsb, lnpsb_0], -1)
@@ -323,13 +340,13 @@ class MultiNomialLogisticRegression:
         Xr = X[..., None, :]
         psi_bar = (Xr * self.beta.mean()[..., 0]).sum(-1)
         Xc = X[..., None, :, None]
-        pgc = torch.sqrt((Xc * (self.beta.EXXT() @ Xc)).sum(-2)[..., 0])
+        pgc = _pg_c((Xc * (self.beta.EXXT() @ Xc)).sum(-2)[..., 0])
         Ew = 0.5 / pgc * torch.tanh(0.5 * pgc)
         psi_var = (Xc * (self.beta.ESigma() @ Xc)).sum((-2, -1))
         nat1_plus = 0.5 + psi_bar / psi_var
         nat1_minus = nat1_plus - 1.0
         nat2 = Ew + 1.0 / psi_var
-        Res = torch.log(torch.cosh(0.5 * pgc))
+        Res = _log_cosh(0.5 * pgc)
         lnpsb = (
             0.5 * nat1_plus**2 / nat2
             - 0.5 * torch.log(nat2)

@@ -24,7 +24,14 @@ sweep's index) > ``mixlds.lds_estep`` (the observation messages, the
 smoother and the sufficient statistics), ``mixlds.responsibilities`` (the
 KL terms, the softmax over the systems and the ELBO), ``mixlds.mstep``
 (pi, x_{-1}, A and the observation model); then ``mixlds.elbo_fetch``
-inside ``mixlds.update``.  The smoothers open
+inside ``mixlds.update``.  Spans of the NLDS sweep (``models/nlds.py``):
+``nlds.update`` > ``nlds.sweep`` (args: the sweep's index) >
+``nlds.x_estep`` (the potentials mixed under q(s), the observation
+messages, the smoother and the moments), ``nlds.mstep`` (x_{-1}, A and B),
+``nlds.s_estep`` (the observation and transition logits and the driven
+forward-backward), ``nlds.gate`` (the transition MNLR, then pi0),
+``nlds.elbo`` (the KL terms); then ``nlds.elbo_fetch`` inside
+``nlds.update``.  The smoothers open
 ``hmm.forward_backward`` (``ops/parallel_hmm.py``) and ``kalman.smoother``
 (``ops/parallel_kalman.py``), and each scan ``scan.<route>``
 (``ops/scan.py``: ``scan.kalman_plane_scan``,
